@@ -1,0 +1,234 @@
+"""27-point stencil SpMV: hand-written CUDA kernels for Hopper, their
+bindings, and their plain PyTorch twins (the counterpart of
+pelvistim_fem_tpu/ops/pallas_stencil.py).
+
+  stencil_spmv(x, C)                   y = K x, one combined stencil
+      CUDA: stencil_spmv_cuda          replaces stencil_spmv_flat
+      twin: stencil_spmv_plain
+  batched_stencil_spmv(X, coeff, sig)  Y[l] = sum_o (sum_b sig[l, b]
+                                        C_b[o]) * shift_o(X[l])
+      CUDA: batched_stencil_spmv_cuda  replaces batched_stencil_spmv_flat
+      twin: batched_stencil_spmv_plain
+
+Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
+CUDA tensor launches the kernel, and a build or launch failure raises.
+
+The kernels live in csrc/stencil.cu behind a plain C interface.  At first
+use on a CUDA tensor, `build()` compiles it with nvcc for sm_90a into
+`pelvistim_fem_tpu_torch/_build/` (a library named by the hash of the
+source, so an edited source is rebuilt) and loads it with ctypes.  Each
+CUDA wrapper adds one to `LAUNCHES[name]` where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+# Offset order: o = (dx+1)*9 + (dy+1)*3 + (dz+1);  o == 13 is the diagonal.
+OFFSETS = [(dx, dy, dz)
+           for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+DIAG_OFFSET = 13
+
+_CSRC = Path(__file__).resolve().parent / "csrc" / "stencil.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# Launch counts of the CUDA wrappers (reset with reset_launches()).
+LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ── plain PyTorch twins ────────────────────────────────────────────────
+
+
+def stencil_spmv_plain(x, C):
+    """y = K x via 27 shifted multiply-adds.  x (X, Y, Z), C (27, X, Y,
+    Z); neighbours outside the grid read 0."""
+    X, Y, Z = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
+    y = torch.zeros_like(x)
+    for o, (dx, dy, dz) in enumerate(OFFSETS):
+        y = y + C[o] * xp[1 + dx:1 + dx + X, 1 + dy:1 + dy + Y,
+                          1 + dz:1 + dz + Z]
+    return y
+
+
+def batched_stencil_spmv_plain(Xs, coeff, sig):
+    """Lane-stacked body-factored SpMV.  Xs (L, X, Y, Z), coeff (B, 27,
+    X, Y, Z), sig (L, B):  Y[l] = sum_o (sum_b sig[l, b] C_b[o]) *
+    shift_o(Xs[l])."""
+    L, X, Y, Z = Xs.shape
+    B = coeff.shape[0]
+    Xp = torch.nn.functional.pad(Xs, (1, 1, 1, 1, 1, 1))
+    Ys = torch.zeros_like(Xs)
+    s = sig[:, :, None, None, None]
+    for o, (dx, dy, dz) in enumerate(OFFSETS):
+        shifted = Xp[:, 1 + dx:1 + dx + X, 1 + dy:1 + dy + Y,
+                     1 + dz:1 + dz + Z]
+        acc = torch.zeros_like(Xs)
+        for b in range(B):
+            acc = acc + s[:, b] * coeff[b, o]
+        Ys = Ys + acc * shifted
+    return Ys
+
+
+# ── build and bind ─────────────────────────────────────────────────────
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: nvcc is needed to "
+                           "build the stencil kernels")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library.  Idempotent."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = _CSRC.read_bytes()
+        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        out = BUILD_DIR / f"libpst_stencil_{tag}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", str(tmp), str(_CSRC)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed building the stencil "
+                                   f"kernels:\n{proc.stderr}")
+            if verbose:
+                print(proc.stderr, end="")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_stencil_spmv_{dt}")
+            fn.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
+            fn.restype = i
+            fn = getattr(lib, f"pst_batched_stencil_spmv_{dt}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
+            fn.restype = i
+        lib.pst_max_bodies.argtypes = []
+        lib.pst_max_bodies.restype = i
+        lib.pst_error_string.argtypes = [i]
+        lib.pst_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(name, dtype, device, **tensors):
+    for arg, t in tensors.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: {arg} must lie on {device}, "
+                             f"got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        "(float32, float64)")
+
+
+def _raise_on(lib, name, rc):
+    if rc != 0:
+        msg = lib.pst_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
+
+
+def stencil_spmv_cuda(x, C):
+    """CUDA kernel for y = K x.  x (X, Y, Z), C (27, X, Y, Z), both
+    contiguous float32 or float64 on one CUDA device."""
+    _check("stencil_spmv_cuda", x.dtype, x.device, x=x, C=C)
+    if x.dim() != 3 or tuple(C.shape) != (27,) + tuple(x.shape):
+        raise ValueError(f"stencil_spmv_cuda: shapes x {tuple(x.shape)}, "
+                         f"C {tuple(C.shape)}")
+    lib = build()
+    y = torch.empty_like(x)
+    X, Y, Z = x.shape
+    fn = getattr(lib, f"pst_stencil_spmv_{_SUFFIX[x.dtype]}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), C.data_ptr(), y.data_ptr(), X, Y, Z, stream)
+    _raise_on(lib, "stencil_spmv_cuda", rc)
+    LAUNCHES["stencil_spmv_cuda"] += 1
+    return y
+
+
+def batched_stencil_spmv_cuda(Xs, coeff, sig):
+    """CUDA kernel for the lane-batched body-factored SpMV.  Xs (L, X, Y,
+    Z), coeff (B, 27, X, Y, Z), sig (L, B), all contiguous float32 or
+    float64 on one CUDA device; B at most 8."""
+    _check("batched_stencil_spmv_cuda", Xs.dtype, Xs.device, Xs=Xs,
+           coeff=coeff, sig=sig)
+    L = Xs.shape[0]
+    B = coeff.shape[0]
+    if (Xs.dim() != 4 or coeff.dim() != 5
+            or tuple(coeff.shape[1:]) != (27,) + tuple(Xs.shape[1:])
+            or tuple(sig.shape) != (L, B)):
+        raise ValueError("batched_stencil_spmv_cuda: shapes Xs "
+                         f"{tuple(Xs.shape)}, coeff {tuple(coeff.shape)}, "
+                         f"sig {tuple(sig.shape)}")
+    lib = build()
+    if not 1 <= B <= lib.pst_max_bodies():
+        raise ValueError(f"batched_stencil_spmv_cuda: {B} bodies, the "
+                         f"kernel takes 1..{lib.pst_max_bodies()}")
+    Ys = torch.empty_like(Xs)
+    _, X, Y, Z = Xs.shape
+    fn = getattr(lib, f"pst_batched_stencil_spmv_{_SUFFIX[Xs.dtype]}")
+    with torch.cuda.device(Xs.device):
+        stream = torch.cuda.current_stream(Xs.device).cuda_stream
+        rc = fn(Xs.data_ptr(), coeff.data_ptr(), sig.data_ptr(),
+                Ys.data_ptr(), L, B, X, Y, Z, stream)
+    _raise_on(lib, "batched_stencil_spmv_cuda", rc)
+    LAUNCHES["batched_stencil_spmv_cuda"] += 1
+    return Ys
+
+
+# ── dispatch by device ─────────────────────────────────────────────────
+
+
+def stencil_spmv(x, C):
+    """y = K x: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors."""
+    if x.is_cuda:
+        return stencil_spmv_cuda(x, C)
+    return stencil_spmv_plain(x, C)
+
+
+def batched_stencil_spmv(Xs, coeff, sig):
+    """Lane-batched body-factored SpMV: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    if Xs.is_cuda:
+        return batched_stencil_spmv_cuda(Xs, coeff, sig)
+    return batched_stencil_spmv_plain(Xs, coeff, sig)

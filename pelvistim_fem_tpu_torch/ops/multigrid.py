@@ -1,0 +1,504 @@
+"""Geometric multigrid for the stencil operator (PyTorch twin of the
+certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
+
+  * Coarsening: every other knot on each lattice axis.
+  * Transfers: trilinear prolongation P from knot positions, restriction
+    R = P^T, both per axis.  Restriction is a deterministic fixed-order
+    gather-sum (each coarse knot reads at most a handful of fine knots
+    through a padded per-axis table), not a scatter-add: CUDA's atomic
+    index_add_ would make the hierarchy, and so the iteration counts,
+    change from run to run.
+  * Coarse operators by Galerkin probing (ops/lattice_assembly.py).
+  * Smoother: damped Jacobi (omega = 0.7), nu pre and post sweeps; the
+    coarsest level takes a fixed number of CG iterations, so the V-cycle
+    is a fixed SPD operator usable inside CG.
+
+Two solvers: `solve_stencil_mg_refined` (one operator, the megatet leg)
+and `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
+sweep with body-factored coefficients, the step04 sweep leg).  Both
+refine an f32 MG-CG inner solve against an f64 master operator until
+the TRUE f64 relative residual meets `tol`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pelvistim_fem_tpu_torch.ops.solve import SolveResult, preconditioned_cg
+from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
+                                                 _operator,
+                                                 batched_stencil_spmv,
+                                                 batched_stencil_spmv_fused,
+                                                 combine_coeffs,
+                                                 stencil_spmv)
+
+
+def _axis_weights(fine: np.ndarray, coarse_idx: np.ndarray):
+    """Per-fine-knot (left_coarse_slot, w_left) trilinear weights."""
+    coarse = fine[coarse_idx]
+    slot = np.searchsorted(coarse, fine, side="right") - 1
+    slot = np.clip(slot, 0, len(coarse) - 2)
+    x0 = coarse[slot]
+    x1 = coarse[slot + 1]
+    t = (fine - x0) / np.maximum(x1 - x0, 1e-300)
+    t = np.clip(t, 0.0, 1.0)
+    return slot, 1.0 - t
+
+
+def _restrict_table(slot, wl, nc):
+    """Per-coarse-knot gather table of R = P^T along one axis: coarse c
+    sums w[c, k] * fine[idx[c, k]] over k in a fixed order (padding
+    entries carry weight 0).  Entries are listed as the two scatter
+    passes of P^T would add them: left weights first, then right."""
+    rows = [[] for _ in range(nc)]
+    for f, (s, w) in enumerate(zip(slot, wl)):
+        rows[s].append((0, f, w))
+        rows[s + 1].append((1, f, 1.0 - w))
+    K = max(len(r) for r in rows)
+    idx = np.zeros((nc, K), np.int64)
+    wt = np.zeros((nc, K))
+    for c, r in enumerate(rows):
+        for k, (_, f, w) in enumerate(sorted(r, key=lambda e: e[:2])):
+            idx[c, k] = f
+            wt[c, k] = w
+    return idx, wt
+
+
+class Transfer:
+    """Trilinear prolongation / restriction between one lattice and its
+    every-other-knot coarsening.  Both apply to (..., X, Y, Z) tensors
+    with any leading batch axes.  Index and weight tensors are made once
+    per (device, dtype) and cached."""
+
+    def __init__(self, axes):
+        self.slots, self.weights, self.tables, nc = [], [], [], []
+        coarse_axes = []
+        for ax in axes:
+            ax = np.asarray(ax, np.float64)
+            n = len(ax)
+            ci = np.arange(0, n, 2)
+            if ci[-1] != n - 1:
+                ci = np.append(ci, n - 1)
+            slot, wl = _axis_weights(ax, ci)
+            self.slots.append(slot.astype(np.int64))
+            self.weights.append(wl)
+            self.tables.append(_restrict_table(slot, wl, len(ci)))
+            nc.append(len(ci))
+            coarse_axes.append(ax[ci])
+        self.nc = tuple(nc)
+        self.fine_shape = tuple(len(a) for a in axes)
+        self.coarse_axes = tuple(coarse_axes)
+        self._cache = {}
+
+    def _tensors(self, device, dtype):
+        key = (device, dtype)
+        if key not in self._cache:
+            as_i = lambda a: torch.as_tensor(a, device=device)
+            as_f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+            pro = []
+            for s, w in zip(self.slots, self.weights):
+                v = as_f(w)
+                # the right weight is formed in the operand dtype, as the
+                # reference's device path does
+                pro.append((as_i(s), as_i(s + 1), v, 1 - v))
+            res = [(as_i(idx), as_f(wt)) for idx, wt in self.tables]
+            self._cache[key] = (pro, res)
+        return self._cache[key]
+
+    @staticmethod
+    def _bcast(w, axis):
+        shape = [1, 1, 1]
+        shape[axis] = -1
+        return w.reshape(shape)
+
+    def prolong(self, xc):
+        """(..., Xc, Yc, Zc) -> (..., X, Y, Z)."""
+        pro, _ = self._tensors(xc.device, xc.dtype)
+        x = xc
+        for a, (s0, s1, wl, wr) in enumerate(pro):
+            dim = x.dim() - 3 + a
+            x = (x.index_select(dim, s0) * self._bcast(wl, a)
+                 + x.index_select(dim, s1) * self._bcast(wr, a))
+        return x
+
+    def restrict(self, xf):
+        """(..., X, Y, Z) -> (..., Xc, Yc, Zc), the transpose of prolong."""
+        _, res = self._tensors(xf.device, xf.dtype)
+        y = xf
+        for a, (idx, wt) in enumerate(res):
+            dim = y.dim() - 3 + a
+            acc = None
+            for k in range(idx.shape[1]):
+                term = (y.index_select(dim, idx[:, k])
+                        * self._bcast(wt[:, k], a))
+                acc = term if acc is None else acc + term
+            y = acc
+        return y
+
+
+@dataclasses.dataclass
+class MGLevel:
+    coeff: torch.Tensor      # (n_bodies, 27, X, Y, Z)
+    free: torch.Tensor       # (X, Y, Z) bool
+
+
+@dataclasses.dataclass
+class MGHierarchy:
+    levels: tuple            # tuple[MGLevel], finest -> coarsest
+    transfers: tuple = ()    # tuple[Transfer], len(levels) - 1
+
+    def astype(self, dtype) -> "MGHierarchy":
+        """Copy with the level coefficients cast to `dtype`."""
+        return MGHierarchy(
+            levels=tuple(MGLevel(coeff=lv.coeff.to(dtype), free=lv.free)
+                         for lv in self.levels),
+            transfers=self.transfers)
+
+
+def _level_op(level: MGLevel, sigma_table):
+    C = combine_coeffs(level.coeff, sigma_table).contiguous()
+    free = level.free
+    diag = torch.where(free & (C[DIAG_OFFSET] != 0), C[DIAG_OFFSET], 1.0)
+
+    def op(x):
+        xm = torch.where(free, x, 0.0)
+        return torch.where(free, stencil_spmv(xm, C), x)
+
+    return op, diag
+
+
+def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
+               coarse_iters=24):
+    """One V-cycle over explicit level data (finest first), damped-Jacobi
+    smoothing.  ops_diags: [(op, diag)] per level; frees: level free
+    masks; transfers: Transfer between consecutive levels."""
+    n_levels = len(ops_diags)
+
+    def smooth(op, dinv, x, b, n):
+        for _ in range(n):
+            x = x + omega * dinv * (b - op(x))
+        return x
+
+    def smooth0(op, dinv, b, n):
+        # pre-smooth from x = 0: the first sweep is exactly omega*dinv*b
+        x = omega * dinv * b
+        return smooth(op, dinv, x, b, n - 1) if n > 1 else x
+
+    def cycle(level, b):
+        op, diag = ops_diags[level]
+        dinv = 1.0 / diag
+        if level == n_levels - 1:
+            # coarsest: fixed-iteration CG (a fixed SPD approximation)
+            z0 = dinv * b
+            x, r, p, rz = torch.zeros_like(b), b, z0, torch.sum(b * z0)
+            for _ in range(coarse_iters):
+                ap = op(p)
+                denom = torch.sum(p * ap)
+                alpha = rz / torch.where(denom != 0, denom, 1.0)
+                x = x + alpha * p
+                r = r - alpha * ap
+                z = dinv * r
+                rz_n = torch.sum(r * z)
+                beta = rz_n / torch.where(rz != 0, rz, 1.0)
+                p = z + beta * p
+                rz = rz_n
+            return x
+        x = smooth0(op, dinv, b, nu)
+        r = b - op(x)
+        rc = transfers[level].restrict(r)
+        rc = torch.where(frees[level + 1], rc, 0.0)
+        xc = cycle(level + 1, rc)
+        x = x + transfers[level].prolong(xc)
+        return smooth(op, dinv, x, b, nu)
+
+    return cycle(0, b)
+
+
+def make_v_cycle(hier: MGHierarchy, sigma_table, *, nu=2, omega=0.7,
+                 coarse_iters=24):
+    """SPD preconditioner apply(r) -> z (one Jacobi V-cycle)."""
+    ops_diags = [_level_op(lv, sigma_table) for lv in hier.levels]
+    frees = [lv.free for lv in hier.levels]
+
+    def apply(r):
+        return cycle_impl(ops_diags, frees, hier.transfers, r, nu=nu,
+                          omega=omega, coarse_iters=coarse_iters)
+
+    return apply
+
+
+def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
+                             sigma_table=None, *, tol=1e-8,
+                             inner_tol=3e-4, maxiter=2_000, nu=2,
+                             coarse_iters=24,
+                             max_refinements=8) -> SolveResult:
+    """Mixed-precision MG solve: f32 MG-CG inner sweeps + f64 residual
+    correction.  The returned `residual` is the TRUE f64 relative
+    residual: at the 7000x material contrast an f32 CG's recursive
+    residual decouples from the true one, so only refinement certifies
+    1e-8.  phi is returned in mesh node ordering."""
+    if sigma_table is None:
+        sigma_table = scase.sigma_table
+    sc64, sc32 = scase.astype(torch.float64), scase.astype(torch.float32)
+    hier32 = hier.astype(torch.float32)
+    sig64 = sigma_table.to(torch.float64)
+    sig32 = sigma_table.to(torch.float32)
+    op64, _, b64 = _operator(sc64, sig64)
+    op32, _, _ = _operator(sc32, sig32)
+    M32 = make_v_cycle(hier32, sig32, nu=nu, coarse_iters=coarse_iters)
+    free = scase.free
+
+    def Mp(r):
+        return torch.where(free, M32(torch.where(free, r, 0.0)), r)
+
+    bnorm = torch.sqrt(torch.sum(b64 * b64))
+    bden = torch.where(bnorm > 0, bnorm, 1.0)
+    x = torch.where(free, 0.0, sc64.dirichlet)
+    rel = torch.tensor(float("inf"), dtype=torch.float64, device=x.device)
+    total_it = 0
+    k = 0
+    while bool(rel > tol) and k < max_refinements:
+        r64 = b64 - op64(x)
+        # adaptive inner tolerance: the correction only has to shrink the
+        # true residual from rel to tol (x4 safety); pass 1 clips to
+        # inner_tol
+        need = 0.25 * tol / torch.clamp(rel, max=1.0)
+        tol_k = torch.clamp(need, inner_tol, 0.05)
+        res = preconditioned_cg(op32, r64.to(torch.float32), Mp,
+                                torch.zeros_like(r64, dtype=torch.float32),
+                                tol=tol_k, maxiter=maxiter)
+        x = x + res.phi.to(torch.float64)
+        rel = torch.sqrt(torch.sum((b64 - op64(x)) ** 2)) / bden
+        total_it += int(res.iterations)
+        k += 1
+    phi_nodes = x.reshape(-1)[scase.grid_index]
+    return SolveResult(phi=phi_nodes,
+                       iterations=torch.tensor(total_it), residual=rel,
+                       converged=rel <= tol)
+
+
+# ── Lane-stacked fused-SpMV multigrid (wide material sweeps) ──────────
+#
+# Every level runs on lane-stacked (L, X, Y, Z) arrays with the
+# body-factored batched SpMV: peak memory O(L*G + B*27*G), no per-lane
+# combined coefficients.
+
+
+def _lanes(v):
+    return v[:, None, None, None]
+
+
+def _red(a):
+    return torch.sum(a, dim=(1, 2, 3))
+
+
+def _fused_level_pieces(coeff, free, sig):
+    """(op, dinv, freeb) for one lane-stacked level.  coeff (B, 27, X, Y,
+    Z); free (X, Y, Z); sig (L, T) full sigma tables (body b at slot
+    b+1)."""
+    freeb = free[None]
+    coeff = coeff.contiguous()
+    B = coeff.shape[0]
+    sig_b = sig[:, 1:1 + B].to(coeff.dtype).contiguous()
+
+    def op(Xs):
+        Xm = torch.where(freeb, Xs, 0.0)
+        Ys = batched_stencil_spmv(Xm, coeff, sig_b)
+        return torch.where(freeb, Ys, Xs)
+
+    # per-lane diagonal as an explicit sum over bodies (no einsum: see
+    # stencil.combine_coeffs)
+    diag_l = _lanes(sig_b[:, 0]) * coeff[0, DIAG_OFFSET]
+    for b in range(1, B):
+        diag_l = diag_l + _lanes(sig_b[:, b]) * coeff[b, DIAG_OFFSET]
+    diag = torch.where(freeb & (diag_l != 0), diag_l, 1.0)
+    return op, 1.0 / diag, freeb
+
+
+def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
+    """One lane-stacked V-cycle (the recursion of cycle_impl with
+    lane-wise reductions).  pieces: _fused_level_pieces per level;
+    b (L, X, Y, Z) -> z (L, X, Y, Z)."""
+    levels = hier.levels
+    n_levels = len(levels)
+
+    def smooth(op, dinv, x, bb, n):
+        for _ in range(n):
+            x = x + omega * dinv * (bb - op(x))
+        return x
+
+    def cycle(level, b):
+        op, dinv, _ = pieces[level]
+        if level == n_levels - 1:
+            # coarsest: fixed-iteration lane-aware CG
+            z0 = dinv * b
+            x, r, p, rz = torch.zeros_like(b), b, z0, _red(b * z0)
+            for _ in range(coarse_iters):
+                ap = op(p)
+                denom = _red(p * ap)
+                alpha = rz / torch.where(denom != 0, denom, 1.0)
+                x = x + _lanes(alpha) * p
+                r = r - _lanes(alpha) * ap
+                z = dinv * r
+                rz_n = _red(r * z)
+                beta = rz_n / torch.where(rz != 0, rz, 1.0)
+                p = z + _lanes(beta) * p
+                rz = rz_n
+            return x
+        # the first sweep from x = 0 is exactly omega*dinv*b (saves the
+        # zero apply; bit-identical to sweeping from zeros)
+        x = smooth(op, dinv, omega * dinv * b, b, nu - 1) if nu else \
+            torch.zeros_like(b)
+        r = b - op(x)
+        rc = hier.transfers[level].restrict(r)
+        rc = torch.where(levels[level + 1].free[None], rc, 0.0)
+        xc = cycle(level + 1, rc)
+        x = x + hier.transfers[level].prolong(xc)
+        return smooth(op, dinv, x, b, nu)
+
+    return cycle(0, b)
+
+
+def _fused_pcg(op, b, M, x0, *, tol, maxiter):
+    """Lane-aware preconditioned CG on (L, X, Y, Z) state: dots reduce
+    over grid axes only, converged lanes FREEZE (torch.where, so a frozen
+    lane's discarded rz/0 never leaks).  `tol` may be a float or a
+    per-lane (L,) tensor.  Returns (x, iterations (L,)).  One host read
+    of the loop condition per iteration."""
+    nrm = lambda a: torch.sqrt(_red(a * a))
+    L = b.shape[0]
+
+    bnorm = nrm(b)
+    tol_abs = tol * bnorm
+
+    x = x0
+    r = b - op(x0)
+    z = M(r)
+    rz = _red(r * z)
+    p = z
+    k = torch.zeros(L, dtype=torch.int64, device=b.device)
+    done = nrm(r) <= tol_abs
+    while bool(torch.any(~done & (k < maxiter))):
+        ap = op(p)
+        alpha = rz / _red(p * ap)
+        x_n = x + _lanes(alpha) * p
+        r_n = r - _lanes(alpha) * ap
+        z_n = M(r_n)
+        rz_n = _red(r_n * z_n)
+        beta = rz_n / rz
+        p_n = z_n + _lanes(beta) * p
+        keep = _lanes(done)
+        x = torch.where(keep, x, x_n)
+        r = torch.where(keep, r, r_n)
+        z = torch.where(keep, z, z_n)
+        p = torch.where(keep, p, p_n)
+        rz = torch.where(done, rz, rz_n)
+        k = torch.where(done, k, k + 1)
+        done = done | (nrm(r) <= tol_abs)
+    return x, k
+
+
+def _fused_bc_pieces(scase, sig):
+    """Fine-level (op, b_eff, x0, freeb) for the lane-stacked system.
+    The operator comes from scase.coeff, NOT hier.levels[0], so an f64
+    master operator stays f64 beside an f32 hierarchy."""
+    L = sig.shape[0]
+    op, _, freeb = _fused_level_pieces(scase.coeff, scase.free, sig)
+    phi_d = torch.where(scase.free, 0.0, scase.dirichlet)
+    Kphi_d = batched_stencil_spmv_fused(
+        phi_d.expand((L,) + phi_d.shape).contiguous(),
+        scase.coeff.contiguous(), sig)
+    b_eff = torch.where(freeb, scase.b_neumann[None] - Kphi_d,
+                        scase.dirichlet[None])
+    x0 = phi_d.expand(b_eff.shape).clone()
+    return op, b_eff, x0, freeb
+
+
+def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
+                                   sigma_tables, x_init=None, *, tol=1e-8,
+                                   inner_tol=3e-4, maxiter=2_000, nu=2,
+                                   omega=0.7, coarse_iters=24,
+                                   max_refinements=8) -> SolveResult:
+    """Material sweep at TRUE f64-certified `tol`: f32 lane-stacked fused
+    MG-CG inner sweeps + f64 fused residual correction, lanes frozen on
+    convergence.
+
+    sigma_tables (L, T).  x_init: optional (L, X, Y, Z) f64 warm start
+    (Dirichlet slots must carry their lifted values).  scase/hier may be
+    any float dtype: the f64 master and f32 inner operators are both
+    derived here.  phi is returned (L, N) in mesh node ordering."""
+    sc64, sc32 = scase.astype(torch.float64), scase.astype(torch.float32)
+    hier32 = hier.astype(torch.float32)
+    sig64 = sigma_tables.to(torch.float64)
+    sig32 = sigma_tables.to(torch.float32)
+    L = sigma_tables.shape[0]
+
+    op64, b64, x0, freeb = _fused_bc_pieces(sc64, sig64)
+    op32, _, _ = _fused_level_pieces(sc32.coeff, sc32.free, sig32)
+    pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32)
+              for lv in hier32.levels]
+
+    def M32(r):
+        rm = torch.where(freeb, r, 0.0)
+        z = _fused_cycle(pieces, hier32, rm, nu=nu, omega=omega,
+                         coarse_iters=coarse_iters)
+        return torch.where(freeb, z, r)
+
+    nrm = lambda a: torch.sqrt(_red(a * a))
+    bnorm = nrm(b64)
+    bden = torch.where(bnorm > 0, bnorm, 1.0)
+    x = x0 if x_init is None else x_init.to(torch.float64)
+    rel = torch.full((L,), float("inf"), dtype=torch.float64,
+                     device=x.device)
+    total_it = torch.zeros(L, dtype=torch.int64, device=x.device)
+    k = 0
+    while bool(torch.any(rel > tol)) and k < max_refinements:
+        done = rel <= tol
+        r64 = b64 - op64(x)
+        need = 0.25 * tol / torch.clamp(rel, max=1.0)
+        tol_k = torch.clamp(need, inner_tol, 0.05)
+        dx, it = _fused_pcg(op32, r64.to(torch.float32), M32,
+                            torch.zeros_like(r64, dtype=torch.float32),
+                            tol=tol_k, maxiter=maxiter)
+        x_n = x + dx.to(torch.float64)
+        rel_n = nrm(b64 - op64(x_n)) / bden
+        x = torch.where(_lanes(done), x, x_n)
+        rel = torch.where(done, rel, rel_n)
+        total_it = torch.where(done, total_it, total_it + it)
+        k += 1
+    phi_nodes = x.reshape(L, -1)[:, scase.grid_index]
+    return SolveResult(phi=phi_nodes, iterations=total_it, residual=rel,
+                       converged=rel <= tol)
+
+
+def batched_mg_solve_fused_refined_chunked(scase: StencilCase,
+                                           hier: MGHierarchy,
+                                           sigma_tables, x_init=None, *,
+                                           lanes_per_chunk=25, **kw):
+    """batched_mg_solve_fused_refined in lane chunks: memory stays
+    O(lanes_per_chunk * G).  Every chunk has the same width (the last is
+    padded with repeats of its last lane, then trimmed), so every chunk
+    runs the same kernel shapes.  Results are concatenated in lane
+    order."""
+    L = sigma_tables.shape[0]
+    c = min(lanes_per_chunk, L)
+    outs = []
+    for i in range(0, L, c):
+        chunk = sigma_tables[i:i + c]
+        xi = None if x_init is None else x_init[i:i + c]
+        pad = c - chunk.shape[0]
+        if pad:
+            chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1)])
+            if xi is not None:
+                xi = torch.cat(
+                    [xi, xi[-1:].expand((pad,) + tuple(xi.shape[1:]))])
+        r = batched_mg_solve_fused_refined(scase, hier, chunk, xi, **kw)
+        if pad:
+            r = SolveResult(*(getattr(r, f.name)[:c - pad]
+                              for f in dataclasses.fields(r)))
+        outs.append(r)
+    return SolveResult(*(torch.cat([getattr(r, f.name) for r in outs])
+                         for f in dataclasses.fields(SolveResult)))

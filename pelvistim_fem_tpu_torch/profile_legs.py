@@ -1,0 +1,92 @@
+"""Device-time breakdown of the two certified solves on a CUDA card.
+
+    python -m pelvistim_fem_tpu_torch.profile_legs
+
+Profiles, warm, one 25-lane chunk of the step04 contact sweep (the
+rim-banded (89, 41, 19) lattice, the chunk with the hardest contact
+conductivities) and one megatet step03 assemble + solve, with
+torch.profiler.  For each it prints the wall time, the summed device
+time of all kernels, their ratio (the device busy share; the rest is
+host time between launches), the number of kernel launches, and the
+kernels that take the most device time.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def _profile(name, fn, top=12):
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                   # warm: build, caches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    print(f"{name}: wall {wall * 1e3:.2f} ms, device {dev_us / 1e3:.2f} ms, "
+          f"busy share {dev_us / 1e3 / (wall * 1e3):.3f}, "
+          f"{len(kernels)} kernel launches")
+    for kname, (n, t) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {t / 1e3:9.3f} ms {100 * t / max(dev_us, 1e-9):5.1f}% "
+              f"{n:7d}x  {kname[:90]}")
+    return wall, dev_us
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_legs: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = "cuda:0"
+
+    from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
+    from pelvistim_fem_tpu_torch.models.pressure import (
+        SWEEP_LANES_PER_CHUNK, sweep_spec)
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
+        assemble_lattice, solve_lattice_mg_refined, spec_device_arrays)
+    from pelvistim_fem_tpu_torch.ops.multigrid import \
+        batched_mg_solve_fused_refined
+
+    print(torch.cuda.get_device_name(0))
+    spec, _, tables = sweep_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    tabs = torch.as_tensor(tables[:SWEEP_LANES_PER_CHUNK], device=dev)
+    out = {}
+
+    def sweep_chunk():
+        out["sweep"] = batched_mg_solve_fused_refined(scase, hier, tabs,
+                                                      tol=1e-8)
+
+    _profile("sweep_chunk", sweep_chunk)
+    it = out["sweep"].iterations.cpu().numpy()
+    print(f"  iterations max {it.max()} mean {it.mean():.2f}")
+
+    spec_m, _ = megatet_spec()
+    dev_m = spec_device_arrays(spec_m, torch.float64, dev)
+
+    def megatet():
+        out["mega"] = solve_lattice_mg_refined(spec_m, tol=1e-8,
+                                               device_arrays=dev_m)
+
+    _profile("megatet", megatet)
+    print(f"  iterations {int(out['mega'].iterations)} residual "
+          f"{float(out['mega'].residual):.3e}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

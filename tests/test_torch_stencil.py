@@ -1,0 +1,178 @@
+"""PyTorch port: the stencil operator and the plain twins of the CUDA
+stencil kernels, against the JAX package.
+
+The twins are what a CPU tensor runs.  They are held against the Pallas
+kernels they stand beside (run in interpret mode, as tests/test_pallas.py
+runs them) in f32, and against the XLA formulations in f64."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+import pelvistim_fem_tpu.ops.pallas_stencil as ps  # noqa: E402
+from pelvistim_fem_tpu.ops import stencil as jst  # noqa: E402
+
+from pelvistim_fem_tpu_torch.ops import stencil as tst  # noqa: E402
+from pelvistim_fem_tpu_torch.ops.kernels import \
+    stencil_kernels as sk  # noqa: E402
+
+F32 = dict(rtol=2e-5, atol=1e-5)
+F64 = dict(rtol=1e-12, atol=0)
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    if jax.devices()[0].platform == "cpu":
+        orig = pl.pallas_call
+
+        def interp(*a, **k):
+            k["interpret"] = True
+            return orig(*a, **k)
+
+        monkeypatch.setattr(ps.pl, "pallas_call", interp)
+    yield
+
+
+def _rand(rng, shape, dtype):
+    a = rng.standard_normal(shape)
+    return torch.as_tensor(a, dtype=dtype), jnp.asarray(a, dtype=str(
+        dtype).split(".")[-1])
+
+
+def test_offsets_match_reference():
+    assert tst.OFFSETS == jst.OFFSETS
+    assert tst.DIAG_OFFSET == jst.DIAG_OFFSET == 13
+
+
+@pytest.mark.parametrize("shape", [(8, 7, 6), (20, 13, 9), (31, 16, 8),
+                                   (9, 5, 4)])
+def test_spmv_twin_matches_flat_kernel_f32(shape):
+    """Twin of kernel 1 vs the Pallas stencil_spmv_flat (f32)."""
+    rng = np.random.default_rng(3)
+    x_t, x_j = _rand(rng, shape, torch.float32)
+    C_t, C_j = _rand(rng, (27,) + shape, torch.float32)
+    ref = np.asarray(ps.stencil_spmv_flat(x_j, ps.pack_coeff_flat(C_j)))
+    y = tst.stencil_spmv(x_t, C_t)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("shape", [(8, 7, 6), (20, 13, 9), (31, 16, 8)])
+def test_spmv_twin_matches_xla_f64(shape):
+    rng = np.random.default_rng(0)
+    x_t, x_j = _rand(rng, shape, torch.float64)
+    C_t, C_j = _rand(rng, (27,) + shape, torch.float64)
+    np.testing.assert_allclose(tst.stencil_spmv(x_t, C_t).numpy(),
+                               np.asarray(jst.stencil_spmv(x_j, C_j)),
+                               **F64)
+
+
+@pytest.mark.parametrize("shape,L,B", [((9, 7, 6), 4, 3),
+                                       ((17, 12, 9), 6, 5)])
+def test_batched_twin_matches_flat_kernel_f32(shape, L, B):
+    """Twin of kernel 2 vs the Pallas batched_stencil_spmv_flat (f32)."""
+    rng = np.random.default_rng(3)
+    X_t, X_j = _rand(rng, (L,) + shape, torch.float32)
+    c_t, c_j = _rand(rng, (B, 27) + shape, torch.float32)
+    tab = rng.random((L, B + 1))
+    ref = np.asarray(ps.batched_stencil_spmv_flat(
+        X_j, ps.pack_coeff_flat_bodies(c_j), jnp.asarray(tab, jnp.float32)))
+    y = tst.batched_stencil_spmv_fused(X_t, c_t,
+                                       torch.as_tensor(tab, dtype=torch.float32))
+    np.testing.assert_allclose(y.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("L,B,shape", [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
+                                       (2, 1, (6, 5, 4))])
+def test_batched_twin_matches_xla_f64(L, B, shape):
+    rng = np.random.default_rng(1)
+    X_t, X_j = _rand(rng, (L,) + shape, torch.float64)
+    c_t, c_j = _rand(rng, (B, 27) + shape, torch.float64)
+    tab = rng.random((L, B + 1))
+    ref = np.asarray(jst.batched_stencil_spmv_fused(X_j, c_j,
+                                                    jnp.asarray(tab)))
+    y = tst.batched_stencil_spmv_fused(X_t, c_t, torch.as_tensor(tab))
+    np.testing.assert_allclose(y.numpy(), ref, **F64)
+
+
+def test_spmv_twin_neighbor_directions():
+    """A one-hot C picks exactly the right neighbour, zero outside."""
+    shape = (6, 5, 4)
+    rng = np.random.default_rng(4)
+    xn = rng.standard_normal(shape)
+    x = torch.as_tensor(xn)
+    for o, (dx, dy, dz) in enumerate(tst.OFFSETS):
+        C = torch.zeros((27,) + shape, dtype=torch.float64)
+        C[o] = 1.0
+        expect = np.pad(xn, 1)[1 + dx:1 + dx + shape[0],
+                               1 + dy:1 + dy + shape[1],
+                               1 + dz:1 + dz + shape[2]]
+        np.testing.assert_array_equal(sk.stencil_spmv_plain(x, C).numpy(),
+                                      expect, err_msg=f"offset {o}")
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_combine_coeffs_matches_reference(B):
+    rng = np.random.default_rng(2)
+    coeff = rng.standard_normal((B, 27, 5, 4, 3))
+    sig = np.concatenate([[0.0], rng.random(B)])
+    ref = np.asarray(jst.combine_coeffs(jnp.asarray(coeff),
+                                        jnp.asarray(sig)))
+    got = tst.combine_coeffs(torch.as_tensor(coeff), torch.as_tensor(sig))
+    np.testing.assert_allclose(got.numpy(), ref, **F64)
+
+
+def test_combine_coeffs_rejects_stale_table():
+    """A pre-combined B == 1 stack with a full-length table raises instead
+    of silently scaling by sigma[1]."""
+    coeff = torch.ones((1, 27, 3, 3, 3))
+    with pytest.raises(ValueError):
+        tst.combine_coeffs(coeff, torch.ones(6))
+
+
+def test_operator_matches_reference():
+    """(op, diag, b_eff) of the projected system vs the JAX _operator."""
+    rng = np.random.default_rng(5)
+    shape = (7, 6, 5)
+    B = 3
+    d = dict(coeff=rng.standard_normal((B, 27) + shape),
+             free=rng.random(shape) > 0.3,
+             dirichlet=rng.standard_normal(shape),
+             b_neumann=rng.standard_normal(shape),
+             grid_index=np.arange(int(np.prod(shape))),
+             sigma_table=np.concatenate([[0.0], rng.random(B)]))
+    jcase = jst.StencilCase(**{k: jnp.asarray(v) for k, v in d.items()})
+    from pelvistim_fem_tpu_torch.interop import stencil_case_from_numpy
+    tcase = stencil_case_from_numpy(d)
+    jop, jdiag, jb = jst._operator(jcase, jcase.sigma_table)
+    top, tdiag, tb = tst._operator(tcase, tcase.sigma_table)
+    x = rng.standard_normal(shape)
+    np.testing.assert_allclose(top(torch.as_tensor(x)).numpy(),
+                               np.asarray(jop(jnp.asarray(x))), **F64)
+    np.testing.assert_allclose(tdiag.numpy(), np.asarray(jdiag), **F64)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), **F64)
+
+
+def test_cpu_tensors_take_the_twin():
+    """Dispatch is by device: CPU tensors never launch a kernel, and the
+    CUDA wrappers refuse CPU tensors before building anything."""
+    sk.reset_launches()
+    x = torch.ones((4, 3, 3))
+    C = torch.ones((27, 4, 3, 3))
+    assert torch.equal(sk.stencil_spmv(x, C), sk.stencil_spmv_plain(x, C))
+    Xs = torch.ones((2, 4, 3, 3))
+    coeff = torch.ones((1, 27, 4, 3, 3))
+    sig = torch.ones((2, 1))
+    assert torch.equal(sk.batched_stencil_spmv(Xs, coeff, sig),
+                       sk.batched_stencil_spmv_plain(Xs, coeff, sig))
+    assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
+                           "batched_stencil_spmv_cuda": 0}
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.stencil_spmv_cuda(x, C)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.batched_stencil_spmv_cuda(Xs, coeff, sig)
