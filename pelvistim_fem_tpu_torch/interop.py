@@ -12,15 +12,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pelvistim_fem_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pelvistim_fem_tpu_torch.ops.multigrid import (MGHierarchy, MGLevel,
                                                    Transfer)
 from pelvistim_fem_tpu_torch.ops.stencil import StencilCase
 
 
-def stencil_case_from_numpy(d: dict, *, device=None) -> StencilCase:
+def stencil_case_from_numpy(d: dict, *,
+                            device=DEFAULT_DEVICE) -> StencilCase:
     """StencilCase from a dict of numpy arrays with keys coeff, free,
     dirichlet, b_neumann, grid_index, sigma_table.  Arrays are copied
     and keep their dtype (cast the result with StencilCase.astype)."""
+    device = resolve_device(device)
+
     def f(a):
         return torch.tensor(np.asarray(a), device=device)
 
@@ -35,10 +39,12 @@ def stencil_case_from_numpy(d: dict, *, device=None) -> StencilCase:
     )
 
 
-def hierarchy_from_numpy(levels, axes, *, device=None) -> MGHierarchy:
+def hierarchy_from_numpy(levels, axes, *,
+                         device=DEFAULT_DEVICE) -> MGHierarchy:
     """MGHierarchy from [(coeff, free), ...] numpy levels (finest first)
     and the finest level's knot axes; the transfers are rebuilt from the
     axes by the same every-other-knot coarsening."""
+    device = resolve_device(device)
     out, transfers = [], []
     cur_axes = tuple(np.asarray(a, np.float64) for a in axes)
     for i, (coeff, free) in enumerate(levels):

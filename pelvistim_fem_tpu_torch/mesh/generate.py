@@ -1,11 +1,13 @@
-"""Structured lattice recipes (numpy twin of the recipe half of
-pelvistim_fem_tpu/mesh/generate.py).
+"""Structured lattice meshes (numpy twin of
+pelvistim_fem_tpu/mesh/generate.py; every array is bit-identical to the
+JAX package's).
 
 Every geometry of the layered workloads is a (possibly deformed)
 extrusion of a 2-D outline: a tensor-product hex lattice split into 6
-Kuhn tets per cell, with graded knot spacing.  This package consumes a
-recipe only through mesh/spec.build_lattice_spec, so no tet array is
-ever materialised here.
+Kuhn tets per cell, with graded knot spacing.  A recipe is consumed two
+ways: mesh/spec.build_lattice_spec turns it into the compact grid form
+that the stencil solvers assemble from, and `LatticeRecipe.mesh()`
+materialises the TetMesh that the element Case and the metrics use.
 
 Kuhn subdivision: each hex cell is split into the 6 tets
 {v(0), v(e_p0), v(e_p0 + e_p1), v(1,1,1)} over permutations p of (x,y,z).
@@ -19,8 +21,9 @@ import itertools
 import numpy as np
 
 from pelvistim_fem_tpu_torch.mesh import core
+from pelvistim_fem_tpu_torch.mesh.boundary import extract_boundary
 from pelvistim_fem_tpu_torch.mesh.core import (BC_ACTIVE, BC_INSULATED,
-                                               BC_RETURN)
+                                               BC_RETURN, TetMesh, compact)
 
 # The 6 Kuhn tets of the unit cube as corner offsets (6, 4, 3).
 _KUHN = []
@@ -40,6 +43,53 @@ for perm in itertools.permutations(range(3)):
 _KUHN = np.stack(_KUHN)
 
 
+def lattice_tets(xs: np.ndarray, ys: np.ndarray, zs: np.ndarray):
+    """Nodes and Kuhn tets of the tensor grid xs x ys x zs: (nodes (N, 3)
+    f64 x-major, tets (M, 4) i32 with positive volumes; tet r is class
+    r % 6 of cell r // 6)."""
+    nx, ny, nz = len(xs) - 1, len(ys) - 1, len(zs) - 1
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    nodes = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def nid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    ii, jj, kk = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                             indexing="ij")
+    ii, jj, kk = ii.ravel(), jj.ravel(), kk.ravel()   # (C,) cell origins
+
+    tets = np.empty((ii.size * 6, 4), dtype=np.int64)
+    for t in range(6):
+        for v in range(4):
+            dx, dy, dz = _KUHN[t, v]
+            tets[t::6, v] = nid(ii + dx, jj + dy, kk + dz)
+    return nodes, tets.astype(np.int32)
+
+
+def _lattice_tet_centroids(xs, ys, zs):
+    """Centroids of every Kuhn tet without gathering node coordinates:
+    class t's per-axis centroid is ((4 - s) * knot[i] + s * knot[i+1]) / 4
+    with s its count of +1 offsets on that axis.  (M, 3) in lattice_tets
+    order."""
+    s = _KUHN.sum(axis=1).astype(np.float64)          # (6, 3)
+    outs = []
+    for axis, arr in ((0, xs), (1, ys), (2, zs)):
+        lo = np.asarray(arr[:-1], np.float64)
+        hi = np.asarray(arr[1:], np.float64)
+        outs.append((lo[:, None] * (4.0 - s[None, :, axis])
+                     + hi[:, None] * s[None, :, axis]) / 4.0)
+    cx, cy, cz = outs
+    nx, ny, nz = len(xs) - 1, len(ys) - 1, len(zs) - 1
+    cen = np.empty((nx * ny * nz * 6, 3))
+    cen[:, 0] = np.broadcast_to(cx[:, None, None, :],
+                                (nx, ny, nz, 6)).reshape(-1)
+    cen[:, 1] = np.broadcast_to(cy[None, :, None, :],
+                                (nx, ny, nz, 6)).reshape(-1)
+    cen[:, 2] = np.broadcast_to(cz[None, None, :, :],
+                                (nx, ny, nz, 6)).reshape(-1)
+    return cen
+
+
 @dataclasses.dataclass
 class LatticeRecipe:
     """Declarative lattice spec: knot axes + classifier callbacks.
@@ -55,6 +105,56 @@ class LatticeRecipe:
     body_fn: object
     bcid_fn: object
     deform_fn: object = None
+
+    def mesh(self) -> TetMesh:
+        return build_mesh_from_lattice(self.xs, self.ys, self.zs,
+                                       self.body_fn, self.bcid_fn,
+                                       self.deform_fn)
+
+
+def build_mesh_from_lattice(xs, ys, zs, body_fn, bcid_fn,
+                            deform_fn=None) -> TetMesh:
+    """Lattice -> TetMesh: body ids from undeformed tet centroids (0
+    drops the tet), BC ids from undeformed boundary-face centroids and
+    normals, then the optional pointwise deformation (and a re-orientation
+    of any tet it inverted)."""
+    xs = np.asarray(xs, float)
+    ys = np.asarray(ys, float)
+    zs = np.asarray(zs, float)
+    nodes, tets = lattice_tets(xs, ys, zs)
+    cen = _lattice_tet_centroids(xs, ys, zs)
+    body = np.asarray(body_fn(cen[:, 0], cen[:, 1], cen[:, 2]),
+                      dtype=np.int32)
+    keep = body > 0
+    tets, body = tets[keep], body[keep]
+    # compact() keeps grid order: `used` is the lattice index of each
+    # surviving node
+    used = np.unique(tets)
+    nodes, tets = compact(nodes, tets)
+    lattice = core.LatticeInfo(
+        grid_shape=(len(xs), len(ys), len(zs)),
+        grid_index=used.astype(np.int64),
+        axes=(xs, ys, zs),
+    )
+
+    faces, parent = extract_boundary(tets)
+    p = nodes[faces]
+    fcen = p.mean(axis=1)
+    crs = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    nrm = crs / np.maximum(np.linalg.norm(crs, axis=1), 1e-300)[:, None]
+    bcid = np.asarray(
+        bcid_fn(fcen[:, 0], fcen[:, 1], fcen[:, 2],
+                nrm[:, 0], nrm[:, 1], nrm[:, 2]),
+        dtype=np.int32)
+
+    if deform_fn is not None:
+        nodes = deform_fn(nodes)
+
+    mesh = TetMesh(nodes=nodes, tets=tets, tet_body=body, faces=faces,
+                   face_bcid=bcid, face_parent=parent, lattice=lattice)
+    if deform_fn is not None:
+        mesh = mesh.with_positive_volumes()
+    return mesh
 
 
 def _footprint_mask(x, y, cx, cy, r, shape):
@@ -238,3 +338,8 @@ def layered_slab_recipe(
             return nodes
 
     return LatticeRecipe(xs, ys, zs, body_fn, bcid_fn, deform_fn)
+
+
+def layered_slab_mesh(Lx: float, Ly: float, Lz: float, **kw) -> TetMesh:
+    """TetMesh of layered_slab_recipe(Lx, Ly, Lz, **kw)."""
+    return layered_slab_recipe(Lx, Ly, Lz, **kw).mesh()

@@ -1,6 +1,7 @@
 """step03_ankle_layers front end: 3-layer ankle slab + contact volumes,
-current-controlled stimulation (numpy twin of the spec half of
-pelvistim_fem_tpu/models/ankle.py).
+current-controlled stimulation (twin of pelvistim_fem_tpu/models/ankle.py:
+the lattice spec for the stencil solvers, the element Case for the
+metrics).
 
   * 12-point ankle outline polygon
   * anatomical height field z_top(x, y) with medial-groove / Achilles /
@@ -12,7 +13,9 @@ pelvistim_fem_tpu/models/ankle.py).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from pelvistim_fem_tpu_torch.device import DEFAULT_DEVICE
 from pelvistim_fem_tpu_torch.mesh import core
 from pelvistim_fem_tpu_torch.utils.config import (default_params,
                                                   get_placement, get_stim)
@@ -147,6 +150,34 @@ def layered_model_inputs(params: dict | None = None, *,
     )
     return (Lx, Ly, Lz), recipe_kwargs, sigma_by_body, bc_kwargs, \
         meta_extra, params
+
+
+def build_layered_case(params: dict | None = None, *,
+                       t_fat: float | None = None,
+                       elec_r: float | None = None,
+                       sigma_skin: float | None = None,
+                       sigma_contact: float | None = None,
+                       coarse: bool = False,
+                       dtype=torch.float64,
+                       with_mesh: bool = False,
+                       explicit_zs=None,
+                       device=DEFAULT_DEVICE):
+    """(Case, params) for one step03 sweep point on `device` (with the
+    host TetMesh as a third item when with_mesh=True).  `coarse=True`
+    doubles the mesh spacings."""
+    from pelvistim_fem_tpu_torch.mesh.generate import layered_slab_mesh
+    from pelvistim_fem_tpu_torch.models.case import build_case
+    (Lx, Ly, Lz), recipe_kwargs, sigma_by_body, bc_kwargs, meta_extra, \
+        params = layered_model_inputs(
+            params, t_fat=t_fat, elec_r=elec_r, sigma_skin=sigma_skin,
+            sigma_contact=sigma_contact, coarse=coarse,
+            explicit_zs=explicit_zs)
+    mesh = layered_slab_mesh(Lx, Ly, Lz, **recipe_kwargs)
+    case = build_case(mesh, sigma_by_body, meta_extra=meta_extra,
+                      dtype=dtype, device=device, **bc_kwargs)
+    if with_mesh:
+        return case, params, mesh
+    return case, params
 
 
 def build_layered_spec(params: dict | None = None, *,

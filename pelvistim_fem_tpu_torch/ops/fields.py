@@ -1,0 +1,82 @@
+"""Post-solve field operators: E = -grad phi, J = -sigma grad phi
+(PyTorch twin of the slice of pelvistim_fem_tpu/ops/fields.py that the
+metrics use).
+
+With P1 elements the gradient is constant per tet and comes from the
+same shape-function gradients as the assembly.  Every function takes phi
+with any leading lane axes ((N,) or (L, N)); sigma_table is (T,) or
+(L, T) to match.  Contractions are elementwise products and sums, never
+a (TF32-capable) einsum; element -> node sums go through the case's
+deterministic gather table.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pelvistim_fem_tpu_torch.ops import assembly
+
+
+def cell_gradient(case, phi):
+    """(..., M, 3) constant gradient of phi per tet."""
+    xe = phi[..., case.tets]                              # (..., M, 4)
+    return (case.grads * xe[..., None]).sum(-2)
+
+
+def cell_E(case, phi):
+    """E = -grad phi per tet (..., M, 3)."""
+    return -cell_gradient(case, phi)
+
+
+def cell_J(case, phi, sigma_table=None):
+    """J = -sigma grad phi per tet (..., M, 3); scalar sigma per body."""
+    if sigma_table is None:
+        sigma_table = case.sigma_table
+    sigma_e = sigma_table[..., case.tet_body]             # (..., M)
+    return sigma_e[..., None] * cell_E(case, phi)
+
+
+def nodal_average(case, cell_values):
+    """Volume-weighted average of per-cell values to nodes: each node
+    gets the volume-weighted mean of its incident tets' values.
+    cell_values (..., M, K) -> (..., N, K)."""
+    w = case.vol
+    ones = torch.ones((1, 4), dtype=w.dtype, device=w.device)
+    den = assembly.scatter_to_nodes(w[:, None] * ones, case.scatter_table)
+    den = torch.clamp(den, min=1e-300)
+    # one component at a time bounds the size of the gather
+    return torch.stack([
+        assembly.scatter_to_nodes((w * cell_values[..., k])[..., None]
+                                  * ones, case.scatter_table) / den
+        for k in range(cell_values.shape[-1])], -1)
+
+
+def point_to_cell(case, nodal_values):
+    """Mean of the 4 vertex values per tet.  nodal_values (..., N, K) ->
+    (..., M, K)."""
+    return nodal_values[..., case.tets, :].mean(-2)
+
+
+def consistent_electrode_currents(case, phi, sigma_table=None):
+    """EXACT discrete electrode currents from the weak-form reaction
+    rho = K phi - b at the Dirichlet nodes.  Returns (I_active_in,
+    I_return_out), each (...,), both positive for forward flow."""
+    if sigma_table is None:
+        sigma_table = case.sigma_table
+    sigvol = sigma_table[..., case.tet_body] * case.vol
+    kphi = assembly.spmv(phi, case.tets, case.grads, sigvol,
+                         case.scatter_table)
+    rho = kphi - case.b_neumann
+    fixed = ~case.free_mask
+    zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
+    if case.meta.mode == "current":
+        i_active = torch.sum(case.b_neumann).expand(rho.shape[:-1])
+        i_return = -torch.sum(torch.where(fixed, rho, zero), -1)
+    else:
+        # voltage mode: both electrodes Dirichlet, split by value
+        d = case.dirichlet_vals
+        act = fixed & (d > 0.5 * d.max())
+        ret = fixed & ~act
+        i_active = torch.sum(torch.where(act, rho, zero), -1)
+        i_return = -torch.sum(torch.where(ret, rho, zero), -1)
+    return i_active, i_return

@@ -1,13 +1,20 @@
 // 27-point stencil SpMV kernels for Hopper (sm_90a), float and double.
 //
 // Replaces the Pallas TPU kernels of pelvistim_fem_tpu/ops/pallas_stencil.py:
-//   stencil_spmv            <- stencil_spmv_flat (one combined stencil)
-//   batched_stencil_spmv    <- batched_stencil_spmv_flat (lane-batched,
+//   stencil_spmv            <- stencil_spmv_flat and stencil_spmv_pallas
+//                              (one combined stencil; the two TPU kernels
+//                              differ only in their TPU layout and schedule)
+//   batched_stencil_spmv    <- batched_stencil_spmv_flat and
+//                              batched_stencil_spmv_fused_pallas (lane-major,
 //                              body-factored coefficients)
+//   batched_stencil_spmv_lminor
+//                           <- batched_stencil_spmv_fused_lminor (the same
+//                              function as batched_stencil_spmv, lane-minor)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (X, Y, Z), C (27, X, Y, Z)
 //   Xs (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B)
+//   Xm (X, Y, Z, L), coeff (B, 27, X, Y, Z), sig (B, L)   [lane-minor]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
 // Both kernels are bound by device-memory bandwidth: per grid point the
@@ -27,6 +34,15 @@
 // the first load of each are served by the SM's L1: device memory sees the
 // coefficients once per kGroups * kLanes = 32 lanes, while each thread
 // holds only kLanes accumulators.
+//
+// The lane-minor kernel gives one thread to one (grid point, lane) pair,
+// lanes fastest, so a warp covers consecutive lanes of one or a few grid
+// points: every neighbour read Xm[g + off, l] is one coalesced run across
+// the warp, and every coefficient read C_b[o][g] is one address for all
+// the lanes of a point (a broadcast).  Sigma (B x L) is staged in shared
+// memory once per block and each thread keeps its lane's B values in
+// registers.  Bound: device-memory bandwidth; each apply must read the
+// B*27 coefficient planes once and the vectors once in, once out.
 //
 // Every entry point returns cudaGetLastError() of its launch (0 = ok),
 // launches on the caller's stream and does not synchronise.
@@ -152,6 +168,61 @@ batched_stencil_spmv_kernel(const T* __restrict__ Xs,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kBlock)
+batched_stencil_spmv_lminor_kernel(const T* __restrict__ Xm,
+                                   const T* __restrict__ coeff,
+                                   const T* __restrict__ sig,
+                                   T* __restrict__ Ym, int L, int B, int X,
+                                   int Y, int Z) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* s_sig = reinterpret_cast<T*>(s_raw);  // (B, L), as in device memory
+  for (int t = threadIdx.x; t < B * L; t += blockDim.x) s_sig[t] = sig[t];
+  __syncthreads();
+
+  const long long G = (long long)X * Y * Z;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= G * L) return;
+  const int l = (int)(t % L);
+  const long long p = t / L;  // grid point
+  const int k = (int)(p % Z);
+  const long long q = p / Z;
+  const int j = (int)(q % Y);
+  const int i = (int)(q / Y);
+
+  T s[kMaxBodies];
+#pragma unroll
+  for (int b = 0; b < kMaxBodies; ++b) s[b] = b < B ? s_sig[b * L + l] : T(0);
+
+  T acc = T(0);
+  int o = 0;
+#pragma unroll
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int ii = i + dx;
+    const bool okx = ii >= 0 && ii < X;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int jj = j + dy;
+      const bool oky = okx && jj >= 0 && jj < Y;
+#pragma unroll
+      for (int dz = -1; dz <= 1; ++dz, ++o) {
+        const int kk = k + dz;
+        T co = s[0] * coeff[(long long)o * G + p];
+#pragma unroll
+        for (int b = 1; b < kMaxBodies; ++b) {
+          if (b < B) co += s[b] * coeff[((long long)b * 27 + o) * G + p];
+        }
+        T xv = T(0);
+        if (oky && kk >= 0 && kk < Z) {
+          xv = Xm[(((long long)ii * Y + jj) * Z + kk) * L + l];
+        }
+        acc += co * xv;
+      }
+    }
+  }
+  Ym[t] = acc;
+}
+
+template <typename T>
 int launch_stencil_spmv(const void* x, const void* C, void* y, int X, int Y,
                         int Z, void* stream) {
   const long long G = (long long)X * Y * Z;
@@ -175,6 +246,28 @@ int launch_batched_stencil_spmv(const void* Xs, const void* coeff,
   batched_stencil_spmv_kernel<T>
       <<<grid, dim3(kPoints, kGroups), 0, (cudaStream_t)stream>>>(
           (const T*)Xs, (const T*)coeff, (const T*)sig, (T*)Ys, L, B, X, Y,
+          Z);
+  return (int)cudaGetLastError();
+}
+
+// Largest sigma table (B x L) the lane-minor kernel stages in shared
+// memory without opting in to more than the default 48 KB.
+constexpr int kMaxSigBytes = 48 * 1024;
+
+template <typename T>
+int launch_batched_stencil_spmv_lminor(const void* Xm, const void* coeff,
+                                       const void* sig, void* Ym, int L,
+                                       int B, int X, int Y, int Z,
+                                       void* stream) {
+  if (B < 1 || B > kMaxBodies) return (int)cudaErrorInvalidValue;
+  const size_t sig_bytes = (size_t)B * L * sizeof(T);
+  if (sig_bytes > (size_t)kMaxSigBytes) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)X * Y * Z * L;
+  if (n == 0) return 0;
+  const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
+  batched_stencil_spmv_lminor_kernel<T>
+      <<<blocks, kBlock, sig_bytes, (cudaStream_t)stream>>>(
+          (const T*)Xm, (const T*)coeff, (const T*)sig, (T*)Ym, L, B, X, Y,
           Z);
   return (int)cudaGetLastError();
 }
@@ -207,6 +300,24 @@ int pst_batched_stencil_spmv_f64(const void* Xs, const void* coeff,
                                  int X, int Y, int Z, void* stream) {
   return launch_batched_stencil_spmv<double>(Xs, coeff, sig, Ys, L, B, X, Y,
                                              Z, stream);
+}
+
+int pst_max_lminor_sig_bytes() { return kMaxSigBytes; }
+
+int pst_batched_stencil_spmv_lminor_f32(const void* Xm, const void* coeff,
+                                        const void* sig, void* Ym, int L,
+                                        int B, int X, int Y, int Z,
+                                        void* stream) {
+  return launch_batched_stencil_spmv_lminor<float>(Xm, coeff, sig, Ym, L, B,
+                                                   X, Y, Z, stream);
+}
+
+int pst_batched_stencil_spmv_lminor_f64(const void* Xm, const void* coeff,
+                                        const void* sig, void* Ym, int L,
+                                        int B, int X, int Y, int Z,
+                                        void* stream) {
+  return launch_batched_stencil_spmv_lminor<double>(Xm, coeff, sig, Ym, L,
+                                                    B, X, Y, Z, stream);
 }
 
 const char* pst_error_string(int code) {

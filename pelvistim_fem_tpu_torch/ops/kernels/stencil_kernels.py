@@ -3,12 +3,21 @@ bindings, and their plain PyTorch twins (the counterpart of
 pelvistim_fem_tpu/ops/pallas_stencil.py).
 
   stencil_spmv(x, C)                   y = K x, one combined stencil
-      CUDA: stencil_spmv_cuda          replaces stencil_spmv_flat
+      CUDA: stencil_spmv_cuda          replaces stencil_spmv_flat and
+                                       stencil_spmv_pallas
       twin: stencil_spmv_plain
   batched_stencil_spmv(X, coeff, sig)  Y[l] = sum_o (sum_b sig[l, b]
                                         C_b[o]) * shift_o(X[l])
       CUDA: batched_stencil_spmv_cuda  replaces batched_stencil_spmv_flat
+                                       and batched_stencil_spmv_fused_pallas
       twin: batched_stencil_spmv_plain
+  batched_stencil_spmv_lminor(Xm, coeff, sig)
+                                       the same function, lane-minor:
+                                       Xm (X, Y, Z, L), sig (B, L)
+      CUDA: batched_stencil_spmv_lminor_cuda
+                                       replaces
+                                       batched_stencil_spmv_fused_lminor
+      twin: batched_stencil_spmv_lminor_plain
 
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
@@ -42,7 +51,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # Launch counts of the CUDA wrappers (reset with reset_launches()).
-LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0}
+LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
+            "batched_stencil_spmv_lminor_cuda": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -85,6 +95,24 @@ def batched_stencil_spmv_plain(Xs, coeff, sig):
             acc = acc + s[:, b] * coeff[b, o]
         Ys = Ys + acc * shifted
     return Ys
+
+
+def batched_stencil_spmv_lminor_plain(Xm, coeff, sig):
+    """Lane-minor body-factored SpMV.  Xm (X, Y, Z, L), coeff (B, 27, X,
+    Y, Z), sig (B, L):  Y[..., l] = sum_o (sum_b sig[b, l] C_b[o]) *
+    shift_o(Xm[..., l])."""
+    X, Y, Z, L = Xm.shape
+    B = coeff.shape[0]
+    Xp = torch.nn.functional.pad(Xm, (0, 0, 1, 1, 1, 1, 1, 1))
+    Ym = torch.zeros_like(Xm)
+    for o, (dx, dy, dz) in enumerate(OFFSETS):
+        shifted = Xp[1 + dx:1 + dx + X, 1 + dy:1 + dy + Y,
+                     1 + dz:1 + dz + Z]
+        acc = torch.zeros_like(Xm)
+        for b in range(B):
+            acc = acc + coeff[b, o][..., None] * sig[b]
+        Ym = Ym + acc * shifted
+    return Ym
 
 
 # ── build and bind ─────────────────────────────────────────────────────
@@ -131,11 +159,14 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             fn = getattr(lib, f"pst_stencil_spmv_{dt}")
             fn.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
             fn.restype = i
-            fn = getattr(lib, f"pst_batched_stencil_spmv_{dt}")
-            fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
-            fn.restype = i
-        lib.pst_max_bodies.argtypes = []
-        lib.pst_max_bodies.restype = i
+            for name in ("batched_stencil_spmv",
+                         "batched_stencil_spmv_lminor"):
+                fn = getattr(lib, f"pst_{name}_{dt}")
+                fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
+                fn.restype = i
+        for name in ("pst_max_bodies", "pst_max_lminor_sig_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         lib.pst_error_string.argtypes = [i]
         lib.pst_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -215,6 +246,39 @@ def batched_stencil_spmv_cuda(Xs, coeff, sig):
     return Ys
 
 
+def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
+    """CUDA kernel for the lane-minor body-factored SpMV.  Xm (X, Y, Z,
+    L), coeff (B, 27, X, Y, Z), sig (B, L), all contiguous float32 or
+    float64 on one CUDA device; B at most 8, and B * L sigma values in
+    at most 48 KB."""
+    name = "batched_stencil_spmv_lminor_cuda"
+    _check(name, Xm.dtype, Xm.device, Xm=Xm, coeff=coeff, sig=sig)
+    B = coeff.shape[0]
+    if (Xm.dim() != 4 or coeff.dim() != 5
+            or tuple(coeff.shape[1:]) != (27,) + tuple(Xm.shape[:3])
+            or tuple(sig.shape) != (B, Xm.shape[3])):
+        raise ValueError(f"{name}: shapes Xm {tuple(Xm.shape)}, coeff "
+                         f"{tuple(coeff.shape)}, sig {tuple(sig.shape)}")
+    lib = build()
+    X, Y, Z, L = Xm.shape
+    if not 1 <= B <= lib.pst_max_bodies():
+        raise ValueError(f"{name}: {B} bodies, the kernel takes "
+                         f"1..{lib.pst_max_bodies()}")
+    if sig.numel() * sig.element_size() > lib.pst_max_lminor_sig_bytes():
+        raise ValueError(f"{name}: a {B} x {L} sigma table exceeds "
+                         f"{lib.pst_max_lminor_sig_bytes()} bytes")
+    Ym = torch.empty_like(Xm)
+    fn = getattr(lib, "pst_batched_stencil_spmv_lminor_"
+                 + _SUFFIX[Xm.dtype])
+    with torch.cuda.device(Xm.device):
+        stream = torch.cuda.current_stream(Xm.device).cuda_stream
+        rc = fn(Xm.data_ptr(), coeff.data_ptr(), sig.data_ptr(),
+                Ym.data_ptr(), L, B, X, Y, Z, stream)
+    _raise_on(lib, name, rc)
+    LAUNCHES[name] += 1
+    return Ym
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -232,3 +296,11 @@ def batched_stencil_spmv(Xs, coeff, sig):
     if Xs.is_cuda:
         return batched_stencil_spmv_cuda(Xs, coeff, sig)
     return batched_stencil_spmv_plain(Xs, coeff, sig)
+
+
+def batched_stencil_spmv_lminor(Xm, coeff, sig):
+    """Lane-minor body-factored SpMV: the CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors."""
+    if Xm.is_cuda:
+        return batched_stencil_spmv_lminor_cuda(Xm, coeff, sig)
+    return batched_stencil_spmv_lminor_plain(Xm, coeff, sig)

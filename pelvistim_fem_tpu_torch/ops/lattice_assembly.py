@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pelvistim_fem_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pelvistim_fem_tpu_torch.mesh.generate import _KUHN
 from pelvistim_fem_tpu_torch.mesh.spec import LatticeSpec
 from pelvistim_fem_tpu_torch.ops.multigrid import (MGHierarchy, MGLevel,
@@ -199,8 +200,9 @@ def _hierarchy(coeff, free, axes, *, min_nodes=100, max_levels=8):
 
 
 def spec_device_arrays(spec: LatticeSpec, dtype=torch.float32,
-                       device=None) -> dict:
+                       device=DEFAULT_DEVICE) -> dict:
     """One host -> device copy of the compact spec (a few MB)."""
+    device = resolve_device(device)
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     return dict(
         h_axes=tuple(f(np.diff(np.asarray(a, np.float64)))
@@ -217,11 +219,11 @@ def spec_device_arrays(spec: LatticeSpec, dtype=torch.float32,
 
 
 def assemble_lattice(spec: LatticeSpec, dtype=torch.float32, *,
-                     device=None, device_arrays=None, min_nodes=100,
-                     max_levels=8):
+                     device=DEFAULT_DEVICE, device_arrays=None,
+                     min_nodes=100, max_levels=8):
     """(StencilCase, MGHierarchy) built on the device from the spec: the
     per-body coefficient stacks and their Galerkin hierarchy, all in
-    `dtype`."""
+    `dtype`.  Given `device_arrays`, their device is used."""
     dev = device_arrays or spec_device_arrays(spec, dtype, device)
     coeff = lattice_coeff(dev["h_axes"], dev["coords_dev"], dev["body6"],
                           spec.n_bodies)
@@ -238,8 +240,8 @@ def assemble_lattice(spec: LatticeSpec, dtype=torch.float32, *,
 def solve_lattice_mg_refined(spec: LatticeSpec, sigma_table=None, *,
                              tol=1e-8, inner_tol=3e-4, maxiter=2_000,
                              nu=2, coarse_iters=24, max_refinements=8,
-                             min_nodes=100, max_levels=8, device=None,
-                             device_arrays=None):
+                             min_nodes=100, max_levels=8,
+                             device=DEFAULT_DEVICE, device_arrays=None):
     """Assemble (f64) + coarsen (f32) + mixed-precision MG solve.  The
     returned residual is the TRUE f64 relative residual.
 

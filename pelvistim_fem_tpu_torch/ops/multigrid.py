@@ -27,7 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pelvistim_fem_tpu_torch.ops.solve import SolveResult, preconditioned_cg
+from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
+                                            preconditioned_cg)
 from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
                                                  _operator,
                                                  batched_stencil_spmv,
@@ -363,41 +364,10 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
 
 
 def _fused_pcg(op, b, M, x0, *, tol, maxiter):
-    """Lane-aware preconditioned CG on (L, X, Y, Z) state: dots reduce
-    over grid axes only, converged lanes FREEZE (torch.where, so a frozen
-    lane's discarded rz/0 never leaks).  `tol` may be a float or a
-    per-lane (L,) tensor.  Returns (x, iterations (L,)).  One host read
-    of the loop condition per iteration."""
-    nrm = lambda a: torch.sqrt(_red(a * a))
-    L = b.shape[0]
-
-    bnorm = nrm(b)
-    tol_abs = tol * bnorm
-
-    x = x0
-    r = b - op(x0)
-    z = M(r)
-    rz = _red(r * z)
-    p = z
-    k = torch.zeros(L, dtype=torch.int64, device=b.device)
-    done = nrm(r) <= tol_abs
-    while bool(torch.any(~done & (k < maxiter))):
-        ap = op(p)
-        alpha = rz / _red(p * ap)
-        x_n = x + _lanes(alpha) * p
-        r_n = r - _lanes(alpha) * ap
-        z_n = M(r_n)
-        rz_n = _red(r_n * z_n)
-        beta = rz_n / rz
-        p_n = z_n + _lanes(beta) * p
-        keep = _lanes(done)
-        x = torch.where(keep, x, x_n)
-        r = torch.where(keep, r, r_n)
-        z = torch.where(keep, z, z_n)
-        p = torch.where(keep, p, p_n)
-        rz = torch.where(done, rz, rz_n)
-        k = torch.where(done, k, k + 1)
-        done = done | (nrm(r) <= tol_abs)
+    """Lane-aware preconditioned CG on (L, X, Y, Z) state (dots reduce
+    over grid axes only, converged lanes freeze; solve.batched_cg).
+    Returns (x, iterations (L,))."""
+    x, _, k = batched_cg(op, b, M, x0, tol=tol, maxiter=maxiter)
     return x, k
 
 

@@ -1,5 +1,5 @@
-"""Structured 27-point stencil operator (PyTorch twin of the slice of
-pelvistim_fem_tpu/ops/stencil.py on the certified solve path).
+"""Structured 27-point stencil operator and its Jacobi-preconditioned
+solvers (PyTorch twin of pelvistim_fem_tpu/ops/stencil.py).
 
 Every generated mesh is a (graded, carved, deformed) tensor-product
 lattice, so the P1 stiffness matrix is exactly a 27-point stencil: K phi
@@ -12,6 +12,15 @@ Carved nodes (outside the geometry) have all-zero rows and are held at 0
 by the same projection as Dirichlet nodes.  Every stencil apply goes
 through ops/kernels/stencil_kernels.py: the CUDA kernels on a CUDA
 device, their plain twins on the CPU.
+
+  solve_stencil[_refined]       one operator, Jacobi-PCG (f32 inner + f64
+                                refinement for _refined); applies through
+                                stencil_spmv
+  batched_stencil_solve_fused   a material sweep as one lane-stacked
+                                Jacobi-PCG; lane-major (L, X, Y, Z) through
+                                batched_stencil_spmv, or lane_minor=True
+                                (X, Y, Z, L) through
+                                batched_stencil_spmv_lminor
 """
 
 from __future__ import annotations
@@ -21,7 +30,10 @@ import dataclasses
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    DIAG_OFFSET, OFFSETS, batched_stencil_spmv, stencil_spmv)  # noqa: F401
+    DIAG_OFFSET, OFFSETS, batched_stencil_spmv, batched_stencil_spmv_lminor,
+    stencil_spmv)
+from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
+                                               jacobi_pcg)
 
 
 @dataclasses.dataclass
@@ -85,7 +97,13 @@ def batched_stencil_spmv_fused(Xs, coeff, sigma_tables):
 
 def _operator(scase: StencilCase, sigma_table, coeff=None):
     """(op, diag, b_eff) for the stencil system with Dirichlet/carved
-    projection: op(x) = x on fixed nodes, K x on free nodes."""
+    projection: op(x) = x on fixed nodes, K x on free nodes.
+
+    The single-case apply is stencil_spmv: on the card the CUDA kernel
+    stencil_spmv_cuda, which stands for both TPU kernels the reference's
+    `_operator` could pick (stencil_spmv_flat for spmv="flat",
+    stencil_spmv_pallas for spmv="pallas"); the TPU schedules have no
+    counterpart to choose between."""
     C = combine_coeffs(scase.coeff if coeff is None else coeff,
                        sigma_table).contiguous()
     free = scase.free
@@ -101,3 +119,173 @@ def _operator(scase: StencilCase, sigma_table, coeff=None):
     b_eff = torch.where(free, scase.b_neumann - raw(phi_d),
                         scase.dirichlet)
     return op, diag, b_eff
+
+
+def _nodes(x, grid_index):
+    """(X, Y, Z) grid -> (N,) values in mesh node order."""
+    return x.reshape(-1)[grid_index]
+
+
+def solve_stencil(scase: StencilCase, sigma_table=None, coeff=None, *,
+                  tol=1e-8, maxiter=10_000) -> SolveResult:
+    """Jacobi-PCG on the stencil operator in the case's dtype; phi in
+    mesh node order.  `coeff` overrides the per-body stack."""
+    if sigma_table is None:
+        sigma_table = scase.sigma_table
+    op, diag, b_eff = _operator(scase, sigma_table, coeff)
+    x0 = torch.where(scase.free, 0.0, scase.dirichlet)
+    res = jacobi_pcg(op, b_eff, diag, x0, tol=tol, maxiter=maxiter)
+    return SolveResult(phi=_nodes(res.phi, scase.grid_index),
+                       iterations=res.iterations, residual=res.residual,
+                       converged=res.converged)
+
+
+def solve_stencil_refined(scase: StencilCase, sigma_table=None, coeff=None,
+                          *, tol=1e-8, inner_tol=1e-6, maxiter=10_000,
+                          max_refinements=6) -> SolveResult:
+    """Mixed-precision stencil solve: f32 Jacobi-PCG inner sweeps, f64
+    residual correction until the TRUE f64 relative residual meets
+    `tol`.  phi in mesh node order; `coeff` overrides the per-body
+    stack."""
+    if sigma_table is None:
+        sigma_table = scase.sigma_table
+    f32, f64 = torch.float32, torch.float64
+    sc64, sc32 = scase.astype(f64), scase.astype(f32)
+    c64 = None if coeff is None else coeff.to(f64)
+    c32 = None if coeff is None else coeff.to(f32)
+    op64, _, b64 = _operator(sc64, sigma_table.to(f64), c64)
+    op32, diag32, _ = _operator(sc32, sigma_table.to(f32), c32)
+
+    bnorm = torch.sqrt(torch.sum(b64 * b64))
+    bden = torch.where(bnorm > 0, bnorm, 1.0)
+    x = torch.where(scase.free, 0.0, sc64.dirichlet)
+    rel = torch.tensor(float("inf"), dtype=f64, device=x.device)
+    total_it = 0
+    k = 0
+    while bool(rel > tol) and k < max_refinements:
+        r64 = b64 - op64(x)
+        # adaptive inner tolerance: the pass only has to shrink the true
+        # residual from rel to tol (x4 safety); pass 1 clips to inner_tol
+        tol_k = torch.clamp(0.25 * tol / torch.clamp(rel, max=1.0),
+                            inner_tol, 0.05)
+        res = jacobi_pcg(op32, r64.to(f32), diag32,
+                         torch.zeros_like(r64, dtype=f32), tol=tol_k,
+                         maxiter=maxiter)
+        x = x + res.phi.to(f64)
+        rel = torch.sqrt(torch.sum((b64 - op64(x)) ** 2)) / bden
+        total_it += int(res.iterations)
+        k += 1
+    return SolveResult(phi=_nodes(x, scase.grid_index),
+                       iterations=torch.tensor(total_it), residual=rel,
+                       converged=rel <= tol)
+
+
+def _certified_cg(op, b, M, x0, *, tol, maxiter, lane_dim=0):
+    """solve.batched_cg until every lane's TRUE residual b - op(x) meets
+    `tol`: a lane whose recursion met it while its true residual did not
+    starts CG again from its iterate, within what is left of its
+    `maxiter`.  Returns (x, true residual r, iterations (L,), summed over
+    the restarts)."""
+    dims = tuple(d for d in range(b.dim()) if d != lane_dim % b.dim())
+    nrm = lambda a: torch.sqrt(torch.sum(a * a, dim=dims))
+    tol_abs = tol * nrm(b)
+    x, k = x0, 0
+    while True:
+        x, _, dk = batched_cg(op, b, M, x, tol=tol, maxiter=maxiter - k,
+                              lane_dim=lane_dim)
+        k = k + dk
+        r = b - op(x)
+        if not bool(torch.any((nrm(r) > tol_abs) & (k < maxiter))):
+            return x, r, k
+
+
+def batched_stencil_solve_fused(scase: StencilCase, sigma_tables, *,
+                                tol=1e-8, maxiter=10_000,
+                                lane_minor: bool = False) -> SolveResult:
+    """Material sweep as ONE lane-stacked Jacobi-PCG with the
+    body-factored fused SpMV, in the case's dtype; converged lanes
+    freeze.  sigma_tables (L, T), body b at slot b+1.  Memory is
+    O(L*G + B*27*G): no per-lane combined coefficients.
+
+    lane_minor=False runs on (L, X, Y, Z) state through
+    batched_stencil_spmv (the reference's XLA route, whose Pallas form is
+    batched_stencil_spmv_fused_pallas); lane_minor=True runs the whole CG
+    on (X, Y, Z, L) state through batched_stencil_spmv_lminor (the
+    reference's use_pallas=True route).  Both compute the same lanes.
+    phi is returned (L, N) in mesh node order.
+
+    The returned residual is each lane's TRUE relative residual: a lane
+    whose recursive residual meets `tol` while its true residual does not
+    (f64 rounding drifts the recursion by ~1e-3 of the residual on the
+    full-size step04 lattice) restarts from its iterate (_certified_cg);
+    the reference reports the recursive residual."""
+    if lane_minor:
+        return _batched_solve_fused_lminor(scase, sigma_tables, tol=tol,
+                                           maxiter=maxiter)
+    L = sigma_tables.shape[0]
+    coeff = scase.coeff.contiguous()
+    B = coeff.shape[0]
+    sig = sigma_tables[:, 1:1 + B].to(coeff.dtype).contiguous()   # (L, B)
+    freeb = scase.free[None]
+
+    def op(Xs):
+        Ys = batched_stencil_spmv(torch.where(freeb, Xs, 0.0), coeff, sig)
+        return torch.where(freeb, Ys, Xs)
+
+    # per-lane diagonal as an explicit sum over bodies (never an einsum:
+    # see combine_coeffs)
+    lane = lambda v: v[:, None, None, None]
+    diag_l = lane(sig[:, 0]) * coeff[0, DIAG_OFFSET]
+    for b in range(1, B):
+        diag_l = diag_l + lane(sig[:, b]) * coeff[b, DIAG_OFFSET]
+    diag = torch.where(freeb, diag_l, 1.0)
+    phi_d = torch.where(scase.free, 0.0, scase.dirichlet)
+    Kphi_d = batched_stencil_spmv(
+        phi_d.expand((L,) + phi_d.shape).contiguous(), coeff, sig)
+    b_eff = torch.where(freeb, scase.b_neumann[None] - Kphi_d,
+                        scase.dirichlet[None])
+    x0 = phi_d.expand(b_eff.shape).clone()
+    minv = torch.where(diag > 0, 1.0 / diag, 1.0)
+    x, r, k = _certified_cg(op, b_eff, lambda v: minv * v, x0, tol=tol,
+                            maxiter=maxiter)
+    red = lambda a: torch.sqrt(torch.sum(a * a, dim=(1, 2, 3)))
+    bnorm = red(b_eff)
+    rel = red(r) / torch.where(bnorm > 0, bnorm, 1.0)
+    return SolveResult(phi=x.reshape(L, -1)[:, scase.grid_index],
+                       iterations=k, residual=rel, converged=rel <= tol)
+
+
+def _batched_solve_fused_lminor(scase: StencilCase, sigma_tables, *, tol,
+                                maxiter) -> SolveResult:
+    """Lane-MINOR fused material sweep: the whole CG on (X, Y, Z, L)
+    state, dots reduced over axes (0, 1, 2), every apply through
+    batched_stencil_spmv_lminor."""
+    L = sigma_tables.shape[0]
+    coeff = scase.coeff.contiguous()
+    B = coeff.shape[0]
+    sig = sigma_tables[:, 1:1 + B].to(coeff.dtype).T.contiguous()  # (B, L)
+    free = scase.free[..., None]                                  # (X,Y,Z,1)
+
+    def op(Xm):
+        Ym = batched_stencil_spmv_lminor(torch.where(free, Xm, 0.0), coeff,
+                                         sig)
+        return torch.where(free, Ym, Xm)
+
+    diag_l = coeff[0, DIAG_OFFSET][..., None] * sig[0]
+    for b in range(1, B):
+        diag_l = diag_l + coeff[b, DIAG_OFFSET][..., None] * sig[b]
+    diag = torch.where(free, diag_l, 1.0)
+    phi_d = torch.where(scase.free, 0.0, scase.dirichlet)[..., None]
+    Kphi_d = batched_stencil_spmv_lminor(
+        phi_d.expand(phi_d.shape[:3] + (L,)).contiguous(), coeff, sig)
+    b_eff = torch.where(free, scase.b_neumann[..., None] - Kphi_d,
+                        scase.dirichlet[..., None])
+    x0 = phi_d.expand(b_eff.shape).clone()
+    minv = torch.where(diag > 0, 1.0 / diag, 1.0)
+    x, r, k = _certified_cg(op, b_eff, lambda v: minv * v, x0, tol=tol,
+                            maxiter=maxiter, lane_dim=-1)
+    red = lambda a: torch.sqrt(torch.sum(a * a, dim=(0, 1, 2)))
+    bnorm = red(b_eff)
+    rel = red(r) / torch.where(bnorm > 0, bnorm, 1.0)
+    return SolveResult(phi=x.reshape(-1, L)[scase.grid_index].T,
+                       iterations=k, residual=rel, converged=rel <= tol)

@@ -1,14 +1,16 @@
-"""Device-time breakdown of the two certified solves on a CUDA card.
+"""Device-time breakdown of the port's paths on a CUDA card.
 
     python -m pelvistim_fem_tpu_torch.profile_legs
 
-Profiles, warm, one 25-lane chunk of the step04 contact sweep (the
-rim-banded (89, 41, 19) lattice, the chunk with the hardest contact
-conductivities) and one megatet step03 assemble + solve, with
-torch.profiler.  For each it prints the wall time, the summed device
-time of all kernels, their ratio (the device busy share; the rest is
-host time between launches), the number of kernel launches, and the
-kernels that take the most device time.
+Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
+contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
+hardest contact conductivities), the metric rows of that chunk on the
+361,920-tet element Case, the lane-minor Jacobi sweep of the
+reference's 15 contact levels on the same lattice, and one megatet
+step03 assemble + solve.  For each it prints the wall time, the summed
+device time of all kernels, their ratio (the device busy share; the
+rest is host time between launches), the number of kernel launches, and
+the kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -55,14 +57,18 @@ def main():
 
     from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
     from pelvistim_fem_tpu_torch.models.pressure import (
-        SWEEP_LANES_PER_CHUNK, sweep_spec)
+        SWEEP_LANES_PER_CHUNK, build_pressure_case, sigma_tables,
+        sweep_spec)
     from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
         assemble_lattice, solve_lattice_mg_refined, spec_device_arrays)
+    from pelvistim_fem_tpu_torch.ops.metrics import extract_results_batched
     from pelvistim_fem_tpu_torch.ops.multigrid import \
         batched_mg_solve_fused_refined
+    from pelvistim_fem_tpu_torch.ops.stencil import \
+        batched_stencil_solve_fused
 
     print(torch.cuda.get_device_name(0))
-    spec, _, tables = sweep_spec()
+    spec, params, tables = sweep_spec()
     scase, hier = assemble_lattice(spec, torch.float64, device=dev)
     tabs = torch.as_tensor(tables[:SWEEP_LANES_PER_CHUNK], device=dev)
     out = {}
@@ -73,6 +79,27 @@ def main():
 
     _profile("sweep_chunk", sweep_chunk)
     it = out["sweep"].iterations.cpu().numpy()
+    print(f"  iterations max {it.max()} mean {it.mean():.2f}")
+
+    case, _ = build_pressure_case(params, dtype=torch.float32, device=dev)
+
+    def extraction():
+        out["rows"] = extract_results_batched(
+            case, out["sweep"].phi.float(), params,
+            sigma_tables=tabs.float(),
+            sigma_contacts=[float(v) for v in tabs[:, 4].cpu()])
+
+    _profile("extraction", extraction)
+
+    levels = params["pressure_sweep"]["sigma_contact_Spm"]
+    jtabs = torch.as_tensor(sigma_tables(spec, levels), device=dev)
+
+    def jacobi():
+        out["jacobi"] = batched_stencil_solve_fused(
+            scase, jtabs, tol=1e-8, maxiter=30_000, lane_minor=True)
+
+    _profile("jacobi_lane_minor", jacobi)
+    it = out["jacobi"].iterations.cpu().numpy()
     print(f"  iterations max {it.max()} mean {it.mean():.2f}")
 
     spec_m, _ = megatet_spec()

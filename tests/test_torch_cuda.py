@@ -1,5 +1,5 @@
 """PyTorch port on a CUDA card: the stencil kernels against their plain
-twins, and a small certified sweep on the card against the CPU.
+twins, and small sweeps and metric rows on the card against the CPU.
 
 Marked `cuda`; every test skips where no CUDA device is present.  On a
 machine with a card (and without JAX, which tests/conftest.py imports):
@@ -62,6 +62,39 @@ def test_batched_kernel_matches_twin(dev, dtype, L, B, shape):
                                **(F32 if dtype == "float32" else F64))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L,B,shape", [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
+                                       (15, 5, (9, 7, 6)), (33, 1, (5, 4, 3)),
+                                       (1, 8, (6, 5, 4))])
+def test_lminor_kernel_matches_twin(dev, dtype, L, B, shape):
+    """Lane counts that are not multiples of 32, one body and the 8-body
+    limit."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    Xm = _rand(rng, shape + (L,), dt, dev)
+    coeff = _rand(rng, (B, 27) + shape, dt, dev)
+    sig = torch.as_tensor(rng.random((B, L)), dtype=dt, device=dev)
+    y = sk.batched_stencil_spmv_lminor_cuda(Xm, coeff, sig)
+    torch.testing.assert_close(
+        y, sk.batched_stencil_spmv_lminor_plain(Xm, coeff, sig),
+        **(F32 if dtype == "float32" else F64))
+
+
+def test_lminor_kernel_counts_and_refuses(dev):
+    sk.reset_launches()
+    Xm = torch.ones((4, 3, 3, 2), device=dev)
+    coeff = torch.ones((1, 27, 4, 3, 3), device=dev)
+    sk.batched_stencil_spmv_lminor(Xm, coeff, torch.ones((1, 2), device=dev))
+    assert sk.LAUNCHES["batched_stencil_spmv_lminor_cuda"] == 1
+    with pytest.raises(ValueError):      # sig given lane-major
+        sk.batched_stencil_spmv_lminor_cuda(Xm, coeff,
+                                            torch.ones((2, 1), device=dev))
+    with pytest.raises(TypeError):
+        sk.batched_stencil_spmv_lminor_cuda(Xm.double(), coeff,
+                                            torch.ones((1, 2), device=dev))
+    assert sk.LAUNCHES["batched_stencil_spmv_lminor_cuda"] == 1
+
+
 def test_stencil_kernel_neighbor_directions(dev):
     shape = (6, 5, 4)
     x = _rand(np.random.default_rng(4), shape, torch.float64, dev)
@@ -109,3 +142,69 @@ def test_coarse_sweep_on_card_matches_cpu(dev):
     assert float(card.residual.max()) <= 1e-8
     ref = cpu.phi.abs().max()
     assert float((card.phi.cpu() - cpu.phi).abs().max()) <= 1e-6 * ref
+
+
+def _coarse_jacobi_case(d):
+    from pelvistim_fem_tpu_torch.models.pressure import build_pressure_spec
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import \
+        assemble_lattice
+    spec, params = build_pressure_spec(coarse=True)
+    scase, _ = assemble_lattice(spec, torch.float64, device=d)
+    return spec, params, scase
+
+
+def test_fused_jacobi_routes_agree_on_card(dev):
+    """Lane-major and lane-minor Jacobi sweeps on the card (kernels
+    batched_stencil_spmv_cuda and batched_stencil_spmv_lminor_cuda) agree
+    with each other and with the CPU twins."""
+    from pelvistim_fem_tpu_torch.models.pressure import sigma_tables
+    from pelvistim_fem_tpu_torch.ops.stencil import \
+        batched_stencil_solve_fused as fused
+    outs = {}
+    for d in ("cpu", dev):
+        spec, params, scase = _coarse_jacobi_case(d)
+        tabs = torch.as_tensor(sigma_tables(
+            spec, params["pressure_sweep"]["sigma_contact_Spm"][::4]),
+            device=d)
+        for lm in (False, True):
+            r = fused(scase, tabs, tol=1e-8, maxiter=30_000, lane_minor=lm)
+            assert bool(r.converged.all())
+            outs[(str(d), lm)] = r
+    ref = outs[("cpu", False)]
+    scale = float(ref.phi.abs().max())
+    for key, r in outs.items():
+        assert (r.iterations.cpu() - ref.iterations).abs().max() <= 2, key
+        assert float((r.phi.cpu() - ref.phi).abs().max()) <= 1e-7 * scale
+
+
+def test_metric_rows_on_card_match_cpu(dev):
+    """The coarse Case and batched metric rows: card (f32, as the
+    benchmark extracts) against the CPU."""
+    from pelvistim_fem_tpu_torch.models.pressure import (
+        build_pressure_case, sigma_tables_for_sweep)
+    from pelvistim_fem_tpu_torch.ops.metrics import extract_results_batched
+    from pelvistim_fem_tpu_torch.ops.stencil import \
+        batched_stencil_solve_fused as fused
+    _, _, scase = _coarse_jacobi_case("cpu")
+    rows = {}
+    for d in ("cpu", dev):
+        case, params = build_pressure_case(coarse=True, dtype=torch.float32,
+                                           device=d)
+        tabs = sigma_tables_for_sweep(case, params)[::7]
+        if d == "cpu":
+            phis = fused(scase, tabs.double(), tol=1e-8,
+                         maxiter=30_000).phi.float()
+        rows[str(d)] = extract_results_batched(
+            case, phis.to(d), params, sigma_tables=tabs,
+            pressure_labels=["a", "b", "c"], sigma_contacts=[1.0, 2.0, 3.0])
+    for g, w in zip(rows[str(dev)], rows["cpu"]):
+        assert list(g) == list(w)
+        for k, b in w.items():
+            a = g[k]
+            if isinstance(b, (bool, str)) or b is None:
+                assert a == b, k
+            elif k == "flux_err_consistent":
+                assert abs(a - b) <= 1e-5, k
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, equal_nan=True,
+                                           err_msg=k)

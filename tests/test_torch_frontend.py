@@ -152,7 +152,7 @@ from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
 import pelvistim_fem_tpu_torch.interop
 import pelvistim_fem_tpu_torch.ops.multigrid
 spec, _ = build_pressure_spec(coarse=True)
-r = solve_lattice_mg_refined(spec, tol=1e-8)
+r = solve_lattice_mg_refined(spec, tol=1e-8, device="cpu")
 assert bool(r.converged) and float(r.residual) <= 1e-8, r
 bad = [m for m in sys.modules
        if m == "pelvistim_fem_tpu" or m.startswith("pelvistim_fem_tpu.")]

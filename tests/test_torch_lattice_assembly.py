@@ -34,7 +34,7 @@ def coarse():
     jspec, _ = jax_pressure_spec(coarse=True)
     tspec, _ = build_pressure_spec(coarse=True)
     jcase, jhier = jla.assemble_lattice(jspec, jnp.float64)
-    tcase, thier = tla.assemble_lattice(tspec, torch.float64)
+    tcase, thier = tla.assemble_lattice(tspec, torch.float64, device="cpu")
     return dict(jspec=jspec, tspec=tspec, jcase=jcase, jhier=jhier,
                 tcase=tcase, thier=thier)
 
@@ -49,7 +49,7 @@ def test_lattice_coeff_precombined_sigma_table(coarse):
     the single-operator solve."""
     spec = coarse["tspec"]
     jdev = jla.spec_device_arrays(coarse["jspec"], jnp.float64)
-    tdev = tla.spec_device_arrays(spec, torch.float64)
+    tdev = tla.spec_device_arrays(spec, torch.float64, "cpu")
     ref = jla.lattice_coeff(jdev["h_axes"], jdev["coords_dev"],
                             jdev["body6"], spec.n_bodies,
                             sigma_table=jdev["sigma_table"])
@@ -109,11 +109,23 @@ def test_restrict_is_prolong_transpose(coarse):
     assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
 
 
+def test_assemble_lattice_defaults_to_the_card(coarse):
+    """With no device the assembly goes to the card: without one it
+    raises rather than return CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tla.assemble_lattice(coarse["tspec"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tla.solve_lattice_mg_refined(coarse["tspec"])
+
+
 def test_solve_lattice_mg_refined_matches_reference(coarse):
     """The megatet leg's entry point on the coarse lattice: certified
     true residual, iterations within 2, phi within 1e-6 max|phi|."""
     ref = jla.solve_lattice_mg_refined(coarse["jspec"], tol=1e-8)
-    got = tla.solve_lattice_mg_refined(coarse["tspec"], tol=1e-8)
+    got = tla.solve_lattice_mg_refined(coarse["tspec"], tol=1e-8,
+                                       device="cpu")
     assert bool(got.converged) and float(got.residual) <= 1e-8
     assert abs(int(got.iterations) - int(ref.iterations)) <= 2
     p_ref = np.asarray(ref.phi)

@@ -51,10 +51,10 @@ def ref():
     tables = sigma_tables(tspec, SIGMA_CONTACT)
     out = jmg.batched_mg_solve_fused_refined_chunked(
         jcase, jhier, jnp.asarray(tables), lanes_per_chunk=2, tol=TOL)
-    icase = interop.stencil_case_from_numpy(_case_dict(jcase))
+    icase = interop.stencil_case_from_numpy(_case_dict(jcase), device="cpu")
     ihier = interop.hierarchy_from_numpy(
         [(np.asarray(lv.coeff), np.asarray(lv.free)) for lv in jhier.levels],
-        jspec.axes)
+        jspec.axes, device="cpu")
     return dict(jspec=jspec, tspec=tspec, jcase=jcase, jhier=jhier,
                 tables=tables, out=out, icase=icase, ihier=ihier)
 
@@ -82,7 +82,7 @@ def test_interop_round_trip(ref):
     with pytest.raises(ValueError):
         interop.hierarchy_from_numpy(
             [(np.zeros((5, 27, 3, 3, 3)), np.ones((3, 3, 3), bool))] * 2,
-            ref["jspec"].axes)
+            ref["jspec"].axes, device="cpu")
 
 
 def test_v_cycle_matches_reference_f64(ref):
@@ -165,7 +165,8 @@ def test_chunked_sweep_on_reference_assembly(ref):
 
 def test_sweep_on_own_assembly(ref):
     """The port end to end: own spec, own assembly, one 3-lane call."""
-    tcase, thier = tla.assemble_lattice(ref["tspec"], torch.float64)
+    tcase, thier = tla.assemble_lattice(ref["tspec"], torch.float64,
+                                        device="cpu")
     got = tmg.batched_mg_solve_fused_refined(
         tcase, thier, torch.as_tensor(ref["tables"]), tol=TOL)
     _check_against(ref["out"], got)

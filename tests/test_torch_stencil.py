@@ -148,7 +148,7 @@ def test_operator_matches_reference():
              sigma_table=np.concatenate([[0.0], rng.random(B)]))
     jcase = jst.StencilCase(**{k: jnp.asarray(v) for k, v in d.items()})
     from pelvistim_fem_tpu_torch.interop import stencil_case_from_numpy
-    tcase = stencil_case_from_numpy(d)
+    tcase = stencil_case_from_numpy(d, device="cpu")
     jop, jdiag, jb = jst._operator(jcase, jcase.sigma_table)
     top, tdiag, tb = tst._operator(tcase, tcase.sigma_table)
     x = rng.standard_normal(shape)
@@ -171,7 +171,8 @@ def test_cpu_tensors_take_the_twin():
     assert torch.equal(sk.batched_stencil_spmv(Xs, coeff, sig),
                        sk.batched_stencil_spmv_plain(Xs, coeff, sig))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
-                           "batched_stencil_spmv_cuda": 0}
+                           "batched_stencil_spmv_cuda": 0,
+                           "batched_stencil_spmv_lminor_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
