@@ -8,9 +8,12 @@ PyTorch built for CUDA.  It drives the port (pelvistim_fem_tpu_torch)
 through its paths at the benchmark's full sizes, and imports no JAX:
 
   1. device     the card's name and power limit; TF32 pinned off
-  2. build      nvcc compiles the stencil kernels from the checkout
+  2. build      nvcc compiles the stencil kernels from the checkout;
+                ptxas's registers and spills of the instantiations
   3. parity     each CUDA kernel against its plain PyTorch twin, f32 and
-                f64, at small shapes and at the paths' shapes; kernel
+                f64, at small shapes, at the batched kernels' edges (grids
+                that end mid-tile, lane counts that fill no lane group,
+                1 and 8 bodies) and at the paths' shapes; kernel
                 device times (a CUDA graph of 20 launches, replayed
                 between CUDA events) and call and twin times (CUDA
                 events), medians of 20, each launch on one of enough
@@ -36,18 +39,19 @@ through its paths at the benchmark's full sizes, and imports no JAX:
 
 Launch counters are set to 0 before each of the paths 4-7 and read after
 it; each path must have launched its own kernels, and every kernel must
-have run.  Every (kernel, dtype, shapes) the paths launched that phase 3
-did not hold is then held against its twin on random inputs of those
-shapes.  Every phase checks its results and raises on failure; the
-exit code is then non-zero and no result line is printed.  The
-second-to-last line is a JSON summary of the kernels (times, bounds,
-launches); the last line is
+have run.  Every (kernel, dtype, shapes) the paths launched is counted
+(`launches_by_shape` in the kernels line), and each that phase 3 did not
+hold is then held against its twin on random inputs of those shapes.
+Every phase checks its results and raises on failure; the exit code is
+then non-zero and no result line is printed.  The second-to-last line
+is a JSON summary of the kernels (times, bounds, launches); the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import collections
 import itertools
 import json
-import math
 import subprocess
 import sys
 import time
@@ -76,14 +80,6 @@ JACOBI_LANES, SINGLE_LANE = 15, 7
 ROW_KEYS = {"compliance_V": 3, "contact_impedance_ohm": 1,
             "roi_mean_E": 4, "charge_density_mC_cm2": 6}
 
-# Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
-# (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
-# TFLOP/s float64 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-# Timed launches rotate through copies of their inputs that together
-# stream at least 3x the H100's 50 MB L2.
-ROTATE_BYTES = 150e6
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
 REPLACES = {
@@ -105,97 +101,11 @@ def gpu_query(fields):
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20, warmup=10):
-    """Median milliseconds of fn() over `reps` launches, CUDA events,
-    after `warmup` untimed launches (the first timings of a process run
-    before the card's clocks have risen)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def input_copies(args):
-    """args and clones of it, enough that using them in turn reads at
-    least ROTATE_BYTES: between two uses of one copy the others evict it
-    from L2, so each launch reads its inputs from HBM, as inside a solve
-    where the CG vectors evict the coefficients."""
-    nbytes = sum(a.numel() * a.element_size() for a in args)
-    n = max(2, math.ceil(ROTATE_BYTES / nbytes))
-    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
-
-
-def kernel_ms(kernel, copies, launches=20, reps=20, warmup=10):
-    """Device milliseconds of one kernel launch: kernel(*copy), the copies
-    taken in turn, is captured `launches` times into a CUDA graph, each
-    launch with an output of its own, and the graph's replay is timed with
-    CUDA events; the median of `reps` replays over `launches`.  A replay
-    has no host work between its launches, so unlike events around one
-    call this leaves out the Python wrapper's host time, which is longer
-    than the shortest kernels."""
-    import torch
-    for i in range(warmup):
-        kernel(*copies[i % len(copies)])
-    torch.cuda.synchronize()
-    graph, outs = torch.cuda.CUDAGraph(), []
-    with torch.cuda.graph(graph):
-        for i in range(launches):
-            outs.append(kernel(*copies[i % len(copies)]))
-    return cuda_ms(graph.replay, reps=reps, warmup=2) / launches
-
-
-def bound(name, shape, dtype):
-    """(bound_ms, bound_by) of one apply: the larger of the bytes it must
-    move (each input read once, the output written once) over the HBM
-    rate and its multiply-adds over the peak rate of its dtype.  shape:
-    (X, Y, Z) for stencil_spmv_cuda, (L, B, (X, Y, Z)) for the batched
-    kernels, whose per-lane coefficient is a B-term combine (2B - 1
-    operations) before the multiply-add."""
-    es = 4 if dtype == "float32" else 8
-    if name == "stencil_spmv_cuda":
-        G = int(np.prod(shape))
-        nbytes, flops = 29 * G * es, 2 * 27 * G
-    else:
-        L, B, grid = shape
-        G = int(np.prod(grid))
-        nbytes = (2 * L * G + 27 * B * G + L * B) * es
-        flops = L * G * 27 * (2 * B + 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def check_close(name, y, ref, dtype):
-    """f32: rtol 2e-5, atol 1e-5 max|ref|; f64: rtol 1e-12, atol 1e-12
-    max|ref| (random 27-term sums: the atol covers entries that cancel
-    to near zero).  Returns the max abs error."""
-    import torch
-    scale = float(ref.abs().max())
-    rtol, atol = (2e-5, 1e-5 * scale) if dtype == torch.float32 else \
-        (1e-12, 1e-12 * scale)
-    err = (y - ref).abs()
-    bad = err > atol + rtol * ref.abs()
-    if not torch.isfinite(y).all() or bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} entries off, max "
-                             f"abs err {float(err.max()):.3e} "
-                             f"(scale {scale:.3e})")
-    return float(err.max())
-
-
 def phase_parity(dev):
     import torch
     from pelvistim_fem_tpu_torch.models.pressure import \
         SWEEP_LANES_PER_CHUNK as LANES_PER_CHUNK
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
 
     rng = np.random.default_rng(0)
@@ -218,20 +128,23 @@ def phase_parity(dev):
 
     covered = set()
 
-    def run(name, dn, shape, timed, kernel, twin, args):
+    def run(name, dn, shape, timed):
         dtype = getattr(torch, dn)
+        kernel = getattr(sk, name)
+        twin = getattr(sk, name.replace("_cuda", "_plain"))
+        args = measure.kernel_inputs(name, shape, dtype, dev, rng)
         covered.add(signature(name, args))
         y = kernel(*args)
         ref = twin(*args)
         torch.cuda.synchronize()
-        err = check_close(f"{name} {shape} {dn}", y, ref, dtype)
+        err = measure.check_close(f"{name} {shape} {dn}", y, ref, dtype)
         line = f"parity {name} {dn} {shape}: max_abs_err {err:.3e}"
         if timed:
-            copies = input_copies(args)
-            ms = kernel_ms(kernel, copies)
+            copies = measure.input_copies(args)
+            ms = measure.kernel_ms(kernel, copies)
             turn = itertools.cycle(copies)
-            call = cuda_ms(lambda: kernel(*next(turn)))
-            pms = cuda_ms(lambda: twin(*next(turn)))
+            call = measure.cuda_ms(lambda: kernel(*next(turn)))
+            pms = measure.cuda_ms(lambda: twin(*next(turn)))
             line += (f" kernel {ms:.4f} ms (one call with its wrapper "
                      f"{call:.4f} ms) plain {pms:.4f} ms")
             results[(name, dn)] = (err, ms, pms, shape, call)
@@ -239,35 +152,23 @@ def phase_parity(dev):
 
     single = [(8, 7, 6), (20, 13, 9), (31, 16, 8), SWEEP_GRID,
               MEGATET_GRID]
-    batched = [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
-               (LANES_PER_CHUNK, 5, SWEEP_GRID),
-               (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
-    # lane-minor: the Pallas tests' shapes and the Jacobi sweep's
-    lminor = [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
-              (JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
+    # the batched kernels: tiles cut by the grid's end (G not a multiple
+    # of the points per block), lane counts that fill no lane group or
+    # block, 1 and 8 bodies, and the paths' shapes
+    edges = [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)), (1, 8, (9, 7, 5)),
+             (33, 1, (9, 7, 5)), (40, 3, (9, 7, 6))]
+    batched = edges + [(LANES_PER_CHUNK, 5, SWEEP_GRID),
+                       (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
+    lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
     for dn in ("float32", "float64"):
-        dtype = getattr(torch, dn)
         for shape in single:
-            run("stencil_spmv_cuda", dn, shape, shape == MEGATET_GRID,
-                sk.stencil_spmv_cuda, sk.stencil_spmv_plain,
-                (rand(shape, dtype), rand((27,) + shape, dtype)))
+            run("stencil_spmv_cuda", dn, shape, shape == MEGATET_GRID)
         for L, B, shape in batched:
-            sig = torch.as_tensor(rng.random((L, B)), dtype=dtype,
-                                  device=dev)
             run("batched_stencil_spmv_cuda", dn, (L, B, shape),
-                L == LANES_PER_CHUNK and shape == SWEEP_GRID,
-                sk.batched_stencil_spmv_cuda,
-                sk.batched_stencil_spmv_plain,
-                (rand((L,) + shape, dtype), rand((B, 27) + shape, dtype),
-                 sig))
+                L == LANES_PER_CHUNK and shape == SWEEP_GRID)
         for L, B, shape in lminor:
-            sig = torch.as_tensor(rng.random((B, L)), dtype=dtype,
-                                  device=dev)
             run("batched_stencil_spmv_lminor_cuda", dn, (L, B, shape),
-                L == JACOBI_LANES, sk.batched_stencil_spmv_lminor_cuda,
-                sk.batched_stencil_spmv_lminor_plain,
-                (rand(shape + (L,), dtype), rand((B, 27) + shape, dtype),
-                 sig))
+                L == JACOBI_LANES)
     # one-hot neighbour directions: each offset picks the right neighbour
     shape = (6, 5, 4)
     x = rand(shape, torch.float64)
@@ -287,7 +188,7 @@ def phase_parity(dev):
     major = sk.batched_stencil_spmv_plain(Xs, coeff, sig)
     minor = sk.batched_stencil_spmv_lminor_plain(
         Xs.permute(1, 2, 3, 0).contiguous(), coeff, sig.T.contiguous())
-    err = check_close("lane-major vs lane-minor twins",
+    err = measure.check_close("lane-major vs lane-minor twins",
                       minor.permute(3, 0, 1, 2), major, torch.float64)
     log(f"parity twins lane-major vs lane-minor (transposed) L={L} B={B} "
         f"{SWEEP_GRID} float64: max_abs_err {err:.3e}")
@@ -300,14 +201,24 @@ def signature(name, args):
             tuple(tuple(a.shape) for a in args))
 
 
+def shape_key(name, dn, shapes):
+    """A launch signature as "<dtype> (L, B, (X, Y, Z))", or "<dtype> (X,
+    Y, Z)" for stencil_spmv_cuda (the parity lines' shapes)."""
+    if name == "stencil_spmv_cuda":
+        return f"{dn} {shapes[0]}"
+    L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
+        shapes[0][3]
+    return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
+
+
 def record_launches(sk, seen):
     """Wrap the CUDA wrappers of `sk` so that each launch through the
-    package adds its signature to `seen`; returns a function that puts
-    the wrappers back."""
+    package counts its signature in the Counter `seen`; returns a function
+    that puts the wrappers back."""
     originals = {name: getattr(sk, name) for name in sk.LAUNCHES}
     for name, fn in originals.items():
         def wrapped(*args, _fn=fn, _name=name):
-            seen.add(signature(_name, args))
+            seen[signature(_name, args)] += 1
             return _fn(*args)
         setattr(sk, name, wrapped)
     return lambda: [setattr(sk, n, f) for n, f in originals.items()]
@@ -318,9 +229,10 @@ def phase_path_parity(dev, seen, covered):
     not hold (the MG levels, the assembly's probes, the right-hand sides),
     against its twin on random inputs of those shapes."""
     import torch
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     rng = np.random.default_rng(1)
-    todo = sorted(seen - covered)
+    todo = sorted(set(seen) - covered)
     for name, dn, shapes in todo:
         dtype = getattr(torch, dn)
         args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
@@ -329,8 +241,8 @@ def phase_path_parity(dev, seen, covered):
             args[2] = args[2].abs()
         twin = getattr(sk, name.replace("_cuda", "_plain"))
         y = getattr(sk, name)(*args)
-        err = check_close(f"path {name} {dn} {shapes}", y, twin(*args),
-                          dtype)
+        err = measure.check_close(f"path {name} {dn} {shapes}", y,
+                                  twin(*args), dtype)
         log(f"parity path {name} {dn} {shapes}: max_abs_err {err:.3e}")
     log(f"parity path shapes: the paths launched {len(seen)} (kernel, "
         f"dtype, shapes), {len(todo)} not held in phase 3, all within "
@@ -708,11 +620,20 @@ def main():
     log(gpu)
 
     # 2. build
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     t0 = time.perf_counter()
-    sk.build(verbose=True)
+    sk.build()
     log(f"build: stencil kernels compiled and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    usage = sk.ptxas_usage()
+    for k, u in usage.items():
+        if not k.startswith("batched") or k.split(",")[1] in ("1", "5"):
+            log(f"ptxas {k}: {u['registers']} registers, "
+                f"{u['spill_bytes']} bytes spilled")
+    log(f"ptxas: {len(usage)} kernel instantiations, "
+        f"{sum(u['spill_bytes'] for u in usage.values())} bytes spilled "
+        "in all")
 
     # 3. parity
     t0 = time.perf_counter()
@@ -723,7 +644,7 @@ def main():
 
     # 4-7. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
-    seen = set()
+    seen = collections.Counter()
     restore = record_launches(sk, seen)
 
     def path(name, kernels, fn, *args):
@@ -755,9 +676,16 @@ def main():
     restore()
     phase_path_parity(dev, seen, covered)
     log(f"launches: {launches}")
+    by_shape = {name: {} for name in launches}
+    for (name, dn, shapes), n in seen.most_common():
+        by_shape[name][shape_key(name, dn, shapes)] = n
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the paths")
+        if sum(by_shape[name].values()) != n:
+            raise AssertionError(f"{name}: launches by shape add up to "
+                                 f"{sum(by_shape[name].values())}, not {n}")
+        log(f"launches by shape {name}: {by_shape[name]}")
 
     kernels = []
     for name, dn, alt in (("stencil_spmv_cuda", "float32", "float64"),
@@ -766,16 +694,17 @@ def main():
                           ("batched_stencil_spmv_lminor_cuda", "float64",
                            "float32")):
         err, ms, pms, shape, call = parity[(name, dn)]
-        b_ms, b_by = bound(name, shape, dn)
+        b_ms, b_by = measure.bound(name, shape, dn)
         a_err, a_ms, a_pms, _, a_call = parity[(name, alt)]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=pms,
+            launches=launches[name], launches_by_shape=by_shape[name],
+            max_abs_err=err, ms=ms, plain_ms=pms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, dtype=dn,
             shape=str(shape), call_ms=call,
             other_dtype=dict(dtype=alt, max_abs_err=a_err, ms=a_ms,
                              plain_ms=a_pms, call_ms=a_call,
-                             bound_ms=bound(name, shape, alt)[0])))
+                             bound_ms=measure.bound(name, shape, alt)[0])))
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
     log(f"total: {time.perf_counter() - t_start:.1f} s; sweep "

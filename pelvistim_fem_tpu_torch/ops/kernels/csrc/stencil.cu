@@ -17,47 +17,151 @@
 //   Xm (X, Y, Z, L), coeff (B, 27, X, Y, Z), sig (B, L)   [lane-minor]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
-// Both kernels are bound by device-memory bandwidth: per grid point the
+// All three are bound by device-memory bandwidth: per grid point the
 // single kernel reads 27 coefficients and writes one value, doing 27
 // multiply-adds, far below the card's ratio of operations to bytes.  One
 // thread computes one grid point; consecutive threads take consecutive z,
 // so every coefficient plane and x row is read coalesced, and the 27
 // neighbour reads of a warp hit the same few cache lines.
 //
-// The batched kernel keeps the TPU kernel's intent: the B*27 coefficient
-// planes are not read once per lane.  A block covers kPoints grid points
-// and kGroups lane groups of kLanes lanes; each thread computes kLanes
-// lanes of one grid point, holding one accumulator per lane in registers,
-// and forms each lane's combined coefficient sum_b sig[l, b] * C_b[o] on
-// the fly from sigma held in shared memory.  The kGroups threads of one
-// grid point sit in one block and load the same coefficients, so all but
-// the first load of each are served by the SM's L1: device memory sees the
-// coefficients once per kGroups * kLanes = 32 lanes, while each thread
-// holds only kLanes accumulators.
-//
-// The lane-minor kernel gives one thread to one (grid point, lane) pair,
-// lanes fastest, so a warp covers consecutive lanes of one or a few grid
-// points: every neighbour read Xm[g + off, l] is one coalesced run across
-// the warp, and every coefficient read C_b[o][g] is one address for all
-// the lanes of a point (a broadcast).  Sigma (B x L) is staged in shared
-// memory once per block and each thread keeps its lane's B values in
-// registers.  Bound: device-memory bandwidth; each apply must read the
-// B*27 coefficient planes once and the vectors once in, once out.
+// The two batched kernels compute Y[l] = sum_o (sum_b sig[l, b] C_b[o])
+// * shift_o(X[l]) over B*27 coefficient planes that all L lanes share; an
+// apply must read those planes once, the lanes once and write them once.
+// Relying on L1 to serve the lanes' repeated coefficient reads did not
+// hold (kernels that did so reached 7-12% of that bound), so both share
+// one design:
+//   * Tiles.  A tile is P consecutive flattened grid points with all
+//     lanes of the call, or one slab of them (blockIdx.y).  Its B*27*P
+//     coefficients are copied into shared memory once for all the tile's
+//     lanes (stage_coeff_tile: cp.async of one element each, coalesced
+//     along p; the planes start at (b*27+o)*G, not 16-byte aligned for
+//     odd G, so no 16-byte copies and no TMA), so device memory sees each
+//     coefficient once per slab.
+//   * Persistent blocks, two tile buffers.  A grid of as many blocks as
+//     the card holds at once walks the tiles; each block copies its next
+//     tile while it computes the current one, so the coefficient stream
+//     from device memory overlaps the arithmetic instead of alternating
+//     with it.
+//   * Each thread forms sum_b sig[l, b] C_b[o] in registers from its own
+//     lanes' sigma, with B a template parameter (no runtime body tests)
+//     and all 27 offsets unrolled, the 3 x-neighbours of each (dx, dy) row
+//     loaded before their multiply-adds; index arithmetic is 32-bit (the
+//     launchers check that L*G and B*27*G fit in an int).
+//   * Lane-major: a thread takes one point and K lanes (K chosen from
+//     dtype and B), consecutive threads consecutive points: shared-memory
+//     reads are conflict-free and every X read and Y write is coalesced;
+//     the block launches only the lane groups L needs.
+//   * Lane-minor: a thread takes one lane of one point at a time, lanes
+//     fastest, so a block's reads Xm[(p+off)*L + l] for one offset are one
+//     contiguous run, and the lanes of a point read its coefficients from
+//     shared memory as a broadcast.
+// The arithmetic is fixed by explicit fma(): co = s_0 C_0, then co =
+// fma(s_b, C_b, co) for b = 1..B-1, then acc = fma(co, x, acc) for offsets
+// 0..26 in order (the plain twins' order), so no contraction choice of the
+// compiler changes a result.  The tile constants below are defaults,
+// chosen by timing builds that override them with -D flags of the same
+// names at the paths' shapes (profile_kernels.py).
 //
 // Every entry point returns cudaGetLastError() of its launch (0 = ok),
 // launches on the caller's stream and does not synchronise.
 
+#include <algorithm>
+#include <atomic>
+#include <climits>
 #include <cuda_runtime.h>
+
+// Tile constants of the batched kernels (B2 lane-major, LM lane-minor),
+// per dtype: grid points per tile (a multiple of 32 for B2), largest lanes
+// per thread, threads per block at most, and blocks per SM that the
+// kernel's register use must allow.
+#ifndef PST_B2_POINTS_F32
+#define PST_B2_POINTS_F32 64
+#endif
+#ifndef PST_B2_LANES_F32
+#define PST_B2_LANES_F32 4
+#endif
+#ifndef PST_B2_THREADS_F32
+#define PST_B2_THREADS_F32 448
+#endif
+#ifndef PST_B2_MINB_F32
+#define PST_B2_MINB_F32 2
+#endif
+#ifndef PST_B2_POINTS_F64
+#define PST_B2_POINTS_F64 32
+#endif
+#ifndef PST_B2_LANES_F64
+#define PST_B2_LANES_F64 2
+#endif
+#ifndef PST_B2_THREADS_F64
+#define PST_B2_THREADS_F64 416
+#endif
+#ifndef PST_B2_MINB_F64
+#define PST_B2_MINB_F64 2
+#endif
+#ifndef PST_LM_POINTS_F32
+#define PST_LM_POINTS_F32 64
+#endif
+#ifndef PST_LM_LANES_F32
+#define PST_LM_LANES_F32 2
+#endif
+#ifndef PST_LM_THREADS_F32
+#define PST_LM_THREADS_F32 512
+#endif
+#ifndef PST_LM_MINB_F32
+#define PST_LM_MINB_F32 2
+#endif
+#ifndef PST_LM_POINTS_F64
+#define PST_LM_POINTS_F64 16
+#endif
+#ifndef PST_LM_LANES_F64
+#define PST_LM_LANES_F64 2
+#endif
+#ifndef PST_LM_THREADS_F64
+#define PST_LM_THREADS_F64 256
+#endif
+#ifndef PST_LM_MINB_F64
+#define PST_LM_MINB_F64 2
+#endif
 
 namespace {
 
 constexpr int kBlock = 256;
-// batched kernel: a block is kPoints grid points x kGroups lane groups,
-// each thread kLanes lanes of one grid point
-constexpr int kLanes = 4;
-constexpr int kGroups = 8;
-constexpr int kPoints = 256 / kGroups;
-constexpr int kMaxBodies = 8;  // largest body count the batched kernel takes
+constexpr int kMaxBodies = 8;  // largest body count the batched kernels take
+constexpr int kMaxSmem = 232448;  // shared memory a block may opt in to
+
+template <typename T>
+struct Tile;
+template <>
+struct Tile<float> {
+  static constexpr int kB2Points = PST_B2_POINTS_F32;
+  static constexpr int kB2Lanes = PST_B2_LANES_F32;
+  static constexpr int kB2Threads = PST_B2_THREADS_F32;
+  static constexpr int kB2MinBlocks = PST_B2_MINB_F32;
+  static constexpr int kLmPoints = PST_LM_POINTS_F32;
+  static constexpr int kLmLanes = PST_LM_LANES_F32;
+  static constexpr int kLmThreads = PST_LM_THREADS_F32;
+  static constexpr int kLmMinBlocks = PST_LM_MINB_F32;
+};
+template <>
+struct Tile<double> {
+  static constexpr int kB2Points = PST_B2_POINTS_F64;
+  static constexpr int kB2Lanes = PST_B2_LANES_F64;
+  static constexpr int kB2Threads = PST_B2_THREADS_F64;
+  static constexpr int kB2MinBlocks = PST_B2_MINB_F64;
+  static constexpr int kLmPoints = PST_LM_POINTS_F64;
+  static constexpr int kLmLanes = PST_LM_LANES_F64;
+  static constexpr int kLmThreads = PST_LM_THREADS_F64;
+  static constexpr int kLmMinBlocks = PST_LM_MINB_F64;
+};
+
+// Lanes per thread of a batched kernel: at most `most`, fewer for many
+// bodies, so that a thread's K*B sigma values stay at most 20 registers'
+// worth.
+template <typename T>
+constexpr int lanes_per_thread(int B, int most) {
+  const int fit = 20 * 4 / (int)sizeof(T) / B;
+  return fit < 1 ? 1 : (fit < most ? fit : most);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
@@ -95,131 +199,248 @@ stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
   y[p] = acc;
 }
 
+// One element of global memory to shared memory, asynchronously.
 template <typename T>
-__global__ void __launch_bounds__(kPoints * kGroups)
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+}
+
+// Waits for this thread's cp.async copies, then for the block.
+__device__ __forceinline__ void cp_async_wait_block() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Starts the copy of one coefficient tile (B*27, P): s[r * P + q] =
+// coeff[r * G + p0 + q] for the planes r = b*27 + o and the points q < P
+// with p0 + q < G (the rest of the last tile is left unwritten: no thread
+// reads it).  Every thread of the block takes part, consecutive threads on
+// consecutive points; the copy lands at cp_async_wait_block().
+template <typename T, int B, int P>
+__device__ __forceinline__ void stage_coeff_tile(T* s,
+                                                 const T* __restrict__ coeff,
+                                                 int G, int p0) {
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int np = min(P, G - p0);
+  const T* src = coeff + p0;
+#pragma unroll 4  // more copies in flight spill registers
+  for (int t = tid; t < B * 27 * P; t += nthreads) {
+    const int q = t % P;
+    if (q < np) cp_async_elem(s + t, src + (t / P) * G + q);
+  }
+}
+
+// Neighbour validity of grid point p = (i, j, k): m[a] for d = a - 1.
+struct Nbr {
+  bool mx[3], my[3], mz[3];
+  __device__ Nbr(int p, int X, int Y, int Z) {
+    const int k = p % Z;
+    const int q = p / Z;
+    const int j = q % Y;
+    const int i = q / Y;
+    mx[0] = i > 0; mx[1] = true; mx[2] = i < X - 1;
+    my[0] = j > 0; my[1] = true; my[2] = j < Y - 1;
+    mz[0] = k > 0; mz[1] = true; mz[2] = k < Z - 1;
+  }
+  __device__ bool ok(int o) const {
+    return mx[o / 9] && my[(o / 3) % 3] && mz[o % 3];
+  }
+};
+
+// Flattened index shift of offset o.
+__device__ __forceinline__ int shift(int o, int Y, int Z) {
+  return ((o / 9 - 1) * Y + ((o / 3) % 3 - 1)) * Z + (o % 3 - 1);
+}
+
+// Lane-major: block (P points) x (blockDim.y lane groups of K lanes),
+// blockIdx.y the lane slab.  The block walks the tiles blockIdx.x,
+// + gridDim.x, ... with two tile buffers: the next tile's copy runs
+// while the current one is computed.  Tile layout (B*27, P): the warp's
+// consecutive points read consecutive words.
+template <typename T, int B, int K, int P>
+__global__ void __launch_bounds__(Tile<T>::kB2Threads, Tile<T>::kB2MinBlocks)
 batched_stencil_spmv_kernel(const T* __restrict__ Xs,
                             const T* __restrict__ coeff,
-                            const T* __restrict__ sig,
-                            T* __restrict__ Ys, int L, int B, int X, int Y,
-                            int Z) {
-  constexpr int kBlockLanes = kGroups * kLanes;
-  __shared__ T s_sig[kBlockLanes * kMaxBodies];
-  const int lb = blockIdx.y * kBlockLanes;  // first lane of this block
-  const int tid = threadIdx.y * kPoints + threadIdx.x;
-  for (int t = tid; t < kBlockLanes * kMaxBodies; t += kPoints * kGroups) {
-    const int l = t / kMaxBodies;
-    const int b = t % kMaxBodies;
-    s_sig[t] = (lb + l < L && b < B) ? sig[(long long)(lb + l) * B + b]
-                                     : T(0);
+                            const T* __restrict__ sig, T* __restrict__ Ys,
+                            int L, int X, int Y, int Z) {
+  constexpr int kTile = B * 27 * P;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* tiles = reinterpret_cast<T*>(s_raw);  // two tiles
+  const int G = X * Y * Z;
+  const int ntiles = (G + P - 1) / P;
+  const int l0 = (blockIdx.y * blockDim.y + threadIdx.y) * K;
+  const int nl = min(K, L - l0);  // lanes of this thread (<= 0: none)
+  T s[K][B];
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      s[l][b] = l < nl ? sig[(l0 + l) * B + b] : T(0);
+    }
   }
-  __syncthreads();
 
-  const long long G = (long long)X * Y * Z;
-  const long long p = (long long)blockIdx.x * kPoints + threadIdx.x;
-  const int l0 = lb + threadIdx.y * kLanes;  // first lane of this thread
-  if (p >= G || l0 >= L) return;
-  const int k = (int)(p % Z);
-  const long long q = p / Z;
-  const int j = (int)(q % Y);
-  const int i = (int)(q / Y);
-  const int nl = min(kLanes, L - l0);
-  const T* s_lanes = s_sig + threadIdx.y * kLanes * kMaxBodies;
-
-  T acc[kLanes];
+  const int step = gridDim.x;
+  int tile = blockIdx.x;
+  stage_coeff_tile<T, B, P>(tiles, coeff, G, tile * P);
+  for (int it = 0; tile < ntiles; ++it, tile += step) {
+    cp_async_wait_block();
+    if (tile + step < ntiles) {
+      stage_coeff_tile<T, B, P>(
+          tiles + ((it + 1) & 1) * kTile, coeff, G, (tile + step) * P);
+    }
+    const T* s_c = tiles + (it & 1) * kTile;
+    const int p = tile * P + threadIdx.x;
+    if (p >= G || nl <= 0) continue;
+    const Nbr nbr(p, X, Y, Z);
+    const T* x0 = Xs + l0 * G + p;
+    T acc[K];
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) acc[l] = T(0);
-
-  int o = 0;
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int ii = i + dx;
-    const bool okx = ii >= 0 && ii < X;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int jj = j + dy;
-      const bool oky = okx && jj >= 0 && jj < Y;
-      for (int dz = -1; dz <= 1; ++dz, ++o) {
-        const int kk = k + dz;
-        const bool ok = oky && kk >= 0 && kk < Z;
-        const long long nb = ((long long)ii * Y + jj) * Z + kk;
-        T c[kMaxBodies];
+    for (int l = 0; l < K; ++l) acc[l] = T(0);
 #pragma unroll
-        for (int b = 0; b < kMaxBodies; ++b) {
-          c[b] = b < B ? coeff[((long long)b * 27 + o) * G + p] : T(0);
+    for (int row = 0; row < 9; ++row) {  // (dx, dy); its 3 x 3 loads first
+      T xv[3][K];
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        const int o = row * 3 + dz;
+        const bool ok = nbr.ok(o);
+        const int off = shift(o, Y, Z);
+#pragma unroll
+        for (int l = 0; l < K; ++l) {
+          xv[dz][l] = (ok && l < nl) ? x0[l * G + off] : T(0);
         }
+      }
 #pragma unroll
-        for (int l = 0; l < kLanes; ++l) {
+      for (int dz = 0; dz < 3; ++dz) {
+        const int o = row * 3 + dz;
+        T c[B];
+#pragma unroll
+        for (int b = 0; b < B; ++b) c[b] = s_c[(b * 27 + o) * P + threadIdx.x];
+#pragma unroll
+        for (int l = 0; l < K; ++l) {
           if (l < nl) {
-            const T* s = s_lanes + l * kMaxBodies;
-            T co = s[0] * c[0];
+            T co = s[l][0] * c[0];
 #pragma unroll
-            for (int b = 1; b < kMaxBodies; ++b) {
-              if (b < B) co += s[b] * c[b];
-            }
-            const T xv = ok ? Xs[(long long)(l0 + l) * G + nb] : T(0);
-            acc[l] += co * xv;
+            for (int b = 1; b < B; ++b) co = fma(s[l][b], c[b], co);
+            acc[l] = fma(co, xv[dz][l], acc[l]);
           }
         }
       }
     }
-  }
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    if (l < nl) Ys[(long long)(l0 + l) * G + p] = acc[l];
+    for (int l = 0; l < K; ++l) {
+      if (l < nl) Ys[(l0 + l) * G + p] = acc[l];
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
+// Lane-minor: block (blockDim.x lane threads) x (blockDim.y point rows);
+// blockIdx.y the lane slab of blockDim.x * K lanes, of which a thread takes
+// K, blockDim.x apart, at the points threadIdx.y, +blockDim.y, ... of a
+// P-point tile.  Tiles and their two buffers as in the lane-major kernel;
+// the threads of a point read its coefficients as a broadcast.
+template <typename T, int B, int K, int P>
+__global__ void __launch_bounds__(Tile<T>::kLmThreads, Tile<T>::kLmMinBlocks)
 batched_stencil_spmv_lminor_kernel(const T* __restrict__ Xm,
                                    const T* __restrict__ coeff,
                                    const T* __restrict__ sig,
-                                   T* __restrict__ Ym, int L, int B, int X,
-                                   int Y, int Z) {
+                                   T* __restrict__ Ym, int L, int X, int Y,
+                                   int Z) {
+  constexpr int kTile = B * 27 * P;
   extern __shared__ __align__(16) unsigned char s_raw[];
-  T* s_sig = reinterpret_cast<T*>(s_raw);  // (B, L), as in device memory
-  for (int t = threadIdx.x; t < B * L; t += blockDim.x) s_sig[t] = sig[t];
-  __syncthreads();
+  T* tiles = reinterpret_cast<T*>(s_raw);  // two tiles
+  const int G = X * Y * Z;
+  const int ntiles = (G + P - 1) / P;
+  const int H = blockDim.x;
+  const int l0 = blockIdx.y * H * K + threadIdx.x;  // lanes l0 + j * H
+  const int nl = L > l0 ? (L - l0 + H - 1) / H : 0;  // of them below L
+  T s[K][B];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      s[j][b] = j < nl ? sig[b * L + l0 + j * H] : T(0);
+    }
+  }
 
-  const long long G = (long long)X * Y * Z;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= G * L) return;
-  const int l = (int)(t % L);
-  const long long p = t / L;  // grid point
-  const int k = (int)(p % Z);
-  const long long q = p / Z;
-  const int j = (int)(q % Y);
-  const int i = (int)(q / Y);
-
-  T s[kMaxBodies];
+  const int step = gridDim.x;
+  int tile = blockIdx.x;
+  stage_coeff_tile<T, B, P>(tiles, coeff, G, tile * P);
+  for (int it = 0; tile < ntiles; ++it, tile += step) {
+    cp_async_wait_block();
+    if (tile + step < ntiles) {
+      stage_coeff_tile<T, B, P>(tiles + ((it + 1) & 1) * kTile, coeff, G,
+                                (tile + step) * P);
+    }
+    if (nl <= 0) continue;
+    const T* s_c = tiles + (it & 1) * kTile;
+    const int np = min(P, G - tile * P);
+    for (int q = threadIdx.y; q < np; q += blockDim.y) {
+      const int p = tile * P + q;
+      const Nbr nbr(p, X, Y, Z);
+      T acc[K];
 #pragma unroll
-  for (int b = 0; b < kMaxBodies; ++b) s[b] = b < B ? s_sig[b * L + l] : T(0);
-
-  T acc = T(0);
-  int o = 0;
+      for (int j = 0; j < K; ++j) acc[j] = T(0);
 #pragma unroll
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int ii = i + dx;
-    const bool okx = ii >= 0 && ii < X;
+      for (int row = 0; row < 9; ++row) {  // (dx, dy); its 3 x K loads first
+        T xv[3][K];
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int jj = j + dy;
-      const bool oky = okx && jj >= 0 && jj < Y;
+        for (int dz = 0; dz < 3; ++dz) {
+          const int o = row * 3 + dz;
+          const bool ok = nbr.ok(o);
+          const T* x = Xm + (p + shift(o, Y, Z)) * L + l0;
 #pragma unroll
-      for (int dz = -1; dz <= 1; ++dz, ++o) {
-        const int kk = k + dz;
-        T co = s[0] * coeff[(long long)o * G + p];
-#pragma unroll
-        for (int b = 1; b < kMaxBodies; ++b) {
-          if (b < B) co += s[b] * coeff[((long long)b * 27 + o) * G + p];
+          for (int j = 0; j < K; ++j) {
+            xv[dz][j] = (ok && j < nl) ? x[j * H] : T(0);
+          }
         }
-        T xv = T(0);
-        if (oky && kk >= 0 && kk < Z) {
-          xv = Xm[(((long long)ii * Y + jj) * Z + kk) * L + l];
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          const int o = row * 3 + dz;
+          T c[B];
+#pragma unroll
+          for (int b = 0; b < B; ++b) c[b] = s_c[(b * 27 + o) * P + q];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if (j < nl) {
+              T co = s[j][0] * c[0];
+#pragma unroll
+              for (int b = 1; b < B; ++b) co = fma(s[j][b], c[b], co);
+              acc[j] = fma(co, xv[dz][j], acc[j]);
+            }
+          }
         }
-        acc += co * xv;
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (j < nl) Ym[p * L + l0 + j * H] = acc[j];
       }
     }
   }
-  Ym[t] = acc;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device: cudaFuncSetAttribute once per device, recorded in bit d of
+// `done` (one `done` per kernel instantiation).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// 32-bit index arithmetic: the launchers refuse L*G or B*27*G past INT_MAX.
+bool fits_int(long long G, int L, int B) {
+  return G * L <= INT_MAX && G * 27 * B <= INT_MAX;
 }
 
 template <typename T>
@@ -233,43 +454,130 @@ int launch_stencil_spmv(const void* x, const void* C, void* y, int X, int Y,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_batched_stencil_spmv(const void* Xs, const void* coeff,
-                                const void* sig, void* Ys, int L, int B,
-                                int X, int Y, int Z, void* stream) {
-  if (B < 1 || B > kMaxBodies) return (int)cudaErrorInvalidValue;
-  const long long G = (long long)X * Y * Z;
-  if (G == 0 || L == 0) return 0;
-  constexpr int kBlockLanes = kGroups * kLanes;
-  const dim3 grid((unsigned)((G + kPoints - 1) / kPoints),
-                  (unsigned)((L + kBlockLanes - 1) / kBlockLanes));
-  batched_stencil_spmv_kernel<T>
-      <<<grid, dim3(kPoints, kGroups), 0, (cudaStream_t)stream>>>(
-          (const T*)Xs, (const T*)coeff, (const T*)sig, (T*)Ys, L, B, X, Y,
-          Z);
-  return (int)cudaGetLastError();
+// Splits n items into the fewest slabs of at most `most`, evenly: returns
+// the slab size; *slabs gets their number.
+int even_slabs(int n, int most, int* slabs) {
+  *slabs = (n + most - 1) / most;
+  return (n + *slabs - 1) / *slabs;
 }
 
-// Largest sigma table (B x L) the lane-minor kernel stages in shared
-// memory without opting in to more than the default 48 KB.
-constexpr int kMaxSigBytes = 48 * 1024;
+// Blocks of `kernel` that the card holds at once with `threads` threads and
+// `smem` bytes each (SMs times blocks per SM).  The occupancy query runs
+// once per (device, threads) pair in a row; `last` (one per kernel
+// instantiation) keeps the last pair and its answer.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem,
+                            std::atomic<unsigned long long>& last,
+                            int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long key = (unsigned long long)dev << 48 |
+                                 (unsigned long long)threads << 32;
+  const unsigned long long kept = last.load();
+  if ((kept & ~0xffffffffull) == key) {
+    *blocks = (int)(kept & 0xffffffffull);
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  last.store(key | (unsigned)*blocks);
+  return cudaSuccess;
+}
 
-template <typename T>
-int launch_batched_stencil_spmv_lminor(const void* Xm, const void* coeff,
-                                       const void* sig, void* Ym, int L,
-                                       int B, int X, int Y, int Z,
-                                       void* stream) {
-  if (B < 1 || B > kMaxBodies) return (int)cudaErrorInvalidValue;
-  const size_t sig_bytes = (size_t)B * L * sizeof(T);
-  if (sig_bytes > (size_t)kMaxSigBytes) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)X * Y * Z * L;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-  batched_stencil_spmv_lminor_kernel<T>
-      <<<blocks, kBlock, sig_bytes, (cudaStream_t)stream>>>(
-          (const T*)Xm, (const T*)coeff, (const T*)sig, (T*)Ym, L, B, X, Y,
-          Z);
-  return (int)cudaGetLastError();
+// Launch of the lane-major kernel with B bodies (a switch on B picks it).
+template <typename T, int B>
+struct Batched {
+  static int run(const void* Xs, const void* coeff, const void* sig, void* Ys,
+                 int L, int X, int Y, int Z, cudaStream_t stream) {
+    constexpr int P = Tile<T>::kB2Points;
+    constexpr int K = lanes_per_thread<T>(B, Tile<T>::kB2Lanes);
+    constexpr int smem = 2 * B * 27 * P * (int)sizeof(T);
+    constexpr int kThreads = Tile<T>::kB2Threads;
+    static_assert(kThreads % P == 0, "P must divide the block");
+    static_assert(P % 32 == 0, "a warp must lie in one lane group");
+    static_assert(2 * kMaxBodies * 27 * P * sizeof(T) <= kMaxSmem,
+                  "two coefficient tiles above the shared memory of a block");
+    const auto kernel = batched_stencil_spmv_kernel<T, B, K, P>;
+    static std::atomic<unsigned> opted{0};
+    static std::atomic<unsigned long long> last{0};
+    const int G = X * Y * Z;
+    int slabs = 0, blocks = 0;
+    const int groups = even_slabs((L + K - 1) / K, kThreads / P, &slabs);
+    cudaError_t err = allow_smem(kernel, smem, opted);
+    if (err == cudaSuccess) {
+      err = resident_blocks(kernel, P * groups, smem, last, &blocks);
+    }
+    if (err != cudaSuccess) return (int)err;
+    batched_stencil_spmv_kernel<T, B, K, P>
+        <<<dim3(std::min(blocks, (G + P - 1) / P), slabs), dim3(P, groups),
+           smem, stream>>>(
+            (const T*)Xs, (const T*)coeff, (const T*)sig, (T*)Ys, L, X, Y, Z);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Launch of the lane-minor kernel with B bodies.
+template <typename T, int B>
+struct Lminor {
+  static int run(const void* Xm, const void* coeff, const void* sig, void* Ym,
+                 int L, int X, int Y, int Z, cudaStream_t stream) {
+    constexpr int P = Tile<T>::kLmPoints;
+    constexpr int K = lanes_per_thread<T>(B, Tile<T>::kLmLanes);
+    constexpr int smem = 2 * B * 27 * P * (int)sizeof(T);
+    constexpr int kThreads = Tile<T>::kLmThreads;
+    static_assert(2 * kMaxBodies * 27 * P * sizeof(T) <= kMaxSmem,
+                  "two coefficient tiles above the shared memory of a block");
+    const auto kernel = batched_stencil_spmv_lminor_kernel<T, B, K, P>;
+    static std::atomic<unsigned> opted{0};
+    static std::atomic<unsigned long long> last{0};
+    const int G = X * Y * Z;
+    int slabs = 0, blocks = 0;
+    const int lanes = even_slabs(L, kThreads * K, &slabs);
+    const int threads = (lanes + K - 1) / K;  // per point row
+    int rows = 1;  // point rows: a power of two, at most P
+    while (rows * 2 <= P && rows * 2 * threads <= kThreads) rows *= 2;
+    cudaError_t err = allow_smem(kernel, smem, opted);
+    if (err == cudaSuccess) {
+      err = resident_blocks(kernel, threads * rows, smem, last, &blocks);
+    }
+    if (err != cudaSuccess) return (int)err;
+    batched_stencil_spmv_lminor_kernel<T, B, K, P>
+        <<<dim3(std::min(blocks, (G + P - 1) / P), slabs),
+           dim3(threads, rows), smem, stream>>>(
+            (const T*)Xm, (const T*)coeff, (const T*)sig, (T*)Ym, L, X, Y, Z);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Either batched kernel (Launch = Batched or Lminor): checks the sizes,
+// then passes B = 1..kMaxBodies as a template argument.
+template <typename T, template <typename, int> class Launch>
+int launch_batched(const void* X_, const void* coeff, const void* sig,
+                   void* Y_, int L, int B, int X, int Y, int Z,
+                   void* stream) {
+  const long long G = (long long)X * Y * Z;
+  if (B < 1 || B > kMaxBodies || L < 0 || !fits_int(G, L, B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (G == 0 || L == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (B) {
+    case 1: return Launch<T, 1>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 2: return Launch<T, 2>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 3: return Launch<T, 3>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 4: return Launch<T, 4>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 5: return Launch<T, 5>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 6: return Launch<T, 6>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    case 7: return Launch<T, 7>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+    default: return Launch<T, 8>::run(X_, coeff, sig, Y_, L, X, Y, Z, st);
+  }
 }
 
 }  // namespace
@@ -291,33 +599,31 @@ int pst_stencil_spmv_f64(const void* x, const void* C, void* y, int X, int Y,
 int pst_batched_stencil_spmv_f32(const void* Xs, const void* coeff,
                                  const void* sig, void* Ys, int L, int B,
                                  int X, int Y, int Z, void* stream) {
-  return launch_batched_stencil_spmv<float>(Xs, coeff, sig, Ys, L, B, X, Y,
-                                            Z, stream);
+  return launch_batched<float, Batched>(Xs, coeff, sig, Ys, L, B, X, Y, Z,
+                                        stream);
 }
 
 int pst_batched_stencil_spmv_f64(const void* Xs, const void* coeff,
                                  const void* sig, void* Ys, int L, int B,
                                  int X, int Y, int Z, void* stream) {
-  return launch_batched_stencil_spmv<double>(Xs, coeff, sig, Ys, L, B, X, Y,
-                                             Z, stream);
+  return launch_batched<double, Batched>(Xs, coeff, sig, Ys, L, B, X, Y, Z,
+                                         stream);
 }
-
-int pst_max_lminor_sig_bytes() { return kMaxSigBytes; }
 
 int pst_batched_stencil_spmv_lminor_f32(const void* Xm, const void* coeff,
                                         const void* sig, void* Ym, int L,
                                         int B, int X, int Y, int Z,
                                         void* stream) {
-  return launch_batched_stencil_spmv_lminor<float>(Xm, coeff, sig, Ym, L, B,
-                                                   X, Y, Z, stream);
+  return launch_batched<float, Lminor>(Xm, coeff, sig, Ym, L, B, X, Y, Z,
+                                       stream);
 }
 
 int pst_batched_stencil_spmv_lminor_f64(const void* Xm, const void* coeff,
                                         const void* sig, void* Ym, int L,
                                         int B, int X, int Y, int Z,
                                         void* stream) {
-  return launch_batched_stencil_spmv_lminor<double>(Xm, coeff, sig, Ym, L,
-                                                    B, X, Y, Z, stream);
+  return launch_batched<double, Lminor>(Xm, coeff, sig, Ym, L, B, X, Y, Z,
+                                        stream);
 }
 
 const char* pst_error_string(int code) {

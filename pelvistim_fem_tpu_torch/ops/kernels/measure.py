@@ -1,0 +1,128 @@
+"""Timing, bounds and twin checks of the stencil kernels on a CUDA card
+(used by chip_smoke.py and profile_kernels.py).
+
+Kernel device time is read from a CUDA graph of launches replayed between
+CUDA events, each launch on one of enough copies of its inputs that its
+reads come from HBM, not the H100's 50 MB L2 (`input_copies`,
+`kernel_ms`).  A bound is the least time the card could take for the
+same work (`bound`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+# Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
+# (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
+# TFLOP/s float64 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# Timed launches rotate through copies of their inputs that together
+# stream at least 3x the H100's 50 MB L2.
+ROTATE_BYTES = 150e6
+
+
+def cuda_ms(fn, reps=20, warmup=10):
+    """Median milliseconds of fn() over `reps` launches, CUDA events,
+    after `warmup` untimed launches (the first timings of a process run
+    before the card's clocks have risen)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def input_copies(args):
+    """args and clones of it, enough that using them in turn reads at
+    least ROTATE_BYTES: between two uses of one copy the others evict it
+    from L2, so each launch reads its inputs from HBM, as inside a solve
+    where the CG vectors evict the coefficients."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = max(2, math.ceil(ROTATE_BYTES / nbytes))
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+
+
+def kernel_ms(kernel, copies, launches=20, reps=20, warmup=10):
+    """Device milliseconds of one kernel launch: kernel(*copy), the copies
+    taken in turn, is captured `launches` times into a CUDA graph, each
+    launch with an output of its own, and the graph's replay is timed with
+    CUDA events; the median of `reps` replays over `launches`.  A replay
+    has no host work between its launches, so unlike events around one
+    call this leaves out the Python wrapper's host time, which is longer
+    than the shortest kernels."""
+    for i in range(warmup):
+        kernel(*copies[i % len(copies)])
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            outs.append(kernel(*copies[i % len(copies)]))
+    return cuda_ms(graph.replay, reps=reps, warmup=2) / launches
+
+
+def bound(name, shape, dtype):
+    """(bound_ms, bound_by) of one apply: the larger of the bytes it must
+    move (each input read once, the output written once) over the HBM
+    rate and its multiply-adds over the peak rate of its dtype.  shape:
+    (X, Y, Z) for stencil_spmv_cuda, (L, B, (X, Y, Z)) for the batched
+    kernels, whose per-lane coefficient is a B-term combine (2B - 1
+    operations) before the multiply-add."""
+    es = 4 if dtype == "float32" else 8
+    if name == "stencil_spmv_cuda":
+        G = int(np.prod(shape))
+        nbytes, flops = 29 * G * es, 2 * 27 * G
+    else:
+        L, B, grid = shape
+        G = int(np.prod(grid))
+        nbytes = (2 * L * G + 27 * B * G + L * B) * es
+        flops = L * G * 27 * (2 * B + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_close(name, y, ref, dtype):
+    """f32: rtol 2e-5, atol 1e-5 max|ref|; f64: rtol 1e-12, atol 1e-12
+    max|ref| (random 27-term sums: the atol covers entries that cancel
+    to near zero).  Returns the max abs error."""
+    scale = float(ref.abs().max())
+    rtol, atol = (2e-5, 1e-5 * scale) if dtype == torch.float32 else \
+        (1e-12, 1e-12 * scale)
+    err = (y - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if not torch.isfinite(y).all() or bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} entries off, max "
+                             f"abs err {float(err.max()):.3e} "
+                             f"(scale {scale:.3e})")
+    return float(err.max())
+
+
+def kernel_inputs(name, shape, dtype, device, rng):
+    """Random inputs of kernel `name` at `shape` ((X, Y, Z), or (L, B,
+    (X, Y, Z)) for the batched kernels) in its layout; the two batched
+    kernels get one problem from one `rng` state, and sigma is positive,
+    as solved."""
+    def rand(s):
+        return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                               device=device)
+    if name == "stencil_spmv_cuda":
+        return rand(shape), rand((27,) + tuple(shape))
+    L, B, grid = shape
+    grid = tuple(grid)
+    Xs, coeff = rand((L,) + grid), rand((B, 27) + grid)
+    sig = torch.as_tensor(rng.random((L, B)), dtype=dtype, device=device)
+    if name == "batched_stencil_spmv_cuda":
+        return Xs, coeff, sig
+    return Xs.permute(1, 2, 3, 0).contiguous(), coeff, sig.T.contiguous()

@@ -25,8 +25,10 @@ CUDA tensor launches the kernel, and a build or launch failure raises.
 The kernels live in csrc/stencil.cu behind a plain C interface.  At first
 use on a CUDA tensor, `build()` compiles it with nvcc for sm_90a into
 `pelvistim_fem_tpu_torch/_build/` (a library named by the hash of the
-source, so an edited source is rebuilt) and loads it with ctypes.  Each
-CUDA wrapper adds one to `LAUNCHES[name]` where it launches its kernel.
+source and flags, so an edited source is rebuilt) and loads it with
+ctypes.  Each CUDA wrapper adds one to `LAUNCHES[name]` where it launches
+its kernel.  `launch(name, ..., extra_flags=...)` runs a kernel of a
+build with other tile constants, uncounted (profile_kernels.py).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -48,14 +51,16 @@ DIAG_OFFSET = 13
 _CSRC = Path(__file__).resolve().parent / "csrc" / "stencil.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launch counts of the CUDA wrappers (reset with reset_launches()).
 LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0}
 
-_lib = None
-_lib_lock = threading.Lock()
+# build(): loaded libraries by nvcc flags, and one build lock per flags
+_libs: dict = {}
+_build_locks: dict = {}
+_libs_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -129,29 +134,39 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library.  Idempotent."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _CSRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        out = BUILD_DIR / f"libpst_stencil_{tag}.so"
+def _library_path(extra_flags) -> Path:
+    flags = " ".join(NVCC_FLAGS + list(extra_flags))
+    tag = hashlib.sha256(_CSRC.read_bytes() + flags.encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libpst_stencil_{tag}.so"
+
+
+def build(extra_flags=()) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library built with nvcc
+    `extra_flags` added to NVCC_FLAGS (e.g. ("-DPST_B2_POINTS_F32=128",)
+    for a tile variant; the kernels' wrappers use the default, no extra
+    flags).  Each flag set is its own library under the hash of source
+    and flags, with ptxas's report beside it (ptxas_usage).
+    Idempotent."""
+    key = tuple(extra_flags)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _libs_lock:
+        lock = _build_locks.setdefault(key, threading.Lock())
+    with lock:
+        if key in _libs:
+            return _libs[key]
+        out = _library_path(key)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", str(tmp), str(_CSRC)]
+            cmd = [_nvcc(), *NVCC_FLAGS, *key, "-o", str(tmp), str(_CSRC)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed building the stencil "
-                                   f"kernels:\n{proc.stderr}")
-            if verbose:
-                print(proc.stderr, end="")
+                                   f"kernels ({' '.join(key)}):\n"
+                                   f"{proc.stderr}")
+            out.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         ptr, i = ctypes.c_void_p, ctypes.c_int
@@ -164,13 +179,36 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 fn = getattr(lib, f"pst_{name}_{dt}")
                 fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
                 fn.restype = i
-        for name in ("pst_max_bodies", "pst_max_lminor_sig_bytes"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
+        lib.pst_max_bodies.argtypes = []
+        lib.pst_max_bodies.restype = i
         lib.pst_error_string.argtypes = [i]
         lib.pst_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _libs[key] = lib
         return lib
+
+
+def ptxas_usage(extra_flags=()) -> dict:
+    """Per kernel instantiation of build(extra_flags) (named like
+    "batched_stencil_spmv_kernel<float,5,4,64>", template arguments in
+    source order): {"registers": n, "spill_bytes": stores + loads} from
+    ptxas -v."""
+    build(extra_flags)
+    usage, name = {}, None
+    report = _library_path(extra_flags).with_suffix(".ptxas.txt")
+    for line in report.read_text().splitlines():
+        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)"
+                      r"I([fd])((?:Li\d+E)*)E", line)
+        if m:
+            args = ["float" if m[2] == "f" else "double",
+                    *re.findall(r"Li(\d+)E", m[3])]
+            name = f"{m[1]}<{','.join(args)}>"
+            usage[name] = {"registers": 0, "spill_bytes": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            usage[name]["spill_bytes"] = int(m[1]) + int(m[2])
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m[1])
+    return usage
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -191,66 +229,29 @@ def _check(name, dtype, device, **tensors):
                         "(float32, float64)")
 
 
-def _raise_on(lib, name, rc):
-    if rc != 0:
-        msg = lib.pst_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
-
-
-def stencil_spmv_cuda(x, C):
-    """CUDA kernel for y = K x.  x (X, Y, Z), C (27, X, Y, Z), both
-    contiguous float32 or float64 on one CUDA device."""
-    _check("stencil_spmv_cuda", x.dtype, x.device, x=x, C=C)
+def _dims_single(x, C):
+    name = "stencil_spmv_cuda"
+    _check(name, x.dtype, x.device, x=x, C=C)
     if x.dim() != 3 or tuple(C.shape) != (27,) + tuple(x.shape):
-        raise ValueError(f"stencil_spmv_cuda: shapes x {tuple(x.shape)}, "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
                          f"C {tuple(C.shape)}")
-    lib = build()
-    y = torch.empty_like(x)
-    X, Y, Z = x.shape
-    fn = getattr(lib, f"pst_stencil_spmv_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), C.data_ptr(), y.data_ptr(), X, Y, Z, stream)
-    _raise_on(lib, "stencil_spmv_cuda", rc)
-    LAUNCHES["stencil_spmv_cuda"] += 1
-    return y
+    return tuple(x.shape)
 
 
-def batched_stencil_spmv_cuda(Xs, coeff, sig):
-    """CUDA kernel for the lane-batched body-factored SpMV.  Xs (L, X, Y,
-    Z), coeff (B, 27, X, Y, Z), sig (L, B), all contiguous float32 or
-    float64 on one CUDA device; B at most 8."""
-    _check("batched_stencil_spmv_cuda", Xs.dtype, Xs.device, Xs=Xs,
-           coeff=coeff, sig=sig)
+def _dims_batched(Xs, coeff, sig):
+    name = "batched_stencil_spmv_cuda"
+    _check(name, Xs.dtype, Xs.device, Xs=Xs, coeff=coeff, sig=sig)
     L = Xs.shape[0]
     B = coeff.shape[0]
     if (Xs.dim() != 4 or coeff.dim() != 5
             or tuple(coeff.shape[1:]) != (27,) + tuple(Xs.shape[1:])
             or tuple(sig.shape) != (L, B)):
-        raise ValueError("batched_stencil_spmv_cuda: shapes Xs "
-                         f"{tuple(Xs.shape)}, coeff {tuple(coeff.shape)}, "
-                         f"sig {tuple(sig.shape)}")
-    lib = build()
-    if not 1 <= B <= lib.pst_max_bodies():
-        raise ValueError(f"batched_stencil_spmv_cuda: {B} bodies, the "
-                         f"kernel takes 1..{lib.pst_max_bodies()}")
-    Ys = torch.empty_like(Xs)
-    _, X, Y, Z = Xs.shape
-    fn = getattr(lib, f"pst_batched_stencil_spmv_{_SUFFIX[Xs.dtype]}")
-    with torch.cuda.device(Xs.device):
-        stream = torch.cuda.current_stream(Xs.device).cuda_stream
-        rc = fn(Xs.data_ptr(), coeff.data_ptr(), sig.data_ptr(),
-                Ys.data_ptr(), L, B, X, Y, Z, stream)
-    _raise_on(lib, "batched_stencil_spmv_cuda", rc)
-    LAUNCHES["batched_stencil_spmv_cuda"] += 1
-    return Ys
+        raise ValueError(f"{name}: shapes Xs {tuple(Xs.shape)}, coeff "
+                         f"{tuple(coeff.shape)}, sig {tuple(sig.shape)}")
+    return (L, B) + tuple(Xs.shape[1:])
 
 
-def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
-    """CUDA kernel for the lane-minor body-factored SpMV.  Xm (X, Y, Z,
-    L), coeff (B, 27, X, Y, Z), sig (B, L), all contiguous float32 or
-    float64 on one CUDA device; B at most 8, and B * L sigma values in
-    at most 48 KB."""
+def _dims_lminor(Xm, coeff, sig):
     name = "batched_stencil_spmv_lminor_cuda"
     _check(name, Xm.dtype, Xm.device, Xm=Xm, coeff=coeff, sig=sig)
     B = coeff.shape[0]
@@ -259,23 +260,62 @@ def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
             or tuple(sig.shape) != (B, Xm.shape[3])):
         raise ValueError(f"{name}: shapes Xm {tuple(Xm.shape)}, coeff "
                          f"{tuple(coeff.shape)}, sig {tuple(sig.shape)}")
-    lib = build()
-    X, Y, Z, L = Xm.shape
-    if not 1 <= B <= lib.pst_max_bodies():
-        raise ValueError(f"{name}: {B} bodies, the kernel takes "
+    return (Xm.shape[3], B) + tuple(Xm.shape[:3])
+
+
+_DIMS = {"stencil_spmv_cuda": _dims_single,
+         "batched_stencil_spmv_cuda": _dims_batched,
+         "batched_stencil_spmv_lminor_cuda": _dims_lminor}
+
+
+def launch(name, *args, extra_flags=()):
+    """Check the CUDA tensors `args` of kernel `name` (a key of LAUNCHES)
+    as its wrapper does, launch the kernel of build(extra_flags) on them
+    and return its output.  Counts nothing: the *_cuda wrappers, which launch
+    the default build, count.  The batched kernels take 1..8 bodies and
+    L*G and B*27*G within a 32-bit int; the launch raises otherwise."""
+    dims = _DIMS[name](*args)
+    lib = build(extra_flags)
+    if name != "stencil_spmv_cuda" and \
+            not 1 <= dims[1] <= lib.pst_max_bodies():
+        raise ValueError(f"{name}: {dims[1]} bodies, the kernel takes "
                          f"1..{lib.pst_max_bodies()}")
-    if sig.numel() * sig.element_size() > lib.pst_max_lminor_sig_bytes():
-        raise ValueError(f"{name}: a {B} x {L} sigma table exceeds "
-                         f"{lib.pst_max_lminor_sig_bytes()} bytes")
-    Ym = torch.empty_like(Xm)
-    fn = getattr(lib, "pst_batched_stencil_spmv_lminor_"
-                 + _SUFFIX[Xm.dtype])
-    with torch.cuda.device(Xm.device):
-        stream = torch.cuda.current_stream(Xm.device).cuda_stream
-        rc = fn(Xm.data_ptr(), coeff.data_ptr(), sig.data_ptr(),
-                Ym.data_ptr(), L, B, X, Y, Z, stream)
-    _raise_on(lib, name, rc)
-    LAUNCHES[name] += 1
+    out = torch.empty_like(args[0])
+    fn = getattr(lib, f"pst_{name[:-len('_cuda')]}_"
+                 + _SUFFIX[args[0].dtype])
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), *dims,
+                stream)
+    if rc != 0:
+        msg = lib.pst_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
+    return out
+
+
+def stencil_spmv_cuda(x, C):
+    """CUDA kernel for y = K x.  x (X, Y, Z), C (27, X, Y, Z), both
+    contiguous float32 or float64 on one CUDA device."""
+    y = launch("stencil_spmv_cuda", x, C)
+    LAUNCHES["stencil_spmv_cuda"] += 1
+    return y
+
+
+def batched_stencil_spmv_cuda(Xs, coeff, sig):
+    """CUDA kernel for the lane-batched body-factored SpMV.  Xs (L, X, Y,
+    Z), coeff (B, 27, X, Y, Z), sig (L, B), all contiguous float32 or
+    float64 on one CUDA device; B at most 8."""
+    Ys = launch("batched_stencil_spmv_cuda", Xs, coeff, sig)
+    LAUNCHES["batched_stencil_spmv_cuda"] += 1
+    return Ys
+
+
+def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
+    """CUDA kernel for the lane-minor body-factored SpMV.  Xm (X, Y, Z,
+    L), coeff (B, 27, X, Y, Z), sig (B, L), all contiguous float32 or
+    float64 on one CUDA device; B at most 8."""
+    Ym = launch("batched_stencil_spmv_lminor_cuda", Xm, coeff, sig)
+    LAUNCHES["batched_stencil_spmv_lminor_cuda"] += 1
     return Ym
 
 

@@ -1,0 +1,138 @@
+"""Tile variants of the two batched stencil kernels, timed on a CUDA card.
+
+    python -m pelvistim_fem_tpu_torch.profile_kernels
+
+Builds the kernel library once per variant of the tile constants of
+csrc/stencil.cu (-D flags; all builds at once, each in _build/ under its
+own hash), then for every variant, kernel (lane-major
+`batched_stencil_spmv_cuda`, lane-minor `batched_stencil_spmv_lminor_cuda`),
+dtype and shape the paths launch (L=25 and L=15 with B=5 on the sweep's
+(89, 41, 19) lattice, L=27 with B=1 on the megatet's (112, 68, 41)) it
+holds the kernel against its plain twin and reads its device time with
+`measure.kernel_ms` (inputs from HBM).  It prints ptxas's registers and
+spills of each variant's instantiations on those shapes, then a table of
+times, each with its share of the kernel's bound.  The production
+wrappers use the default build ("default" below).
+"""
+
+from __future__ import annotations
+
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+SWEEP_GRID, MEGATET_GRID = (89, 41, 19), (112, 68, 41)
+SHAPES = [(25, 5, SWEEP_GRID), (15, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
+KERNELS = ["batched_stencil_spmv_cuda", "batched_stencil_spmv_lminor_cuda"]
+CONSTANTS = ("POINTS", "LANES", "THREADS", "MINB")
+
+
+def _flags(**cells):
+    """-D flags of tile constants, per cell "<kernel>_<dtype>" (b2_f32 for
+    the lane-major kernel in float32, lm_f64 for the lane-minor one in
+    float64, ...): (points, largest lanes per thread, threads, blocks per
+    SM)."""
+    flags = []
+    for cell, values in cells.items():
+        kernel, dt = cell.split("_")
+        flags += [f"-DPST_{kernel.upper()}_{n}_{dt.upper()}={v}"
+                  for n, v in zip(CONSTANTS, values)]
+    return tuple(flags)
+
+
+# Each build varies all four (kernel, dtype) cells at once: a column is
+# read per cell.  Defaults (csrc/stencil.cu): b2_f32 (64, 4, 448, 2),
+# b2_f64 (32, 2, 416, 2), lm_f32 (64, 2, 512, 2), lm_f64 (16, 2, 256, 2).
+VARIANTS = {
+    "default": _flags(),
+    "a": _flags(b2_f32=(64, 4, 512, 1), b2_f64=(32, 2, 512, 1),
+                lm_f32=(64, 1, 512, 2), lm_f64=(32, 1, 512, 2)),
+    "b": _flags(b2_f32=(32, 4, 448, 2), b2_f64=(32, 1, 800, 1),
+                lm_f32=(64, 3, 512, 2), lm_f64=(32, 2, 256, 3)),
+    "c": _flags(b2_f32=(128, 4, 896, 1), b2_f64=(64, 2, 832, 1),
+                lm_f32=(32, 2, 256, 3), lm_f64=(32, 2, 512, 1)),
+    "d": _flags(b2_f32=(64, 3, 576, 1), b2_f64=(32, 2, 448, 1),
+                lm_f32=(64, 2, 256, 2), lm_f64=(64, 2, 512, 1)),
+    "e": _flags(b2_f32=(32, 4, 256, 3), b2_f64=(32, 2, 416, 1),
+                lm_f32=(32, 1, 512, 2), lm_f64=(16, 1, 256, 2)),
+}
+
+
+def time_variants(variants):
+    """[(kernel, dtype, shape, bound_ms, {variant: ms})] for every kernel,
+    dtype and shape; each variant (name: nvcc flags) is first held
+    against the plain twin."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    rng = np.random.default_rng(0)
+    rows = []
+    for name in KERNELS:
+        twin = getattr(sk, name.replace("_cuda", "_plain"))
+        for dn in ("float32", "float64"):
+            dtype = getattr(torch, dn)
+            for shape in SHAPES:
+                args = measure.kernel_inputs(name, shape, dtype, "cuda", rng)
+                ref = twin(*args)
+                copies = measure.input_copies(args)
+                times = {}
+                for v, fl in variants.items():
+                    def kernel(*a, _fl=fl):
+                        return sk.launch(name, *a, extra_flags=_fl)
+                    measure.check_close(f"{v} {name} {dn} {shape}",
+                                        kernel(*args), ref, dtype)
+                    times[v] = measure.kernel_ms(kernel, copies)
+                rows.append((name, dn, shape,
+                             measure.bound(name, shape, dn)[0], times))
+                del copies
+                torch.cuda.empty_cache()
+    return rows
+
+
+def print_table(rows, gpu):
+    variants = list(rows[0][4])
+    print(f"kernel device ms (share of bound), inputs from HBM; {gpu}")
+    print("  " + " ".join(f"{v:>16s}" for v in variants)
+          + "  kernel dtype L,B,grid bound_ms")
+    for name, dn, (L, B, grid), b_ms, times in rows:
+        cells = " ".join(f"{times[v]:8.4f} ({100 * b_ms / times[v]:4.1f}%)"
+                         for v in variants)
+        best = min(times, key=times.get)
+        print(f"  {cells}  {name.replace('batched_stencil_spmv', 'b')} "
+              f"{dn} {L},{B},{grid} {b_ms:.4f} best {best}")
+
+
+def print_usage(variants):
+    """ptxas's registers and spills of the instantiations SHAPES use."""
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    print("ptxas: registers / spill bytes of the instantiations the "
+          "shapes launch (B = 5 and B = 1)")
+    for v, fl in variants.items():
+        usage = {k: u for k, u in sk.ptxas_usage(fl).items()
+                 if k.startswith("batched") and k.split(",")[1] in ("1", "5")}
+        print(f"  {v:8s} {' '.join(fl) or '(no flags)'}")
+        for k, u in sorted(usage.items()):
+            print(f"    {k:52s} {u['registers']:4d} regs "
+                  f"{u['spill_bytes']:5d} B spilled")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: no CUDA device")
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(gpu)
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        for f in [pool.submit(sk.build, fl) for fl in VARIANTS.values()]:
+            f.result()
+    print_usage(VARIANTS)
+    print_table(time_variants(VARIANTS), gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

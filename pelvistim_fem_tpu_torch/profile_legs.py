@@ -5,12 +5,13 @@
 Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
 contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
 hardest contact conductivities), the metric rows of that chunk on the
-361,920-tet element Case, the lane-minor Jacobi sweep of the
-reference's 15 contact levels on the same lattice, and one megatet
-step03 assemble + solve.  For each it prints the wall time, the summed
-device time of all kernels, their ratio (the device busy share; the
-rest is host time between launches), the number of kernel launches, and
-the kernels that take the most device time.
+361,920-tet element Case, the Jacobi sweep of the reference's 15
+contact levels on the same lattice by both routes (lane-minor, then
+lane-major), and one megatet step03 assemble + solve.  For each it
+prints the wall time, the summed device time of all kernels, their
+ratio (the device busy share; the rest is host time between launches),
+the number of kernel launches, and the kernels that take the most
+device time.
 """
 
 from __future__ import annotations
@@ -94,13 +95,15 @@ def main():
     levels = params["pressure_sweep"]["sigma_contact_Spm"]
     jtabs = torch.as_tensor(sigma_tables(spec, levels), device=dev)
 
-    def jacobi():
-        out["jacobi"] = batched_stencil_solve_fused(
-            scase, jtabs, tol=1e-8, maxiter=30_000, lane_minor=True)
+    for route, lane_minor in (("lane_minor", True), ("lane_major", False)):
+        def jacobi(lane_minor=lane_minor):
+            out["jacobi"] = batched_stencil_solve_fused(
+                scase, jtabs, tol=1e-8, maxiter=30_000,
+                lane_minor=lane_minor)
 
-    _profile("jacobi_lane_minor", jacobi)
-    it = out["jacobi"].iterations.cpu().numpy()
-    print(f"  iterations max {it.max()} mean {it.mean():.2f}")
+        _profile(f"jacobi_{route}", jacobi)
+        it = out["jacobi"].iterations.cpu().numpy()
+        print(f"  iterations max {it.max()} mean {it.mean():.2f}")
 
     spec_m, _ = megatet_spec()
     dev_m = spec_device_arrays(spec_m, torch.float64, dev)

@@ -46,9 +46,19 @@ def test_stencil_kernel_matches_twin(dev, dtype, shape):
                                **(F32 if dtype == "float32" else F64))
 
 
+# The batched kernels' edges: grids whose point count is no multiple of a
+# block's points ((9, 7, 5), the sweep's (89, 41, 19)), lane counts that
+# fill no lane group, block or slab (1, 15, 25, 33, 40, 600), 1 and 8
+# bodies.
+EDGES = [(1, 1, (9, 7, 5)), (15, 5, (9, 7, 5)), (25, 8, (9, 7, 5)),
+         (33, 1, (9, 7, 5)), (40, 8, (9, 7, 5)), (25, 5, (89, 41, 19)),
+         (15, 1, (89, 41, 19)), (600, 2, (5, 4, 3))]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("L,B,shape", [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
-                                       (40, 3, (9, 7, 6)), (1, 8, (5, 4, 3))])
+                                       (40, 3, (9, 7, 6)), (1, 8, (5, 4, 3))]
+                         + EDGES)
 def test_batched_kernel_matches_twin(dev, dtype, L, B, shape):
     """Includes L > 32 (two lane blocks) and the 8-body limit."""
     dt = getattr(torch, dtype)
@@ -65,7 +75,7 @@ def test_batched_kernel_matches_twin(dev, dtype, L, B, shape):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("L,B,shape", [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)),
                                        (15, 5, (9, 7, 6)), (33, 1, (5, 4, 3)),
-                                       (1, 8, (6, 5, 4))])
+                                       (1, 8, (6, 5, 4))] + EDGES)
 def test_lminor_kernel_matches_twin(dev, dtype, L, B, shape):
     """Lane counts that are not multiples of 32, one body and the 8-body
     limit."""
@@ -93,6 +103,16 @@ def test_lminor_kernel_counts_and_refuses(dev):
         sk.batched_stencil_spmv_lminor_cuda(Xm.double(), coeff,
                                             torch.ones((1, 2), device=dev))
     assert sk.LAUNCHES["batched_stencil_spmv_lminor_cuda"] == 1
+
+
+def test_kernels_spill_no_registers(dev):
+    """ptxas -v of the build: no kernel instantiation (kernel 1, and both
+    batched kernels at every dtype and body count) spills to local
+    memory."""
+    usage = sk.ptxas_usage()
+    assert len(usage) == 2 + 2 * 2 * 8, sorted(usage)
+    spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
+    assert not spilled
 
 
 def test_stencil_kernel_neighbor_directions(dev):

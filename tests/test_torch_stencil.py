@@ -177,3 +177,66 @@ def test_cpu_tensors_take_the_twin():
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
         sk.batched_stencil_spmv_cuda(Xs, coeff, sig)
+
+
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af34batched_stencil_spmv_lminor_kernelIdLi5ELi32EEvPKT_S3_S3_PS1_iiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af34batched_stencil_spmv_lminor_kernelIdLi5ELi32EEvPKT_S3_S3_PS1_iiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af27batched_stencil_spmv_kernelIfLi8ELi3ELi64EEvPKT_S3_S3_PS1_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af27batched_stencil_spmv_kernelIfLi8ELi3ELi64EEvPKT_S3_S3_PS1_iiii
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af19stencil_spmv_kernelIfEEvPKT_S3_PS1_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__8e9900ae_10_stencil_cu_495321af19stencil_spmv_kernelIfEEvPKT_S3_PS1_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 34 registers, used 0 barriers
+"""
+
+
+def test_ptxas_usage_reads_the_report(tmp_path, monkeypatch):
+    """ptxas_usage names each kernel instantiation by its template
+    arguments and reads its registers and spilled bytes (no nvcc here:
+    the report of a build is written by hand)."""
+    monkeypatch.setattr(sk, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(sk, "build", lambda extra_flags=(): None)
+    sk._library_path(("-DX=1",)).with_suffix(".ptxas.txt").write_text(
+        PTXAS_REPORT)
+    assert sk.ptxas_usage(("-DX=1",)) == {
+        "batched_stencil_spmv_lminor_kernel<double,5,32>":
+            {"registers": 56, "spill_bytes": 0},
+        "batched_stencil_spmv_kernel<float,8,3,64>":
+            {"registers": 64, "spill_bytes": 20},
+        "stencil_spmv_kernel<float>": {"registers": 34, "spill_bytes": 0}}
+    assert sk._library_path(("-DX=1",)) != sk._library_path(())
+
+
+@pytest.mark.parametrize("name", ["stencil_spmv_cuda",
+                                  "batched_stencil_spmv_cuda",
+                                  "batched_stencil_spmv_lminor_cuda"])
+def test_kernel_inputs_fit_their_kernels(name):
+    """measure.kernel_inputs gives each kernel its own layout of one
+    random problem: the twins of the two batched layouts agree through a
+    transpose, and sigma is positive."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    shape = (6, 5, 4) if name == "stencil_spmv_cuda" else (7, 3, (6, 5, 4))
+    args = measure.kernel_inputs(name, shape, torch.float64, "cpu",
+                                 np.random.default_rng(3))
+    twin = getattr(sk, name.replace("_cuda", "_plain"))
+    y = twin(*args)
+    assert y.shape == args[0].shape
+    if name == "stencil_spmv_cuda":
+        return
+    assert bool((args[2] > 0).all())
+    other = ("batched_stencil_spmv_lminor_cuda"
+             if name == "batched_stencil_spmv_cuda"
+             else "batched_stencil_spmv_cuda")
+    args2 = measure.kernel_inputs(other, shape, torch.float64, "cpu",
+                                  np.random.default_rng(3))
+    y2 = getattr(sk, other.replace("_cuda", "_plain"))(*args2)
+    if name == "batched_stencil_spmv_cuda":
+        y2 = y2.permute(3, 0, 1, 2)
+    else:
+        y2 = y2.permute(1, 2, 3, 0)
+    np.testing.assert_allclose(y2.numpy(), y.numpy(), **F64)
