@@ -36,10 +36,27 @@ through its paths at the benchmark's full sizes, and imports no JAX:
   7. single     the certified single-case Jacobi solve
                 (solve_stencil_refined) of the middle contact level
                 against that lane of the Jacobi sweep
+  8. step01     the analytic box app (apps/run_step01) and its five gates
+  9. step02     the electrode shape x radius app (apps/run_step02): 8
+                cases on their own lattices padded into one (8, 67, 29,
+                8) group, one certified multigrid solve with a hierarchy
+                per lane (kernel 1 with a lane axis; kernel 2 probes the
+                levels); lanes, iterations and rows against the JAX
+                package's anchors
+ 10. step02-serial  each step02 case by itself (solve_stencil_refined,
+                kernel 1 in 3-D) to 1e-10: its phi against its lane of
+                path 9
+ 11. step03-batch   the ankle app with --batch at full resolution: 3
+                radius groups of 3 fat thicknesses, each one certified
+                lane-stacked Jacobi solve (kernel 1 with a lane axis);
+                lanes and rows against the JAX package's anchors
 
-Launch counters are set to 0 before each of the paths 4-7 and read after
-it; each path must have launched its own kernels, and every kernel must
-have run.  Every (kernel, dtype, shapes) the paths launched is counted
+The apps run through their entry points (run(parse_args(argv))) with
+--device cuda:0, writing into a temporary directory; their printout is
+kept and shown only if they fail.  Launch counters are set to 0 before
+each of the paths 4-11 and read after it; each path must have launched
+its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape), and
+every kernel must have run.  Every (kernel, dtype, shapes) the paths launched is counted
 (`launches_by_shape` in the kernels line), and each that phase 3 did not
 hold is then held against its twin on random inputs of those shapes.
 Every phase checks its results and raises on failure; the exit code is
@@ -50,10 +67,13 @@ line is
 """
 
 import collections
+import contextlib
+import io
 import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +99,68 @@ JACOBI_LANES, SINGLE_LANE = 15, 7
 # hair apart can round one unit apart).
 ROW_KEYS = {"compliance_V": 3, "contact_impedance_ohm": 1,
             "roi_mean_E": 4, "charge_density_mC_cm2": 6}
+
+# The step02 and step03-batch paths against the JAX package's certified
+# runs of the same workloads, on the CPU with x64 at the same sizes
+# (dev/torch_port_anchors.py).  step02: each case's lattice, its lane's
+# multigrid iterations (within 2) and (peak_J, mean_J_top, I_total_A,
+# I_consistent_A, flux_err).  Rows agree to rtol 1e-5, but flux_err, a
+# relative difference of two currents (~1e-2 of them), to atol 1e-5: the
+# reference's own serial and batched solves, both certified to 1e-8,
+# differ in it by 0.48% (and by 1.2e-5 in the currents).
+STEP02_ENVELOPE = (8, 67, 29, 8)
+STEP02_GRIDS = [(67, 29, 8), (42, 25, 8), (31, 21, 8), (25, 19, 7)] * 2
+STEP02_ITERS = [26, 15, 12, 10, 26, 15, 12, 9]
+STEP02_KEYS = ("peak_J", "mean_J_top", "I_total_A", "I_consistent_A",
+               "flux_err")
+STEP02_ROWS = {
+    "circle_r5mm": (22.448806324733003, 2.609201732583208,
+                    0.0013201612150136905, 0.0025034613916912088,
+                    0.0045155969919026566),
+    "circle_r10mm": (12.20531984983796, 2.3235454752314824,
+                     0.0025898530274931987, 0.005004816578210883,
+                     0.0174924646553857),
+    "circle_r15mm": (9.691381239173545, 2.389190604773319,
+                     0.003950171391125769, 0.007780485378287424,
+                     0.03884972175041258),
+    "circle_r20mm": (10.293038388894471, 2.318706625043384,
+                     0.0055192289068746025, 0.011112443390073223,
+                     0.06516129484772135),
+    "square_r5mm": (23.82243024744045, 2.824097873257861,
+                    0.0014716290130672132, 0.002726864797749951,
+                    0.005352584514515448),
+    "square_r10mm": (12.95413962502724, 2.5180796675534225,
+                     0.002894242010242994, 0.005474458138459032,
+                     0.02062569148339487),
+    "square_r15mm": (10.13991767306427, 2.5978377456723973,
+                     0.004435641112778627, 0.008578090698779496,
+                     0.04594311219856968),
+    "square_r20mm": (10.428418154697814, 2.5221055510933423,
+                     0.006259995088308885, 0.012460860935441517,
+                     0.07661848045850363),
+}
+# step03 --batch, full resolution: per electrode radius (mm) the group's
+# lattice, its node count and the rows of t_fat 3, 5 and 8 mm, each
+# (compliance_V, total_current_A, roi_mean_E, peak_J_skin_no_elec) as
+# the rows round them (decimals below).
+STEP03_KEYS = {"compliance_V": 3, "total_current_A": 8, "roi_mean_E": 4,
+               "peak_J_skin_no_elec": 6}
+STEP03_GROUPS = {
+    5: ((49, 27, 45), 58302, [(146.241, 0.00507516, 34.7284, 170.176159),
+                              (147.629, 0.00507525, 68.0238, 170.213233),
+                              (148.862, 0.0050753, 170.8615, 170.229582)]),
+    10: ((55, 31, 45), 75382, [(43.767, 0.00493475, 21.9243, 42.981478),
+                               (44.502, 0.00493473, 38.5591, 43.198511),
+                               (45.337, 0.00493471, 109.2855, 43.429033)]),
+    15: ((55, 33, 45), 80585, [(21.694, 0.00493907, 14.8597, 26.922942),
+                               (22.177, 0.00493904, 23.9565, 27.206113),
+                               (22.807, 0.004939, 70.3306, 27.577522)]),
+}
+# kernel 1 with a lane axis: the two paths' fine-level shapes, timed, S = 1
+# at the megatet grid, timed against the 3-D call, and lane counts over
+# grids that end mid-block
+STEP02_LANES = STEP02_ENVELOPE
+STEP03_LANES = (3, 55, 33, 45)
 
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
@@ -147,7 +229,9 @@ def phase_parity(dev):
             pms = measure.cuda_ms(lambda: twin(*next(turn)))
             line += (f" kernel {ms:.4f} ms (one call with its wrapper "
                      f"{call:.4f} ms) plain {pms:.4f} ms")
-            results[(name, dn)] = (err, ms, pms, shape, call)
+            # the first timed shape of a (kernel, dtype) is its main row
+            results.setdefault((name, dn), (err, ms, pms, shape, call))
+            results[(name, dn, shape)] = (err, ms, pms, shape, call)
         log(line)
 
     single = [(8, 7, 6), (20, 13, 9), (31, 16, 8), SWEEP_GRID,
@@ -160,9 +244,13 @@ def phase_parity(dev):
     batched = edges + [(LANES_PER_CHUNK, 5, SWEEP_GRID),
                        (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
     lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
+    timed_lanes = [STEP02_LANES, STEP03_LANES, (1,) + MEGATET_GRID]
+    lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
     for dn in ("float32", "float64"):
         for shape in single:
             run("stencil_spmv_cuda", dn, shape, shape == MEGATET_GRID)
+        for shape in lanes:
+            run("stencil_spmv_cuda", dn, shape, shape in timed_lanes)
         for L, B, shape in batched:
             run("batched_stencil_spmv_cuda", dn, (L, B, shape),
                 L == LANES_PER_CHUNK and shape == SWEEP_GRID)
@@ -437,11 +525,12 @@ def phase_sweep_metrics(dev, gpu, sweep):
                 e2e_per_min=e2e)
 
 
-def rows_agree(name, got, want):
-    """The ROW_KEYS of two row lists agree to rtol 1e-5 plus one unit of
-    the row's last decimal; returns the largest relative difference."""
+def rows_agree(name, got, want, keys=ROW_KEYS):
+    """The `keys` (key -> decimals kept) of two row lists agree to rtol
+    1e-5 plus one unit of the row's last decimal; returns the largest
+    relative difference."""
     worst = 0.0
-    for key, nd in ROW_KEYS.items():
+    for key, nd in keys.items():
         a = np.array([r[key] for r in got], float)
         b = np.array([r[key] for r in want], float)
         # 1.001 units: a one-unit step reads a hair over 10**-nd in binary
@@ -596,6 +685,137 @@ def phase_megatet(dev, gpu):
     return dict(iters=its, residual=res, wall_s=wall)
 
 
+def run_app(app, argv):
+    """app.run(app.parse_args(argv)) with the app's printout kept (shown
+    on stderr if the run raises); returns (result, wall seconds, text)."""
+    import torch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = app.run(app.parse_args(argv))
+            torch.cuda.synchronize()
+    except BaseException:
+        print(buf.getvalue()[-8000:], file=sys.stderr)
+        raise
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+def phase_step01(dev, gpu, outdir):
+    """apps/run_step01 on the card: its five gates (the app's own)."""
+    from pelvistim_fem_tpu_torch.apps import run_step01
+    out, wall, _ = run_app(run_step01, ["--device", dev, "--outdir",
+                                        str(outdir / "step01")])
+    failed = [name for name, _, ok in out["gates"] if not ok]
+    if failed or not out["passed"] or not out["residual"] <= 1e-10:
+        raise AssertionError(f"step01: gates failed {failed}, residual "
+                             f"{out['residual']:.3e}")
+    gates = ", ".join(f"{name} {val:.3e}" for name, val, _ in out["gates"])
+    log(f"step01: 5/5 gates pass ({gates}); certified residual "
+        f"{out['residual']:.3e}, {out['iterations']} f32 iterations; app "
+        f"wall {wall:.4f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
+def phase_step02(dev, gpu, outdir):
+    """apps/run_step02 on the card: the 8 cases as one padded group
+    solved by certified per-lane multigrid; lattices, iterations and rows
+    against the JAX package's anchors."""
+    from pelvistim_fem_tpu_torch.apps import run_step02
+    out, wall, text = run_app(run_step02, ["--device", dev, "--outdir",
+                                           str(outdir / "step02")])
+    grids = [tuple(m.lattice.grid_shape) for _, m in out["built"]]
+    b = out["batch"]
+    G = int(np.prod(STEP02_ENVELOPE[1:]))
+    if grids != STEP02_GRIDS or tuple(b.phi.shape) != (8, G):
+        raise AssertionError(f"step02: lattices {grids}, batch phi "
+                             f"{tuple(b.phi.shape)}")
+    it = b.iterations.cpu().numpy()
+    res = b.residual.cpu().numpy()
+    if not bool(b.converged.all()) or res.max() > TOL or \
+            not all(bool(p.isfinite().all()) for p in out["phis"]):
+        raise AssertionError(f"step02: residuals {res.tolist()}")
+    off = np.abs(it - np.array(STEP02_ITERS))
+    if off.max() > 2:
+        raise AssertionError(f"step02: iterations {it.tolist()} against "
+                             f"the anchors {STEP02_ITERS}")
+    worst = dict.fromkeys(STEP02_KEYS, 0.0)
+    for (label, _, _), row in zip(out["labels"], out["rows"]):
+        for key, want in zip(STEP02_KEYS, STEP02_ROWS[label]):
+            got = row[key]
+            d = abs(got - want)
+            bound = 1e-5 if key == "flux_err" else 1e-5 * abs(want)
+            if not d <= bound:
+                raise AssertionError(f"step02 {label}: {key} {got!r} "
+                                     f"against the anchor {want!r}")
+            worst[key] = max(worst[key], d / abs(want))
+    log(f"step02: 8/8 lanes certified, max true residual {res.max():.3e}; "
+        f"iterations {it.tolist()} (anchors {STEP02_ITERS}); rows within "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + " relative of the anchors")
+    solve = [ln for ln in text.splitlines() if "padded batch" in ln]
+    log(f"step02: {solve[0].strip()}; app wall {wall:.4f} s on {gpu}")
+    return dict(out=out, wall_s=wall)
+
+
+def phase_step02_serial(dev, gpu, batch):
+    """Each step02 case by itself, solve_stencil_refined (the 3-D kernel
+    1) to a true residual of 1e-10, against its lane of the padded batch
+    (1e-8): within 1e-5 max|phi|."""
+    import torch
+    from pelvistim_fem_tpu_torch.ops.stencil import (build_stencil_case,
+                                                     solve_stencil_refined)
+    out = batch["out"]
+    worst, t0 = 0.0, time.perf_counter()
+    for (label, _, _), (case, mesh), q in zip(out["labels"], out["built"],
+                                              out["phis"]):
+        r = solve_stencil_refined(
+            build_stencil_case(case, mesh, dtype=torch.float64, device=dev),
+            tol=1e-10)
+        d = float((r.phi - q).abs().max() / r.phi.abs().max())
+        if not bool(r.converged) or not d <= 1e-5:
+            raise AssertionError(f"step02 {label}: serial residual "
+                                 f"{float(r.residual):.3e}, the padded lane "
+                                 f"{d:.3e} max|phi| off it")
+        worst = max(worst, d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"step02-serial: 8 cases solved one by one to 1e-10; every batch "
+        f"lane within {worst:.3e} max|phi| of its serial solve; "
+        f"{wall:.4f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
+def phase_step03(dev, gpu, outdir):
+    """apps/run_step03 --batch at full resolution on the card: 3 radius
+    groups of 3 lanes, each certified; lattices and rows against the JAX
+    package's anchors."""
+    from pelvistim_fem_tpu_torch.apps import run_step03
+    out, wall, _ = run_app(run_step03, ["--batch", "--device", dev,
+                                        "--outdir", str(outdir / "step03")])
+    groups = out["groups"]
+    if [g["r_mm"] for g in groups] != list(STEP03_GROUPS):
+        raise AssertionError(f"step03: groups {[g['r_mm'] for g in groups]}")
+    want = []
+    for g in groups:
+        grid, nodes, rows = STEP03_GROUPS[g["r_mm"]]
+        res = np.array(g["residual"])
+        if tuple(g["grid"]) != grid or g["nodes"] != nodes or \
+                len(res) != 3 or not g["converged"] or res.max() > TOL:
+            raise AssertionError(f"step03 r={g['r_mm']} mm: lattice "
+                                 f"{g['grid']} {g['nodes']} nodes, "
+                                 f"residuals {res.tolist()}")
+        want += [dict(zip(STEP03_KEYS, r)) for r in rows]
+        log(f"step03-batch r={g['r_mm']} mm: {grid} {nodes} nodes, 3/3 "
+            f"lanes certified, max true residual {res.max():.3e}, "
+            f"iterations {g['iterations']}")
+    worst = rows_agree("step03 rows", out["rows"], want, STEP03_KEYS)
+    log(f"step03-batch: 9 rows ({', '.join(STEP03_KEYS)}) within "
+        f"{worst:.3e} relative of the anchors; app wall {wall:.4f} s on "
+        f"{gpu}")
+    return dict(wall_s=wall)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -642,13 +862,16 @@ def main():
     log(f"parity: done in {time.perf_counter() - t0:.1f} s; clocks "
         f"{gpu_query('clocks.sm,clocks.max.sm')}")
 
-    # 4-7. the paths, each counted on its own
+    # 4-11. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
     restore = record_launches(sk, seen)
 
-    def path(name, kernels, fn, *args):
+    def path(name, kernels, fn, *args, lanes=False):
+        """fn(*args) with the counters set to 0 before and read after;
+        lanes: kernel 1 must have launched at a 4-D (lane-axis) shape."""
         sk.reset_launches()
+        before = collections.Counter(seen)
         out = fn(*args)
         counts = dict(sk.LAUNCHES)
         log(f"launches {name}: {counts}")
@@ -656,6 +879,14 @@ def main():
             if counts[k] <= 0:
                 raise AssertionError(f"{k} never launched on the {name} "
                                      "path")
+        four_d = {sig[2][0]: n for sig, n in (seen - before).items()
+                  if sig[0] == "stencil_spmv_cuda" and len(sig[2][0]) == 4}
+        if lanes and not four_d:
+            raise AssertionError(f"stencil_spmv_cuda never launched with a "
+                                 f"lane axis on the {name} path")
+        if four_d:
+            log(f"launches {name}: stencil_spmv_cuda with a lane axis "
+                f"{four_d}")
         for k, n in counts.items():
             launches[k] += n
         return out
@@ -672,6 +903,19 @@ def main():
                   phase_jacobi, dev, gpu, sweep, metrics["case"])
     single = path("single", ["stencil_spmv_cuda"], phase_single, dev, gpu,
                   sweep, jacobi)
+    t_apps = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        outdir = Path(tmp)
+        step01 = path("step01", ["stencil_spmv_cuda"], phase_step01, dev,
+                      gpu, outdir)
+        step02 = path("step02", ["stencil_spmv_cuda",
+                                 "batched_stencil_spmv_cuda"],
+                      phase_step02, dev, gpu, outdir, lanes=True)
+        step02s = path("step02-serial", ["stencil_spmv_cuda"],
+                       phase_step02_serial, dev, gpu, step02)
+        step03 = path("step03-batch", ["stencil_spmv_cuda"], phase_step03,
+                      dev, gpu, outdir, lanes=True)
+    t_apps = time.perf_counter() - t_apps
 
     restore()
     phase_path_parity(dev, seen, covered)
@@ -707,12 +951,28 @@ def main():
                              bound_ms=measure.bound(name, shape, alt)[0])))
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+    # kernel 1 with a lane axis, beside its 3-D row
+    lane_rows = []
+    for (name, *key), (err, ms, pms, shape, call) in parity.items():
+        if name != "stencil_spmv_cuda" or len(key) != 2 or len(shape) != 4:
+            continue
+        dn = key[0]
+        b_ms, b_by = measure.bound(name, shape, dn)
+        lane_rows.append(dict(dtype=dn, shape=str(shape), max_abs_err=err,
+                              ms=ms, plain_ms=pms, call_ms=call,
+                              bound_ms=b_ms, bound_by=b_by))
+        log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+    kernels[0]["lane_shapes"] = lane_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s; sweep "
         f"{sweep['wall_s']:.4f} s + extraction {metrics['wall_s']:.4f} s, "
         f"megatet {mega['wall_s']:.4f} s, jacobi lane-minor "
         f"{jacobi['lane-minor']['wall_s']:.4f} s lane-major "
         f"{jacobi['lane-major']['wall_s']:.4f} s, single "
-        f"{single['wall_s']:.4f} s")
+        f"{single['wall_s']:.4f} s; the apps {t_apps:.1f} s: step01 "
+        f"{step01['wall_s']:.4f} s, step02 {step02['wall_s']:.4f} s, "
+        f"serial check {step02s['wall_s']:.4f} s, step03 --batch "
+        f"{step03['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -157,6 +157,32 @@ def build_mesh_from_lattice(xs, ys, zs, body_fn, bcid_fn,
     return mesh
 
 
+def box_recipe(Lx: float, Ly: float, Lz: float, h: float) -> LatticeRecipe:
+    """Uniform box (step01): top face BC 1 (active), bottom BC 2
+    (return), sides BC 3 (insulated), one tissue body."""
+    from pelvistim_fem_tpu_torch.mesh.grading import uniform_axis
+    xs = uniform_axis(0, Lx, h)
+    ys = uniform_axis(0, Ly, h)
+    zs = uniform_axis(0, Lz, h)
+    eps = 1e-9 * max(Lx, Ly, Lz)
+
+    def body_fn(cx, cy, cz):
+        return np.full(cx.shape, core.BODY_TISSUE, np.int32)
+
+    def bcid_fn(fx, fy, fz, nx, ny, nz):
+        out = np.full(fx.shape, BC_INSULATED, np.int32)
+        out[(nz > 0.5) & (np.abs(fz - Lz) < h * 1e-3 + eps)] = BC_ACTIVE
+        out[(nz < -0.5) & (np.abs(fz) < h * 1e-3 + eps)] = BC_RETURN
+        return out
+
+    return LatticeRecipe(xs, ys, zs, body_fn, bcid_fn)
+
+
+def box_mesh(Lx: float, Ly: float, Lz: float, h: float) -> TetMesh:
+    """TetMesh of box_recipe(Lx, Ly, Lz, h)."""
+    return box_recipe(Lx, Ly, Lz, h).mesh()
+
+
 def _footprint_mask(x, y, cx, cy, r, shape):
     """Point-in-electrode-footprint predicate (circle, or square of
     half-side r)."""

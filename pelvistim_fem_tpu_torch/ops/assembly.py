@@ -82,3 +82,10 @@ def spmv(phi, tets, grads, sigvol, table):
     s = sigvol[..., None] * q
     ye = (grads * s[..., None, :]).sum(-1)                # (..., M, 4)
     return scatter_to_nodes(ye, table)
+
+
+def stiffness_diagonal(grads, sigvol, table):
+    """diag(K) for Jacobi preconditioning: sigma_e V_e |grad lambda_i|^2
+    summed over each node's element corners.  sigvol (..., M)."""
+    de = sigvol[..., None] * (grads * grads).sum(-1)     # (..., M, 4)
+    return scatter_to_nodes(de, table)

@@ -57,6 +57,22 @@ def point_to_cell(case, nodal_values):
     return nodal_values[..., case.tets, :].mean(-2)
 
 
+def boundary_face_flux(case, phi, sigma_table=None, *, scheme="nodal",
+                       nodal_J=None):
+    """Signed normal current through each boundary face (..., B) [A],
+    positive leaving the domain.  scheme="nodal": J at a face is the mean
+    of its 3 vertices' volume-weighted nodal J (the reference pipeline's
+    nodal 'volume current'); scheme="cell": the parent tet's constant J.
+    `nodal_J` (..., N, 3) reuses a nodal_average of cell_J."""
+    if scheme == "nodal":
+        Jn = (nodal_J if nodal_J is not None
+              else nodal_average(case, cell_J(case, phi, sigma_table)))
+        Jf = Jn[..., case.faces, :].mean(-2)
+    else:
+        Jf = cell_J(case, phi, sigma_table)[..., case.face_parent, :]
+    return torch.sum(Jf * case.face_normal, -1) * case.face_area
+
+
 def consistent_electrode_currents(case, phi, sigma_table=None):
     """EXACT discrete electrode currents from the weak-form reaction
     rho = K phi - b at the Dirichlet nodes.  Returns (I_active_in,

@@ -12,7 +12,7 @@
 //                              function as batched_stencil_spmv, lane-minor)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
-//   x (X, Y, Z), C (27, X, Y, Z)
+//   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
 //   Xs (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B)
 //   Xm (X, Y, Z, L), coeff (B, 27, X, Y, Z), sig (B, L)   [lane-minor]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
@@ -163,6 +163,8 @@ constexpr int lanes_per_thread(int B, int most) {
   return fit < 1 ? 1 : (fit < most ? fit : most);
 }
 
+// y[s] = sum_o C[s, o] * shift_o(x[s]) for lane s = blockIdx.y: each lane
+// has its own stencil and its own grid; lanes never mix.
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
@@ -170,6 +172,9 @@ stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
   const long long G = (long long)X * Y * Z;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= G) return;
+  x += blockIdx.y * G;
+  C += blockIdx.y * 27 * G;
+  y += blockIdx.y * G;
   const int k = (int)(p % Z);
   const long long q = p / Z;
   const int j = (int)(q % Y);
@@ -443,14 +448,20 @@ bool fits_int(long long G, int L, int B) {
   return G * L <= INT_MAX && G * 27 * B <= INT_MAX;
 }
 
+// S lanes as gridDim.y (at most 65535).  The kernel indexes in 64 bits,
+// so no grid size is refused for overflowing an int.
 template <typename T>
-int launch_stencil_spmv(const void* x, const void* C, void* y, int X, int Y,
-                        int Z, void* stream) {
+int launch_stencil_spmv(const void* x, const void* C, void* y, int S, int X,
+                        int Y, int Z, void* stream) {
   const long long G = (long long)X * Y * Z;
-  if (G == 0) return 0;
+  if (S < 0 || S > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (G == 0 || S == 0) return 0;
   const unsigned blocks = (unsigned)((G + kBlock - 1) / kBlock);
-  stencil_spmv_kernel<T><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)C, (T*)y, X, Y, Z);
+  stencil_spmv_kernel<T>
+      <<<dim3(blocks, S), kBlock, 0, (cudaStream_t)stream>>>(
+          (const T*)x, (const T*)C, (T*)y, X, Y, Z);
   return (int)cudaGetLastError();
 }
 
@@ -586,14 +597,14 @@ extern "C" {
 
 int pst_max_bodies() { return kMaxBodies; }
 
-int pst_stencil_spmv_f32(const void* x, const void* C, void* y, int X, int Y,
-                         int Z, void* stream) {
-  return launch_stencil_spmv<float>(x, C, y, X, Y, Z, stream);
+int pst_stencil_spmv_f32(const void* x, const void* C, void* y, int S, int X,
+                         int Y, int Z, void* stream) {
+  return launch_stencil_spmv<float>(x, C, y, S, X, Y, Z, stream);
 }
 
-int pst_stencil_spmv_f64(const void* x, const void* C, void* y, int X, int Y,
-                         int Z, void* stream) {
-  return launch_stencil_spmv<double>(x, C, y, X, Y, Z, stream);
+int pst_stencil_spmv_f64(const void* x, const void* C, void* y, int S, int X,
+                         int Y, int Z, void* stream) {
+  return launch_stencil_spmv<double>(x, C, y, S, X, Y, Z, stream);
 }
 
 int pst_batched_stencil_spmv_f32(const void* Xs, const void* coeff,

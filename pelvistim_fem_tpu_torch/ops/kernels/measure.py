@@ -76,13 +76,15 @@ def bound(name, shape, dtype):
     """(bound_ms, bound_by) of one apply: the larger of the bytes it must
     move (each input read once, the output written once) over the HBM
     rate and its multiply-adds over the peak rate of its dtype.  shape:
-    (X, Y, Z) for stencil_spmv_cuda, (L, B, (X, Y, Z)) for the batched
-    kernels, whose per-lane coefficient is a B-term combine (2B - 1
-    operations) before the multiply-add."""
+    (X, Y, Z) or (S, X, Y, Z) (S lanes, each its own stencil) for
+    stencil_spmv_cuda, (L, B, (X, Y, Z)) for the batched kernels, whose
+    per-lane coefficient is a B-term combine (2B - 1 operations) before
+    the multiply-add."""
     es = 4 if dtype == "float32" else 8
     if name == "stencil_spmv_cuda":
-        G = int(np.prod(shape))
-        nbytes, flops = 29 * G * es, 2 * 27 * G
+        S = shape[0] if len(shape) == 4 else 1
+        G = int(np.prod(shape[-3:]))
+        nbytes, flops = S * 29 * G * es, S * 2 * 27 * G
     else:
         L, B, grid = shape
         G = int(np.prod(grid))
@@ -110,15 +112,16 @@ def check_close(name, y, ref, dtype):
 
 
 def kernel_inputs(name, shape, dtype, device, rng):
-    """Random inputs of kernel `name` at `shape` ((X, Y, Z), or (L, B,
-    (X, Y, Z)) for the batched kernels) in its layout; the two batched
-    kernels get one problem from one `rng` state, and sigma is positive,
-    as solved."""
+    """Random inputs of kernel `name` at `shape` ((X, Y, Z) or (S, X, Y,
+    Z), or (L, B, (X, Y, Z)) for the batched kernels) in its layout; the
+    two batched kernels get one problem from one `rng` state, and sigma
+    is positive, as solved."""
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
     if name == "stencil_spmv_cuda":
-        return rand(shape), rand((27,) + tuple(shape))
+        shape = tuple(shape)
+        return rand(shape), rand(shape[:-3] + (27,) + shape[-3:])
     L, B, grid = shape
     grid = tuple(grid)
     Xs, coeff = rand((L,) + grid), rand((B, 27) + grid)

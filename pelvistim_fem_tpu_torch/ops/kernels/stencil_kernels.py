@@ -2,7 +2,9 @@
 bindings, and their plain PyTorch twins (the counterpart of
 pelvistim_fem_tpu/ops/pallas_stencil.py).
 
-  stencil_spmv(x, C)                   y = K x, one combined stencil
+  stencil_spmv(x, C)                   y = K x, one combined stencil;
+                                       or, 4-D, y[s] = K_s x[s] for S
+                                       lanes each with its own stencil
       CUDA: stencil_spmv_cuda          replaces stencil_spmv_flat and
                                        stencil_spmv_pallas
       twin: stencil_spmv_plain
@@ -73,13 +75,15 @@ def reset_launches() -> None:
 
 def stencil_spmv_plain(x, C):
     """y = K x via 27 shifted multiply-adds.  x (X, Y, Z), C (27, X, Y,
-    Z); neighbours outside the grid read 0."""
-    X, Y, Z = x.shape
+    Z); or S lanes, x (S, X, Y, Z), C (S, 27, X, Y, Z), y[s] = K_s x[s]
+    (the same adds with a leading axis).  Neighbours outside the grid
+    read 0."""
+    X, Y, Z = x.shape[-3:]
     xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
     y = torch.zeros_like(x)
     for o, (dx, dy, dz) in enumerate(OFFSETS):
-        y = y + C[o] * xp[1 + dx:1 + dx + X, 1 + dy:1 + dy + Y,
-                          1 + dz:1 + dz + Z]
+        y = y + C[..., o, :, :, :] * xp[..., 1 + dx:1 + dx + X,
+                                        1 + dy:1 + dy + Y, 1 + dz:1 + dz + Z]
     return y
 
 
@@ -172,7 +176,7 @@ def build(extra_flags=()) -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"pst_stencil_spmv_{dt}")
-            fn.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
+            fn.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
             fn.restype = i
             for name in ("batched_stencil_spmv",
                          "batched_stencil_spmv_lminor"):
@@ -230,12 +234,16 @@ def _check(name, dtype, device, **tensors):
 
 
 def _dims_single(x, C):
+    """(S, X, Y, Z) of x (X, Y, Z) with C (27, X, Y, Z), S = 1, or of x
+    (S, X, Y, Z) with C (S, 27, X, Y, Z)."""
     name = "stencil_spmv_cuda"
     _check(name, x.dtype, x.device, x=x, C=C)
-    if x.dim() != 3 or tuple(C.shape) != (27,) + tuple(x.shape):
+    lanes = tuple(x.shape[:-3])
+    if x.dim() not in (3, 4) or \
+            tuple(C.shape) != lanes + (27,) + tuple(x.shape[-3:]):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
                          f"C {tuple(C.shape)}")
-    return tuple(x.shape)
+    return (lanes[0] if lanes else 1,) + tuple(x.shape[-3:])
 
 
 def _dims_batched(Xs, coeff, sig):
@@ -273,7 +281,8 @@ def launch(name, *args, extra_flags=()):
     as its wrapper does, launch the kernel of build(extra_flags) on them
     and return its output.  Counts nothing: the *_cuda wrappers, which launch
     the default build, count.  The batched kernels take 1..8 bodies and
-    L*G and B*27*G within a 32-bit int; the launch raises otherwise."""
+    L*G and B*27*G within a 32-bit int, stencil_spmv_cuda at most 65535
+    lanes (it indexes in 64 bits); the launch raises otherwise."""
     dims = _DIMS[name](*args)
     lib = build(extra_flags)
     if name != "stencil_spmv_cuda" and \
@@ -294,8 +303,9 @@ def launch(name, *args, extra_flags=()):
 
 
 def stencil_spmv_cuda(x, C):
-    """CUDA kernel for y = K x.  x (X, Y, Z), C (27, X, Y, Z), both
-    contiguous float32 or float64 on one CUDA device."""
+    """CUDA kernel for y = K x.  x (X, Y, Z), C (27, X, Y, Z); or S lanes
+    in one launch, x (S, X, Y, Z), C (S, 27, X, Y, Z).  Both contiguous
+    float32 or float64 on one CUDA device."""
     y = launch("stencil_spmv_cuda", x, C)
     LAUNCHES["stencil_spmv_cuda"] += 1
     return y
@@ -323,8 +333,8 @@ def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
 
 
 def stencil_spmv(x, C):
-    """y = K x: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors."""
+    """y = K x (x 3-D) or y[s] = K_s x[s] (x 4-D, C 5-D): the CUDA kernel
+    for CUDA tensors, the plain twin for CPU tensors."""
     if x.is_cuda:
         return stencil_spmv_cuda(x, C)
     return stencil_spmv_plain(x, C)

@@ -1,5 +1,6 @@
-"""Batched post-processed metrics of a sweep (PyTorch twin of the batched
-half of pelvistim_fem_tpu/ops/metrics.py).
+"""Post-processed metrics of a solve or a sweep (PyTorch twin of
+pelvistim_fem_tpu/ops/metrics.py: `injected_currents`, the serial
+`extract_results` and the batched `extract_results_batched`).
 
 All lanes' metric scalars come out of one device pass over a lane axis
 (no vmap) and one host read of an (10, L) stack; the lane-independent
@@ -26,6 +27,47 @@ from pelvistim_fem_tpu_torch.mesh.core import BC_ACTIVE, BC_RETURN
 from pelvistim_fem_tpu_torch.ops import fields
 
 ROI_EXPANSION = (1.0, 1.5, 2.0, 3.0)  # ROI radius multipliers, in order
+
+
+def injected_currents(case, phi, sigma_table=None, *, nodal_J=None):
+    """Electrode patch currents over the tagged BC faces and the KCL flux
+    error, plus the exact weak-form reaction currents: a dict of floats
+    (I_active, I_return, their signed forms, flux_err, I_active_consistent,
+    I_return_consistent, flux_err_consistent).  Outward normals: the
+    current injected at the active electrode is a negative flux there."""
+    flux = fields.boundary_face_flux(case, phi, sigma_table,
+                                     nodal_J=nodal_J).cpu().numpy()
+    bcid = case.face_bcid.cpu().numpy()
+    I_active_signed = float(flux[bcid == BC_ACTIVE].sum())
+    I_return_signed = float(flux[bcid == BC_RETURN].sum())
+    I_active = abs(I_active_signed)
+    I_return = abs(I_return_signed)
+    denom = max(I_active, I_return)
+    flux_err = (abs(I_active_signed + I_return_signed) / denom
+                if denom > 0 else np.nan)
+    ia_c, ir_c = fields.consistent_electrode_currents(case, phi, sigma_table)
+    ia_c, ir_c = float(ia_c), float(ir_c)
+    denom_c = max(abs(ia_c), abs(ir_c))
+    return dict(I_active=I_active, I_return=I_return,
+                I_active_signed=I_active_signed,
+                I_return_signed=I_return_signed, flux_err=flux_err,
+                I_active_consistent=ia_c, I_return_consistent=ir_c,
+                flux_err_consistent=(abs(ia_c - ir_c) / denom_c
+                                     if denom_c > 0 else np.nan))
+
+
+def extract_results(case, phi, params, *, sigma_table=None,
+                    pressure_label=None, sigma_contact=None, verbose=True):
+    """The full metric row of one solve, phi (N,): the batched extractor
+    with one lane (the reference's serial and batched extractors share
+    `_build_row`, so the rows agree)."""
+    tables = None if sigma_table is None else sigma_table[None]
+    return extract_results_batched(
+        case, phi[None], params, sigma_tables=tables,
+        pressure_labels=(None if pressure_label is None
+                         else [pressure_label]),
+        sigma_contacts=None if sigma_contact is None else [sigma_contact],
+        verbose=verbose)[0]
 
 
 def _in_footprint(x, y, cx, cy, r, shape):

@@ -13,11 +13,12 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     coarsest level takes a fixed number of CG iterations, so the V-cycle
     is a fixed SPD operator usable inside CG.
 
-Two solvers: `solve_stencil_mg_refined` (one operator, the megatet leg)
-and `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
-sweep with body-factored coefficients, the step04 sweep leg).  Both
-refine an f32 MG-CG inner solve against an f64 master operator until
-the TRUE f64 relative residual meets `tol`.
+Three solvers: `solve_stencil_mg_refined` (one operator, the megatet
+leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
+sweep with body-factored coefficients, the step04 sweep leg) and
+`batched_group_solve_mg_refined` (a geometry batch: per-lane operators,
+BCs and levels, step02).  All refine an f32 MG-CG inner solve against an
+f64 master operator until the TRUE f64 relative residual meets `tol`.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
-                                            preconditioned_cg)
+                                               preconditioned_cg,
+                                               refine_lanes)
 from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
                                                  _operator,
                                                  batched_stencil_spmv,
-                                                 batched_stencil_spmv_fused,
                                                  combine_coeffs,
+                                                 combine_lanes,
                                                  stencil_spmv)
 
 
@@ -255,29 +257,17 @@ def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
     def Mp(r):
         return torch.where(free, M32(torch.where(free, r, 0.0)), r)
 
-    bnorm = torch.sqrt(torch.sum(b64 * b64))
-    bden = torch.where(bnorm > 0, bnorm, 1.0)
-    x = torch.where(free, 0.0, sc64.dirichlet)
-    rel = torch.tensor(float("inf"), dtype=torch.float64, device=x.device)
-    total_it = 0
-    k = 0
-    while bool(rel > tol) and k < max_refinements:
-        r64 = b64 - op64(x)
-        # adaptive inner tolerance: the correction only has to shrink the
-        # true residual from rel to tol (x4 safety); pass 1 clips to
-        # inner_tol
-        need = 0.25 * tol / torch.clamp(rel, max=1.0)
-        tol_k = torch.clamp(need, inner_tol, 0.05)
-        res = preconditioned_cg(op32, r64.to(torch.float32), Mp,
-                                torch.zeros_like(r64, dtype=torch.float32),
+    def inner(r32, tol_k):
+        res = preconditioned_cg(op32, r32, Mp, torch.zeros_like(r32),
                                 tol=tol_k, maxiter=maxiter)
-        x = x + res.phi.to(torch.float64)
-        rel = torch.sqrt(torch.sum((b64 - op64(x)) ** 2)) / bden
-        total_it += int(res.iterations)
-        k += 1
+        return res.phi, res.iterations
+
+    x, rel, it = refine_lanes(op64, b64, torch.where(free, 0.0,
+                                                     sc64.dirichlet),
+                              inner, tol=tol, inner_tol=inner_tol,
+                              max_refinements=max_refinements, lanes=False)
     phi_nodes = x.reshape(-1)[scase.grid_index]
-    return SolveResult(phi=phi_nodes,
-                       iterations=torch.tensor(total_it), residual=rel,
+    return SolveResult(phi=phi_nodes, iterations=it, residual=rel,
                        converged=rel <= tol)
 
 
@@ -297,34 +287,45 @@ def _red(a):
 
 
 def _fused_level_pieces(coeff, free, sig):
-    """(op, dinv, freeb) for one lane-stacked level.  coeff (B, 27, X, Y,
-    Z); free (X, Y, Z); sig (L, T) full sigma tables (body b at slot
-    b+1)."""
-    freeb = free[None]
-    coeff = coeff.contiguous()
-    B = coeff.shape[0]
-    sig_b = sig[:, 1:1 + B].to(coeff.dtype).contiguous()
+    """(op, dinv, freeb, raw) for one lane-stacked level; raw is the
+    unprojected apply.  sig (L, T) full sigma tables (body b at slot
+    b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
+    applied body-factored by batched_stencil_spmv, with free (X, Y, Z);
+    or each lane has its own stack, coeff (L, B, 27, X, Y, Z) with free
+    (L, X, Y, Z) (a geometry batch): each lane's sigma is combined into
+    its own (L, 27, X, Y, Z) stencil, applied by the 4-D stencil_spmv."""
+    if coeff.dim() == 6:
+        C = combine_lanes(coeff, sig.to(coeff.dtype)).contiguous()
+        diag_l = C[:, DIAG_OFFSET]
+
+        def raw(Xs):
+            return stencil_spmv(Xs, C)
+    else:
+        coeff = coeff.contiguous()
+        B = coeff.shape[0]
+        sig_b = sig[:, 1:1 + B].to(coeff.dtype).contiguous()
+        # per-lane diagonal as an explicit sum over bodies (no einsum: see
+        # stencil.combine_coeffs)
+        diag_l = _lanes(sig_b[:, 0]) * coeff[0, DIAG_OFFSET]
+        for b in range(1, B):
+            diag_l = diag_l + _lanes(sig_b[:, b]) * coeff[b, DIAG_OFFSET]
+
+        def raw(Xs):
+            return batched_stencil_spmv(Xs, coeff, sig_b)
+    freeb = free if free.dim() == 4 else free[None]
 
     def op(Xs):
-        Xm = torch.where(freeb, Xs, 0.0)
-        Ys = batched_stencil_spmv(Xm, coeff, sig_b)
-        return torch.where(freeb, Ys, Xs)
+        return torch.where(freeb, raw(torch.where(freeb, Xs, 0.0)), Xs)
 
-    # per-lane diagonal as an explicit sum over bodies (no einsum: see
-    # stencil.combine_coeffs)
-    diag_l = _lanes(sig_b[:, 0]) * coeff[0, DIAG_OFFSET]
-    for b in range(1, B):
-        diag_l = diag_l + _lanes(sig_b[:, b]) * coeff[b, DIAG_OFFSET]
     diag = torch.where(freeb & (diag_l != 0), diag_l, 1.0)
-    return op, 1.0 / diag, freeb
+    return op, 1.0 / diag, freeb, raw
 
 
 def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
     """One lane-stacked V-cycle (the recursion of cycle_impl with
     lane-wise reductions).  pieces: _fused_level_pieces per level;
     b (L, X, Y, Z) -> z (L, X, Y, Z)."""
-    levels = hier.levels
-    n_levels = len(levels)
+    n_levels = len(hier.levels)
 
     def smooth(op, dinv, x, bb, n):
         for _ in range(n):
@@ -332,7 +333,7 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
         return x
 
     def cycle(level, b):
-        op, dinv, _ = pieces[level]
+        op, dinv = pieces[level][:2]
         if level == n_levels - 1:
             # coarsest: fixed-iteration lane-aware CG
             z0 = dinv * b
@@ -355,7 +356,7 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
             torch.zeros_like(b)
         r = b - op(x)
         rc = hier.transfers[level].restrict(r)
-        rc = torch.where(levels[level + 1].free[None], rc, 0.0)
+        rc = torch.where(pieces[level + 1][2], rc, 0.0)
         xc = cycle(level + 1, rc)
         x = x + hier.transfers[level].prolong(xc)
         return smooth(op, dinv, x, b, nu)
@@ -374,15 +375,16 @@ def _fused_pcg(op, b, M, x0, *, tol, maxiter):
 def _fused_bc_pieces(scase, sig):
     """Fine-level (op, b_eff, x0, freeb) for the lane-stacked system.
     The operator comes from scase.coeff, NOT hier.levels[0], so an f64
-    master operator stays f64 beside an f32 hierarchy."""
+    master operator stays f64 beside an f32 hierarchy.  A stacked case
+    (build_padded_group: a leading lane axis on coeff, free, dirichlet
+    and b_neumann) gives each lane its own operator and BCs."""
     L = sig.shape[0]
-    op, _, freeb = _fused_level_pieces(scase.coeff, scase.free, sig)
+    op, _, freeb, raw = _fused_level_pieces(scase.coeff, scase.free, sig)
+    lead = lambda a: a if a.dim() == 4 else a[None]
     phi_d = torch.where(scase.free, 0.0, scase.dirichlet)
-    Kphi_d = batched_stencil_spmv_fused(
-        phi_d.expand((L,) + phi_d.shape).contiguous(),
-        scase.coeff.contiguous(), sig)
-    b_eff = torch.where(freeb, scase.b_neumann[None] - Kphi_d,
-                        scase.dirichlet[None])
+    Kphi_d = raw(phi_d.expand((L,) + tuple(phi_d.shape[-3:])).contiguous())
+    b_eff = torch.where(freeb, lead(scase.b_neumann) - Kphi_d,
+                        lead(scase.dirichlet))
     x0 = phi_d.expand(b_eff.shape).clone()
     return op, b_eff, x0, freeb
 
@@ -399,7 +401,9 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     sigma_tables (L, T).  x_init: optional (L, X, Y, Z) f64 warm start
     (Dirichlet slots must carry their lifted values).  scase/hier may be
     any float dtype: the f64 master and f32 inner operators are both
-    derived here.  phi is returned (L, N) in mesh node ordering."""
+    derived here.  scase and every level of hier may carry a leading lane
+    axis (a geometry batch, batched_group_solve_mg_refined).  phi is
+    returned (L, N) in mesh node ordering."""
     sc64, sc32 = scase.astype(torch.float64), scase.astype(torch.float32)
     hier32 = hier.astype(torch.float32)
     sig64 = sigma_tables.to(torch.float64)
@@ -407,7 +411,7 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     L = sigma_tables.shape[0]
 
     op64, b64, x0, freeb = _fused_bc_pieces(sc64, sig64)
-    op32, _, _ = _fused_level_pieces(sc32.coeff, sc32.free, sig32)
+    op32 = _fused_level_pieces(sc32.coeff, sc32.free, sig32)[0]
     pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32)
               for lv in hier32.levels]
 
@@ -417,31 +421,31 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
                          coarse_iters=coarse_iters)
         return torch.where(freeb, z, r)
 
-    nrm = lambda a: torch.sqrt(_red(a * a))
-    bnorm = nrm(b64)
-    bden = torch.where(bnorm > 0, bnorm, 1.0)
+    def inner(r32, tol_k):
+        return _fused_pcg(op32, r32, M32, torch.zeros_like(r32), tol=tol_k,
+                          maxiter=maxiter)
+
     x = x0 if x_init is None else x_init.to(torch.float64)
-    rel = torch.full((L,), float("inf"), dtype=torch.float64,
-                     device=x.device)
-    total_it = torch.zeros(L, dtype=torch.int64, device=x.device)
-    k = 0
-    while bool(torch.any(rel > tol)) and k < max_refinements:
-        done = rel <= tol
-        r64 = b64 - op64(x)
-        need = 0.25 * tol / torch.clamp(rel, max=1.0)
-        tol_k = torch.clamp(need, inner_tol, 0.05)
-        dx, it = _fused_pcg(op32, r64.to(torch.float32), M32,
-                            torch.zeros_like(r64, dtype=torch.float32),
-                            tol=tol_k, maxiter=maxiter)
-        x_n = x + dx.to(torch.float64)
-        rel_n = nrm(b64 - op64(x_n)) / bden
-        x = torch.where(_lanes(done), x, x_n)
-        rel = torch.where(done, rel, rel_n)
-        total_it = torch.where(done, total_it, total_it + it)
-        k += 1
+    x, rel, total_it = refine_lanes(op64, b64, x, inner, tol=tol,
+                                    inner_tol=inner_tol,
+                                    max_refinements=max_refinements)
     phi_nodes = x.reshape(L, -1)[:, scase.grid_index]
     return SolveResult(phi=phi_nodes, iterations=total_it, residual=rel,
                        converged=rel <= tol)
+
+
+def batched_group_solve_mg_refined(stacked: StencilCase,
+                                   bhier: MGHierarchy, sigma_tables=None,
+                                   **kw) -> SolveResult:
+    """A geometry batch at TRUE f64-certified `tol`: every lane has its
+    own operator, BCs and multigrid levels (`stacked` from
+    parallel/geometry_sweep.build_padded_group, `bhier` from
+    build_padded_group_hierarchy, both with a leading lane axis), solved
+    by the lane-stacked refinement of batched_mg_solve_fused_refined
+    through the 4-D stencil_spmv.  sigma_tables (S, T) defaults to the
+    stacked case's.  phi is returned (S, G) in flat padded-grid order."""
+    sig = stacked.sigma_table if sigma_tables is None else sigma_tables
+    return batched_mg_solve_fused_refined(stacked, bhier, sig, **kw)
 
 
 def batched_mg_solve_fused_refined_chunked(scase: StencilCase,

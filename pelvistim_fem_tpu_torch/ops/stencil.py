@@ -21,19 +21,33 @@ device, their plain twins on the CPU.
                                 batched_stencil_spmv, or lane_minor=True
                                 (X, Y, Z, L) through
                                 batched_stencil_spmv_lminor
+  batched_geometry_solve[_refined]
+                                a geometry batch on one lattice: a
+                                coefficient stack per lane, shared BCs
+  batched_case_solve[_refined]  a geometry batch of whole cases padded
+                                onto one grid (per-lane everything)
+                                Both are lane-stacked Jacobi-PCG on (S, X,
+                                Y, Z) state through the 4-D stencil_spmv.
+
+The host path from an element Case and its lattice mesh to a StencilCase
+(`assemble_stencil_coeffs`, `stencil_host_data`, `build_stencil_case`)
+is numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from pelvistim_fem_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
     DIAG_OFFSET, OFFSETS, batched_stencil_spmv, batched_stencil_spmv_lminor,
     stencil_spmv)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
-                                               jacobi_pcg)
+                                               jacobi_inner, jacobi_pcg,
+                                               refine_lanes)
 
 
 @dataclasses.dataclass
@@ -59,6 +73,87 @@ class StencilCase:
                            sigma_table=self.sigma_table.to(dtype))
 
 
+def assemble_stencil_coeffs(mesh, n_bodies: int) -> np.ndarray:
+    """Per-body stencil coefficients of a lattice mesh on the host:
+    (n_bodies, 27, X, Y, Z) float64.  Each tet's stiffness entry
+    vol g_a . g_b (sigma left out) adds into the (body, offset, node a)
+    slot, offset = lattice(b) - lattice(a) in {-1, 0, 1}^3 (a Kuhn tet
+    spans one lattice cell).  The adds are one np.bincount, a fixed-order
+    and so deterministic sum."""
+    lat = mesh.lattice
+    if lat is None:
+        raise ValueError("mesh has no lattice provenance; use the "
+                         "element-based operator instead")
+    X, Y, Z = lat.grid_shape
+    G = X * Y * Z
+    grads, vol = mesh.geometry()
+    gidx = lat.grid_index[mesh.tets]                     # (M, 4) flat grid
+    ijk = np.stack([gidx // (Y * Z), (gidx // Z) % Y, gidx % Z], -1)
+    body0 = mesh.tet_body.astype(np.int64) - 1
+    slots, weights = [], []
+    for a in range(4):
+        for b in range(4):
+            d = ijk[:, b] - ijk[:, a]
+            off = (d[:, 0] + 1) * 9 + (d[:, 1] + 1) * 3 + (d[:, 2] + 1)
+            slots.append((body0 * 27 + off) * G + gidx[:, a])
+            weights.append(vol * np.sum(grads[:, a] * grads[:, b], -1))
+    out = np.bincount(np.concatenate(slots), np.concatenate(weights),
+                      minlength=n_bodies * 27 * G)
+    return out.reshape(n_bodies, 27, X, Y, Z)
+
+
+def stencil_host_data(case, mesh) -> dict:
+    """Host (numpy) stencil problem of a Case on its lattice mesh: the
+    per-body coefficient stacks, the BC grids (free, dirichlet,
+    b_neumann), grid_index, the sigma table and the lattice axes."""
+    from pelvistim_fem_tpu_torch.models.case import compute_bc_host
+
+    lat = mesh.lattice
+    X, Y, Z = lat.grid_shape
+    coeff = assemble_stencil_coeffs(mesh, int(case.meta.n_bodies))
+    free_n, diri_n, b_n, _, _, _ = compute_bc_host(
+        mesh, mode=case.meta.mode, active_V=case.meta.active_V,
+        injected_current_A=case.meta.I_target_A)
+
+    def to_grid(vec, fill=0.0, dt=np.float64):
+        g = np.full(X * Y * Z, fill, dt)
+        g[lat.grid_index] = np.asarray(vec)
+        return g.reshape(X, Y, Z)
+
+    return dict(
+        coeff=coeff,
+        free=to_grid(free_n, fill=False, dt=bool),
+        dirichlet=to_grid(diri_n),
+        b_neumann=to_grid(b_n),
+        grid_index=lat.grid_index,
+        sigma_table=np.asarray(case.meta.sigma_table_host),
+        axes=lat.axes,
+    )
+
+
+def build_stencil_case(case, mesh, dtype=None, sigma_table_host=None,
+                       host_data=None, *,
+                       device=DEFAULT_DEVICE) -> StencilCase:
+    """The StencilCase of a Case on its lattice mesh, on `device`, in
+    `dtype` (default the case's).  host_data: stencil_host_data(case,
+    mesh), if already built."""
+    device = resolve_device(device)
+    hd = host_data or stencil_host_data(case, mesh)
+    dtype = dtype or case.nodes.dtype
+    if sigma_table_host is None:
+        sigma_table_host = hd["sigma_table"]
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return StencilCase(
+        coeff=f(hd["coeff"]),
+        free=torch.as_tensor(hd["free"], device=device),
+        dirichlet=f(hd["dirichlet"]),
+        b_neumann=f(hd["b_neumann"]),
+        grid_index=torch.as_tensor(hd["grid_index"], dtype=torch.int64,
+                                   device=device),
+        sigma_table=f(sigma_table_host),
+    )
+
+
 def combine_coeffs(coeff, sigma_table):
     """C(sigma) = sum_b sigma_b C_b  ->  (27, X, Y, Z).
 
@@ -82,6 +177,14 @@ def combine_coeffs(coeff, sigma_table):
     return C
 
 
+def combine_lanes(coeff, sigma_tables):
+    """Per-lane combine_coeffs: coeff (S, B, 27, X, Y, Z), sigma_tables
+    (S, T) -> (S, 27, X, Y, Z), lane s = combine_coeffs(coeff[s],
+    sigma_tables[s])."""
+    return torch.stack([combine_coeffs(c, s)
+                        for c, s in zip(coeff, sigma_tables)])
+
+
 def batched_stencil_spmv_fused(Xs, coeff, sigma_tables):
     """Lane-stacked SpMV with body-factored coefficients:
 
@@ -103,10 +206,19 @@ def _operator(scase: StencilCase, sigma_table, coeff=None):
     stencil_spmv_cuda, which stands for both TPU kernels the reference's
     `_operator` could pick (stencil_spmv_flat for spmv="flat",
     stencil_spmv_pallas for spmv="pallas"); the TPU schedules have no
-    counterpart to choose between."""
-    C = combine_coeffs(scase.coeff if coeff is None else coeff,
-                       sigma_table).contiguous()
-    free = scase.free
+    counterpart to choose between.
+
+    A coefficient stack with a lane axis, coeff (S, B, 27, X, Y, Z) with
+    sigma tables (S, T), gives S systems on (S, X, Y, Z) state, each with
+    its own stencil (the reference vmaps this function), and BC grids
+    (X, Y, Z) shared by the lanes or (S, X, Y, Z) each its own: every
+    apply is then one launch of the 4-D stencil_spmv."""
+    coeff = scase.coeff if coeff is None else coeff
+    combine = combine_lanes if coeff.dim() == 6 else combine_coeffs
+    C = combine(coeff, sigma_table).contiguous()
+    shape = C.shape[:-4] + C.shape[-3:]
+    free, dirichlet, b_neumann = (a.expand(shape) for a in (
+        scase.free, scase.dirichlet, scase.b_neumann))
 
     def raw(x):
         return stencil_spmv(x.contiguous(), C)
@@ -114,10 +226,9 @@ def _operator(scase: StencilCase, sigma_table, coeff=None):
     def op(x):
         return torch.where(free, raw(torch.where(free, x, 0.0)), x)
 
-    diag = torch.where(free, C[DIAG_OFFSET], 1.0)
-    phi_d = torch.where(free, 0.0, scase.dirichlet)
-    b_eff = torch.where(free, scase.b_neumann - raw(phi_d),
-                        scase.dirichlet)
+    diag = torch.where(free, C[..., DIAG_OFFSET, :, :, :], 1.0)
+    phi_d = torch.where(free, 0.0, dirichlet)
+    b_eff = torch.where(free, b_neumann - raw(phi_d), dirichlet)
     return op, diag, b_eff
 
 
@@ -155,29 +266,12 @@ def solve_stencil_refined(scase: StencilCase, sigma_table=None, coeff=None,
     c32 = None if coeff is None else coeff.to(f32)
     op64, _, b64 = _operator(sc64, sigma_table.to(f64), c64)
     op32, diag32, _ = _operator(sc32, sigma_table.to(f32), c32)
-
-    bnorm = torch.sqrt(torch.sum(b64 * b64))
-    bden = torch.where(bnorm > 0, bnorm, 1.0)
-    x = torch.where(scase.free, 0.0, sc64.dirichlet)
-    rel = torch.tensor(float("inf"), dtype=f64, device=x.device)
-    total_it = 0
-    k = 0
-    while bool(rel > tol) and k < max_refinements:
-        r64 = b64 - op64(x)
-        # adaptive inner tolerance: the pass only has to shrink the true
-        # residual from rel to tol (x4 safety); pass 1 clips to inner_tol
-        tol_k = torch.clamp(0.25 * tol / torch.clamp(rel, max=1.0),
-                            inner_tol, 0.05)
-        res = jacobi_pcg(op32, r64.to(f32), diag32,
-                         torch.zeros_like(r64, dtype=f32), tol=tol_k,
-                         maxiter=maxiter)
-        x = x + res.phi.to(f64)
-        rel = torch.sqrt(torch.sum((b64 - op64(x)) ** 2)) / bden
-        total_it += int(res.iterations)
-        k += 1
-    return SolveResult(phi=_nodes(x, scase.grid_index),
-                       iterations=torch.tensor(total_it), residual=rel,
-                       converged=rel <= tol)
+    x, rel, it = refine_lanes(
+        op64, b64, torch.where(scase.free, 0.0, sc64.dirichlet),
+        jacobi_inner(op32, diag32, maxiter), tol=tol, inner_tol=inner_tol,
+        max_refinements=max_refinements, lanes=False)
+    return SolveResult(phi=_nodes(x, scase.grid_index), iterations=it,
+                       residual=rel, converged=rel <= tol)
 
 
 def _certified_cg(op, b, M, x0, *, tol, maxiter, lane_dim=0):
@@ -289,3 +383,104 @@ def _batched_solve_fused_lminor(scase: StencilCase, sigma_tables, *, tol,
     rel = red(r) / torch.where(bnorm > 0, bnorm, 1.0)
     return SolveResult(phi=x.reshape(-1, L)[scase.grid_index].T,
                        iterations=k, residual=rel, converged=rel <= tol)
+
+
+# ── Geometry batches: one operator per lane (the 4-D stencil_spmv) ─────
+
+
+def _lane_red(a):
+    return torch.sqrt(torch.sum(a * a, dim=(1, 2, 3)))
+
+
+def _lane_x0(scase, shape, dtype):
+    """Lane-stacked start: the lifted Dirichlet values, 0 elsewhere."""
+    return torch.where(scase.free, 0.0, scase.dirichlet.to(dtype)).expand(
+        shape).clone()
+
+
+def _lane_solve(scase, sigma_tables, coeff=None, *, tol,
+                maxiter) -> SolveResult:
+    """Jacobi-PCG of S lane systems (_operator with a lane axis) in their
+    dtype, certified on each lane's TRUE residual (_certified_cg); phi
+    (S, len(grid_index))."""
+    op, diag, b_eff = _operator(scase, sigma_tables, coeff)
+    minv = torch.where(diag > 0, 1.0 / diag, 1.0)
+    x, r, k = _certified_cg(op, b_eff, lambda v: minv * v,
+                            _lane_x0(scase, b_eff.shape, b_eff.dtype),
+                            tol=tol, maxiter=maxiter)
+    bnorm = _lane_red(b_eff)
+    rel = _lane_red(r) / torch.where(bnorm > 0, bnorm, 1.0)
+    return SolveResult(phi=x.reshape(x.shape[0], -1)[:, scase.grid_index],
+                       iterations=k, residual=rel, converged=rel <= tol)
+
+
+def _lane_solve_refined(scase, sigma_tables, coeff=None, *, tol, inner_tol,
+                        maxiter, max_refinements) -> SolveResult:
+    """S lane systems refined to a TRUE f64 residual (solve.refine_lanes):
+    per-lane f64 master applies, f32 Jacobi-PCG passes with per-lane
+    inner tolerances, certified lanes frozen.  phi (S, len(grid_index))
+    in f64."""
+    f32, f64 = torch.float32, torch.float64
+    c64 = None if coeff is None else coeff.to(f64)
+    c32 = None if coeff is None else coeff.to(f32)
+    op64, _, b64 = _operator(scase.astype(f64), sigma_tables.to(f64), c64)
+    op32, diag32, _ = _operator(scase.astype(f32), sigma_tables.to(f32),
+                                c32)
+    minv = torch.where(diag32 > 0, 1.0 / diag32, 1.0)
+
+    def inner(r32, tol_k):
+        dx, _, it = batched_cg(op32, r32, lambda v: minv * v,
+                               torch.zeros_like(r32), tol=tol_k,
+                               maxiter=maxiter)
+        return dx, it
+
+    x, rel, it = refine_lanes(op64, b64, _lane_x0(scase, b64.shape, f64),
+                              inner, tol=tol, inner_tol=inner_tol,
+                              max_refinements=max_refinements)
+    return SolveResult(phi=x.reshape(x.shape[0], -1)[:, scase.grid_index],
+                       iterations=it, residual=rel, converged=rel <= tol)
+
+
+def batched_geometry_solve(scase: StencilCase, coeff_stack, sigma_tables,
+                           *, tol=1e-8, maxiter=10_000) -> SolveResult:
+    """A geometry batch on one lattice with shared BCs: coeff_stack (S, B,
+    27, X, Y, Z) per-lane coefficient stacks (e.g. fat thicknesses that
+    move cells between bodies), sigma_tables (S, T).  Jacobi-PCG in the
+    stack's dtype; each lane's residual is its TRUE one.  phi (S, N) in
+    mesh node order.  The step03 app runs only the _refined form
+    (parallel/geometry_sweep.solve_t_fat_group)."""
+    return _lane_solve(scase, sigma_tables, coeff_stack, tol=tol,
+                       maxiter=maxiter)
+
+
+def batched_geometry_solve_refined(scase: StencilCase, coeff_stack,
+                                   sigma_tables, *, tol=1e-8,
+                                   inner_tol=1e-6, maxiter=10_000,
+                                   max_refinements=6) -> SolveResult:
+    """batched_geometry_solve at a certified TRUE f64 residual (f32 inner
+    Jacobi-PCG, f64 master applies, frozen lanes)."""
+    return _lane_solve_refined(scase, sigma_tables, coeff_stack, tol=tol,
+                               inner_tol=inner_tol, maxiter=maxiter,
+                               max_refinements=max_refinements)
+
+
+def batched_case_solve(stacked: StencilCase, *, tol=1e-8,
+                       maxiter=10_000) -> SolveResult:
+    """A geometry batch of whole cases padded onto one grid
+    (parallel/geometry_sweep.build_padded_group: a leading lane axis on
+    coeff, free, dirichlet, b_neumann and sigma_table): per-lane
+    operators and BCs.  Padded planes are inert, so each lane solves its
+    serial operator.  phi (S, G) in flat padded-grid order.  The Jacobi
+    counterpart of multigrid.batched_group_solve_mg_refined, which the
+    step02 app runs; no app runs this pair."""
+    return _lane_solve(stacked, stacked.sigma_table, tol=tol,
+                       maxiter=maxiter)
+
+
+def batched_case_solve_refined(stacked: StencilCase, *, tol=1e-8,
+                               inner_tol=1e-6, maxiter=10_000,
+                               max_refinements=6) -> SolveResult:
+    """batched_case_solve at a certified TRUE f64 residual."""
+    return _lane_solve_refined(stacked, stacked.sigma_table, tol=tol,
+                               inner_tol=inner_tol, maxiter=maxiter,
+                               max_refinements=max_refinements)

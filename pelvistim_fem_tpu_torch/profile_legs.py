@@ -7,7 +7,12 @@ contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
 hardest contact conductivities), the metric rows of that chunk on the
 361,920-tet element Case, the Jacobi sweep of the reference's 15
 contact levels on the same lattice by both routes (lane-minor, then
-lane-major), and one megatet step03 assemble + solve.  For each it
+lane-major), one megatet step03 assemble + solve, and the geometry
+batches of the apps: the step02 padded group's per-lane hierarchy
+probing and its certified multigrid solve (8 lanes, (8, 67, 29, 8)), and
+one step03 --batch radius group's certified solve (r = 15 mm, 3 lanes,
+(3, 55, 33, 45)); their cases are built before, off the profile.  For
+each it
 prints the wall time, the summed device time of all kernels, their
 ratio (the device busy share; the rest is host time between launches),
 the number of kernel launches, and the kernels that take the most
@@ -115,6 +120,49 @@ def main():
     _profile("megatet", megatet)
     print(f"  iterations {int(out['mega'].iterations)} residual "
           f"{float(out['mega'].residual):.3e}")
+
+    from pelvistim_fem_tpu_torch.models.electrodes import \
+        build_electrode_case
+    from pelvistim_fem_tpu_torch.ops.multigrid import \
+        batched_group_solve_mg_refined
+    from pelvistim_fem_tpu_torch.ops.stencil import \
+        batched_geometry_solve_refined
+    from pelvistim_fem_tpu_torch.parallel.geometry_sweep import (
+        build_padded_group, build_padded_group_hierarchy, build_t_fat_group)
+    from pelvistim_fem_tpu_torch.utils.config import (default_params,
+                                                      get_placement)
+
+    p2 = default_params("step02_electrodes")
+    pl = get_placement(p2)
+    built = [build_electrode_case(p2, shape=s, r=r, dtype=torch.float32,
+                                  with_mesh=True, device=dev)[::2]
+             for s in pl["shapes"] for r in pl["radii_m"]]
+    stacked, _ = build_padded_group(built, device=dev)
+
+    def step02_hierarchy():
+        out["bhier"] = build_padded_group_hierarchy(stacked)
+
+    def step02_batch():
+        out["step02"] = batched_group_solve_mg_refined(
+            stacked, out["bhier"], tol=1e-8, maxiter=30_000)
+
+    _profile("step02_hierarchy", step02_hierarchy)
+    _profile("step02_batch", step02_batch)
+    print(f"  iterations {out['step02'].iterations.tolist()}")
+
+    p3 = default_params("step03_ankle_layers")
+    scase3, stack3, cases3, _ = build_t_fat_group(
+        p3, p3["layers"]["t_fat_sweep"], 0.015, dtype=torch.float64,
+        device=dev)
+    tabs3 = torch.stack([c.sigma_table for c in cases3])
+
+    def step03_group():
+        out["step03"] = batched_geometry_solve_refined(
+            scase3, stack3, tabs3, tol=1e-8, maxiter=30_000)
+
+    _profile("step03_group_r15", step03_group)
+    print(f"  iterations {out['step03'].iterations.tolist()} residual max "
+          f"{float(out['step03'].residual.max()):.3e}")
     return 0
 
 

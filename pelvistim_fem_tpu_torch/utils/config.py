@@ -1,4 +1,4 @@
-"""Parameter sets for the step03/step04 workloads, read from JSON.
+"""Parameter sets of the step01-step04 workloads, read from JSON.
 
 Numpy/stdlib twin of pelvistim_fem_tpu/utils/config.py.  The bundled
 parameter files are JSON copies of the JAX package's YAML files, so this
@@ -47,6 +47,6 @@ _DEFAULTS_DIR = Path(__file__).resolve().parent.parent / "data"
 
 
 def default_params(step: str) -> dict:
-    """Bundled default parameter set for one workload
-    ("step03_ankle_layers" or "step04_pressure")."""
+    """Bundled default parameter set for one workload ("step01_box",
+    "step02_electrodes", "step03_ankle_layers" or "step04_pressure")."""
     return load_params(_DEFAULTS_DIR / f"{step}.json")

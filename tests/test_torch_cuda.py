@@ -228,3 +228,63 @@ def test_metric_rows_on_card_match_cpu(dev):
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-5, equal_nan=True,
                                            err_msg=k)
+
+
+# Kernel 1's lane axis: S lanes, each its own stencil, in one launch; S = 1
+# and grids whose point count is no multiple of a block's 256 points.
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S,shape", [(1, (8, 7, 6)), (3, (9, 7, 5)),
+                                     (8, (20, 13, 9)), (5, (31, 16, 8))])
+def test_stencil_kernel_lanes_match_twin(dev, dtype, S, shape):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S)
+    x = _rand(rng, (S,) + shape, dt, dev)
+    C = _rand(rng, (S, 27) + shape, dt, dev)
+    y = sk.stencil_spmv_cuda(x, C)
+    torch.testing.assert_close(y, sk.stencil_spmv_plain(x, C),
+                               **(F32 if dtype == "float32" else F64))
+    # lanes never mix: each lane is the 3-D kernel on that lane
+    for s in range(S):
+        assert torch.equal(y[s], sk.stencil_spmv_cuda(x[s].contiguous(),
+                                                      C[s].contiguous()))
+
+
+def test_stencil_kernel_lanes_count_and_refuse(dev):
+    sk.reset_launches()
+    x = torch.ones((3, 4, 3, 3), device=dev)
+    sk.stencil_spmv(x, torch.ones((3, 27, 4, 3, 3), device=dev))
+    assert sk.LAUNCHES["stencil_spmv_cuda"] == 1
+    with pytest.raises(ValueError):      # a shared 4-D stencil
+        sk.stencil_spmv_cuda(x, torch.ones((27, 4, 3, 3), device=dev))
+    with pytest.raises(ValueError):      # lane counts differ
+        sk.stencil_spmv_cuda(x, torch.ones((2, 27, 4, 3, 3), device=dev))
+    with pytest.raises(RuntimeError):    # more lanes than gridDim.y takes
+        sk.stencil_spmv_cuda(torch.ones((65536, 1, 1, 1), device=dev),
+                             torch.ones((65536, 27, 1, 1, 1), device=dev))
+    assert sk.LAUNCHES["stencil_spmv_cuda"] == 1
+
+
+def test_group_mg_solve_on_card_matches_cpu(dev):
+    """The step02 --quick padded group: card against CPU, both certified,
+    the same iterations within 2 and phi within 1e-6 max|phi|."""
+    from pelvistim_fem_tpu_torch.models.electrodes import \
+        build_electrode_case
+    from pelvistim_fem_tpu_torch.ops.multigrid import \
+        batched_group_solve_mg_refined
+    from pelvistim_fem_tpu_torch.parallel.geometry_sweep import (
+        build_padded_group, build_padded_group_hierarchy)
+    out = {}
+    for d in ("cpu", dev):
+        built = [build_electrode_case(shape=s, r=0.01, with_mesh=True,
+                                      device=d)[::2]
+                 for s in ("circle", "square")]
+        stacked, _ = build_padded_group(built, device=d)
+        r = batched_group_solve_mg_refined(
+            stacked, build_padded_group_hierarchy(stacked), tol=1e-8,
+            maxiter=30_000)
+        assert bool(r.converged.all()) and float(r.residual.max()) <= 1e-8
+        out[str(d)] = r
+    g, c = out[str(dev)], out["cpu"]
+    assert int((g.iterations.cpu() - c.iterations).abs().max()) <= 2
+    scale = float(c.phi.abs().max())
+    assert float((g.phi.cpu() - c.phi).abs().max()) <= 1e-6 * scale

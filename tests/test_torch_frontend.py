@@ -45,7 +45,8 @@ def _assert_specs_equal(a, b):
             assert x == y, f.name
 
 
-@pytest.mark.parametrize("step", ["step03_ankle_layers", "step04_pressure"])
+@pytest.mark.parametrize("step", ["step01_box", "step02_electrodes",
+                                  "step03_ankle_layers", "step04_pressure"])
 def test_json_params_equal_yaml(step):
     path = ROOT / "pelvistim_fem_tpu" / "data" / f"{step}.yaml"
     with open(path) as f:
