@@ -50,11 +50,24 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 radius groups of 3 fat thicknesses, each one certified
                 lane-stacked Jacobi solve (kernel 1 with a lane axis);
                 lanes and rows against the JAX package's anchors
+ 12. step04     the pressure app with --thermal --nonlinear at its
+                defaults: 15 contact levels on (55, 31, 19), 31,052
+                nodes, 167,104 tets; the certified linear sweep (kernel 2),
+                the f32 Pennes lanes and heating course, and the 15
+                sigma_skin(|E|) fixed points on the lattice (kernel 1 in
+                f64 and f32 at every level, kernel 2 probing the frozen
+                V-cycle at one body); lanes, rows, temperatures, t95 and
+                the nonlinear columns against the JAX package's anchors;
+                walls and launches per app phase
+ 13. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
+                stencil (solve_bioheat_stencil, kernel 1) against the
+                element path (solve_bioheat): iterations within 3, T
+                within 1e-8 degC
 
 The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
-each of the paths 4-11 and read after it; each path must have launched
+each of the paths 4-13 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape), and
 every kernel must have run.  Every (kernel, dtype, shapes) the paths launched is counted
 (`launches_by_shape` in the kernels line), and each that phase 3 did not
@@ -156,6 +169,88 @@ STEP03_GROUPS = {
                                (22.177, 0.00493904, 23.9565, 27.206113),
                                (22.807, 0.004939, 70.3306, 27.577522)]),
 }
+# step04 --thermal --nonlinear at the app's defaults, against the JAX
+# package's run of the same app (dev/torch_port_anchors.py, step04): the
+# lattice; each lane's MG iterations inside the reference's own envelope
+# (its least and largest count over its vmapped and fused sweeps of the
+# tables and of the tables moved by +-1 and +-2 f32 units in the last
+# place: 1 ulp moves the reference's lane 15 from 48 to 42-56, so a
+# single count is no tighter anchor) and the lanes' total within 3% of
+# the anchors' 508 (tighter than rounding alone keeps it: the
+# reference's ten sweeps total 445-595; a regressed hierarchy raises
+# every lane's count at once); and per level the row's
+# STEP04_KEYS (rtol 1e-5 plus one unit of the row's rounding; flux_err
+# atol 1e-5), dT_skin_max_C and dT_max_C (2e-4 degC: f32 solves at 3e-6,
+# each good to ~1e-4), compliance_V_nl and skin_sigma_rise (rtol 1e-5).
+# The reference's vmapped and fused sweeps differ in these rows by at
+# most 1.8e-6 relative (roi_mean_E), inside the bounds.  Picard passes and
+# inner iterations follow rounding (the secant fixed point is chaotic) and
+# are printed beside the anchors, not held.
+STEP04_GRID, STEP04_NODES, STEP04_TETS = (55, 31, 19), 31_052, 167_104
+STEP04_ITERS = [32, 31, 27, 26, 26, 28, 29, 29, 31, 33, 35, 42, 45, 46, 48]
+STEP04_ITERS_LO = [30, 26, 25, 25, 25, 25, 24, 24, 26, 27, 30, 36, 39, 40,
+                   42]
+STEP04_ITERS_HI = [49, 41, 37, 35, 35, 32, 33, 33, 34, 35, 37, 43, 46, 49,
+                   56]
+STEP04_ITERS_TOTALS = [508, 507, 499, 482, 595, 594, 445, 459, 546, 549]
+STEP04_TOTAL_RTOL = 0.03
+STEP04_PICARD = [158, 139, 162, 133, 138, 138, 135, 147, 138, 148, 145, 149,
+                 136, 132, 149]
+STEP04_INNER = [1971, 1810, 1858, 1754, 1800, 1840, 1786, 1863, 1843, 1944,
+                1987, 2196, 2172, 2472, 2867]
+STEP04_KEYS = {"compliance_V": 3, "contact_impedance_ohm": 1,
+               "roi_mean_E": 4, "charge_density_mC_cm2": 6,
+               "total_current_A": 8, "peak_J_skin_no_elec": 6}
+STEP04_COLS = tuple(STEP04_KEYS) + ("flux_err", "dT_skin_max_C", "dT_max_C",
+                                    "compliance_V_nl", "skin_sigma_rise")
+STEP04_T95 = 1.0
+STEP04_ROWS = {
+    "p01": (356.527, 72297.0, 55.3465, 0.000344, 0.00493143, 17.209166,
+            0.000321, 0.0951242446899414, 0.0986480712890625,
+            325.3525544457849, 1.7907927177361385),
+    "p02": (199.908, 40536.5, 55.322, 0.000358, 0.00493154, 17.878767,
+            3.4e-05, 0.053338050842285156, 0.054988861083984375,
+            168.83357234638495, 1.7912842306528929),
+    "p03": (125.604, 25468.5, 55.2779, 0.000395, 0.00493174, 19.737917,
+            0.000654, 0.03352546691894531, 0.034290313720703125,
+            94.68669219247438, 1.7921299678550902),
+    "p04": (86.453, 17528.8, 55.196, 0.000454, 0.00493206, 22.679422,
+            0.001716, 0.02309894561767578, 0.023403167724609375,
+            55.77164038776078, 1.7936059902489356),
+    "p05": (64.98, 13173.7, 55.0371, 0.000541, 0.00493258, 27.066753,
+            0.003411, 0.017401695251464844, 0.017513275146484375,
+            34.627228676875696, 1.7961711772717417),
+    "p06": (53.886, 10923.0, 54.7544, 0.000647, 0.00493326, 32.359322,
+            0.005567, 0.014430046081542969, 0.014499664306640625,
+            23.905440013057262, 1.8000076087341819),
+    "p07": (47.779, 9683.6, 54.2531, 0.000759, 0.00493401, 37.95224,
+            0.008042, 0.012719154357910156, 0.012760162353515625,
+            18.18212325165249, 1.8053387068127342),
+    "p08": (44.459, 9009.5, 53.4619, 0.000864, 0.00493473, 43.20652,
+            0.010608, 0.011606216430664062, 0.0116424560546875,
+            15.207031755308305, 1.8116682647066713),
+    "p09": (42.565, 8624.1, 52.3639, 0.000992, 0.00493563, 49.622498,
+            0.013207, 0.010725021362304688, 0.010776519775390625,
+            13.610564423636113, 1.8185266571624905),
+    "p10": (41.454, 8396.2, 51.1122, 0.001121, 0.00493728, 56.037598,
+            0.015564, 0.009968757629394531, 0.010005950927734375,
+            12.74128346876375, 1.825470584588628),
+    "p11": (40.787, 8256.4, 49.9503, 0.001236, 0.00494009, 61.792286,
+            0.017314, 0.009352684020996094, 0.009387969970703125,
+            12.25142209975408, 1.83217306956729),
+    "p12": (40.389, 8169.6, 49.0563, 0.001324, 0.00494384, 66.219604,
+            0.01828, 0.008913993835449219, 0.008941650390625,
+            11.964746248025806, 1.838033791931725),
+    "p13": (40.159, 8116.7, 48.4598, 0.001409, 0.00494765, 69.176369,
+            0.01864, 0.008632659912109375, 0.008655548095703125,
+            11.791756134442794, 1.8424232956470612),
+    "p14": (40.029, 8085.7, 48.0994, 0.001511, 0.00495064, 70.95565,
+            0.018708, 0.008469581604003906, 0.00848388671875,
+            11.687017516010537, 1.8451911859798684),
+    "p15": (39.959, 8068.0, 47.8951, 0.001572, 0.00495274, 71.957527,
+            0.018659, 0.008379936218261719, 0.008403778076171875,
+            11.62508460122992, 1.8467064869351764),
+}
 # kernel 1 with a lane axis: the two paths' fine-level shapes, timed, S = 1
 # at the megatet grid, timed against the 3-D call, and lane counts over
 # grids that end mid-block
@@ -234,8 +329,10 @@ def phase_parity(dev):
             results[(name, dn, shape)] = (err, ms, pms, shape, call)
         log(line)
 
-    single = [(8, 7, 6), (20, 13, 9), (31, 16, 8), SWEEP_GRID,
-              MEGATET_GRID]
+    # kernel 1 timed at the megatet grid and at the step04 app's lattice
+    # (the nonlinear chain's fine level, f32 and f64)
+    timed_single = [MEGATET_GRID, STEP04_GRID]
+    single = [(8, 7, 6), (20, 13, 9), (31, 16, 8), SWEEP_GRID] + timed_single
     # the batched kernels: tiles cut by the grid's end (G not a multiple
     # of the points per block), lane counts that fill no lane group or
     # block, 1 and 8 bodies, and the paths' shapes
@@ -248,7 +345,7 @@ def phase_parity(dev):
     lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
     for dn in ("float32", "float64"):
         for shape in single:
-            run("stencil_spmv_cuda", dn, shape, shape == MEGATET_GRID)
+            run("stencil_spmv_cuda", dn, shape, shape in timed_single)
         for shape in lanes:
             run("stencil_spmv_cuda", dn, shape, shape in timed_lanes)
         for L, B, shape in batched:
@@ -816,6 +913,155 @@ def phase_step03(dev, gpu, outdir):
     return dict(wall_s=wall)
 
 
+def phase_step04(dev, gpu, outdir):
+    """apps/run_step04 --thermal --nonlinear at its defaults on the card:
+    lanes, rows, temperatures, t95 and the nonlinear columns against the
+    JAX package's anchors; walls and launches per app phase."""
+    import torch
+    from pelvistim_fem_tpu_torch.apps import run_step04
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    from pelvistim_fem_tpu_torch.utils import timing
+
+    # launches per app phase: each PhaseTimer phase's launch count delta
+    per_phase = collections.defaultdict(collections.Counter)
+    original = timing.PhaseTimer.phase
+
+    @contextlib.contextmanager
+    def counted(self, name):
+        before = dict(sk.LAUNCHES)
+        with original(self, name):
+            yield
+        per_phase[name].update({k: n - before[k]
+                                for k, n in sk.LAUNCHES.items()})
+
+    timing.PhaseTimer.phase = counted
+    try:
+        out, wall, text = run_app(run_step04, [
+            "--thermal", "--nonlinear", "--device", dev, "--outdir",
+            str(outdir / "step04")])
+    finally:
+        timing.PhaseTimer.phase = original
+    rows, lin = out["rows"], out["solve"]
+    if [r["pressure_label"] for r in rows] != list(STEP04_ROWS):
+        raise AssertionError("step04: rows "
+                             f"{[r['pressure_label'] for r in rows]}")
+    build = [ln for ln in text.splitlines() if "spec+assemble" in ln][0]
+    if f"{STEP04_NODES} nodes, {STEP04_TETS} tets" not in build:
+        raise AssertionError(f"step04: {build.strip()}")
+    it = lin.iterations.cpu().numpy()
+    res = lin.residual.cpu().numpy()
+    if not bool(lin.converged.all()) or res.max() > TOL or \
+            not bool(torch.isfinite(lin.phi).all()) or \
+            tuple(lin.phi.shape) != (len(STEP04_ROWS), STEP04_NODES):
+        raise AssertionError(f"step04: linear residuals {res.tolist()}")
+    if (it < np.array(STEP04_ITERS_LO)).any() or \
+            (it > np.array(STEP04_ITERS_HI)).any():
+        raise AssertionError(f"step04: iterations {it.tolist()} outside the "
+                             f"anchors' envelope {STEP04_ITERS_LO} .. "
+                             f"{STEP04_ITERS_HI}")
+    total, want_total = int(it.sum()), sum(STEP04_ITERS)
+    if abs(total - want_total) > STEP04_TOTAL_RTOL * want_total:
+        raise AssertionError(f"step04: {total} MG iterations in all against "
+                             f"the anchors' {want_total}")
+    off = [(i + 1, int(n), a) for i, (n, a) in enumerate(zip(it,
+                                                             STEP04_ITERS))
+           if abs(int(n) - a) > 2]
+    worst = dict.fromkeys(STEP04_COLS, 0.0)
+    for row in rows:
+        for key, want in zip(STEP04_COLS, STEP04_ROWS[row["pressure_label"]]):
+            got = row[key]
+            if key in STEP04_KEYS:
+                bound = 1e-5 * abs(want) + 1.001 * 10.0 ** -STEP04_KEYS[key]
+            else:
+                bound = {"flux_err": 1e-5, "dT_skin_max_C": 2e-4,
+                         "dT_max_C": 2e-4}.get(key, 1e-5 * abs(want))
+            d = abs(got - want)
+            if not d <= bound:
+                raise AssertionError(f"step04 {row['pressure_label']}: {key} "
+                                     f"{got!r} against the anchor {want!r}")
+            worst[key] = max(worst[key], d if key in (
+                "flux_err", "dT_skin_max_C", "dT_max_C") else d / abs(want))
+    if out["t95"] != STEP04_T95:
+        raise AssertionError(f"step04: t95 {out['t95']} min against the "
+                             f"anchor {STEP04_T95}")
+    nl = out["nonlinear"]
+    nl_res = np.array([float(r.residual) for r in nl])
+    if len(nl) != len(rows) or not all(bool(r.converged) for r in nl) or \
+            nl_res.max() > TOL:
+        raise AssertionError("step04: nonlinear lanes "
+                             f"{[bool(r.converged) for r in nl]}, residuals "
+                             f"{nl_res.tolist()}")
+    picard = [int(r.picard_iters) for r in nl]
+    inner = [int(r.inner_iters) for r in nl]
+    log(f"step04: {len(rows)}/{len(rows)} linear lanes certified, max true "
+        f"residual {res.max():.3e}; MG iterations {it.tolist()} (anchors "
+        f"{STEP04_ITERS}, envelope {STEP04_ITERS_LO} .. {STEP04_ITERS_HI}), "
+        f"{total} in all (anchors {want_total}, the reference's sweeps "
+        f"{STEP04_ITERS_TOTALS}); lanes more than 2 off their anchor "
+        f"(lane, count, anchor): {off}")
+    log("step04: rows within " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()) + " of the anchors "
+        "(flux_err and the dT columns absolute, the rest relative); t95 "
+        f"{out['t95']:g} min, steady skin rise {out['rise']:.6f} degC; "
+        f"Pennes iterations {out['thermal'].iterations.tolist()}")
+    log(f"step04: {len(nl)}/{len(nl)} nonlinear lanes converged, max "
+        f"certified residual {nl_res.max():.3e}; Picard passes {picard} "
+        f"(anchors "
+        f"{STEP04_PICARD}); inner iterations {inner} (anchors "
+        f"{STEP04_INNER})")
+    log(f"step04: app wall {wall:.4f} s on {gpu}; phases " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in out["phases"].items()))
+    for name, counts in per_phase.items():
+        log(f"launches step04 {name}: {dict(counts)}")
+    return dict(wall_s=wall, phases=out["phases"], picard=picard)
+
+
+def phase_bioheat_stencil(dev, gpu):
+    """On the step04 app's mesh in f64, the Pennes solve on the stencil
+    (kernel 1) against the element path: iterations within 3, T within
+    1e-8 degC (the JAX package's own parity test, at full size)."""
+    import torch
+    from pelvistim_fem_tpu_torch.models.pressure import build_pressure_case
+    from pelvistim_fem_tpu_torch.ops import bioheat as bh
+    from pelvistim_fem_tpu_torch.ops.stencil import build_stencil_case
+    f64 = torch.float64
+    case, _, mesh = build_pressure_case(dtype=f64, with_mesh=True,
+                                        device=dev)
+    sc = build_stencil_case(case, mesh, dtype=f64, device=dev)
+    n_b = case.meta.n_bodies
+    kt, pt = bh.thermal_tables(n_b, {b: 0.3 + 0.05 * b
+                                     for b in range(1, n_b + 1)},
+                               {b: 1000.0 * b for b in range(1, n_b + 1)})
+    b = bh.build_bioheat_case(case, kt, pt)
+    rng = np.random.default_rng(7)
+    q = torch.as_tensor(2e4 * (1 + 0.5 * rng.random(case.n_tets)),
+                        device=dev)
+    t0 = time.perf_counter()
+    ref = bh.solve_bioheat(case, b, q, tol=1e-12)
+    torch.cuda.synchronize()
+    t_elem = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = bh.solve_bioheat_stencil(
+        sc, torch.as_tensor(kt, device=dev), bh.bioheat_grid_data(case, b, sc),
+        bh.lumped_heat_load(case, q), tol=1e-12)
+    torch.cuda.synchronize()
+    t_sten = time.perf_counter() - t0
+    d_it = abs(int(out.iterations) - int(ref.iterations))
+    d_T = float((out.phi - ref.phi).abs().max())
+    if not (bool(ref.converged) and bool(out.converged)) or d_it > 3 or \
+            not d_T <= 1e-8 or sc.grid_shape != STEP04_GRID:
+        raise AssertionError(f"bioheat-stencil: residuals "
+                             f"{float(ref.residual):.3e} / "
+                             f"{float(out.residual):.3e}, iterations "
+                             f"{int(ref.iterations)} / {int(out.iterations)}, "
+                             f"T off by {d_T:.3e} degC")
+    log(f"bioheat-stencil: {sc.grid_shape} f64, element path "
+        f"{int(ref.iterations)} iterations in {t_elem:.4f} s, stencil "
+        f"{int(out.iterations)} in {t_sten:.4f} s, T within {d_T:.3e} degC, "
+        f"max T {float(out.phi.max()):.4f} degC on {gpu}")
+    return dict(wall_s=t_elem + t_sten)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -915,7 +1161,12 @@ def main():
                        phase_step02_serial, dev, gpu, step02)
         step03 = path("step03-batch", ["stencil_spmv_cuda"], phase_step03,
                       dev, gpu, outdir, lanes=True)
+        step04 = path("step04", ["stencil_spmv_cuda",
+                                 "batched_stencil_spmv_cuda"],
+                      phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
+    heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
+                phase_bioheat_stencil, dev, gpu)
 
     restore()
     phase_path_parity(dev, seen, covered)
@@ -951,19 +1202,21 @@ def main():
                              bound_ms=measure.bound(name, shape, alt)[0])))
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
-    # kernel 1 with a lane axis, beside its 3-D row
-    lane_rows = []
+    # kernel 1 at its other timed shapes (lane axis, step04 levels),
+    # beside its main row
+    other_rows = []
     for (name, *key), (err, ms, pms, shape, call) in parity.items():
-        if name != "stencil_spmv_cuda" or len(key) != 2 or len(shape) != 4:
+        if name != "stencil_spmv_cuda" or len(key) != 2 or \
+                shape == MEGATET_GRID:
             continue
         dn = key[0]
         b_ms, b_by = measure.bound(name, shape, dn)
-        lane_rows.append(dict(dtype=dn, shape=str(shape), max_abs_err=err,
-                              ms=ms, plain_ms=pms, call_ms=call,
-                              bound_ms=b_ms, bound_by=b_by))
+        other_rows.append(dict(dtype=dn, shape=str(shape), max_abs_err=err,
+                               ms=ms, plain_ms=pms, call_ms=call,
+                               bound_ms=b_ms, bound_by=b_by))
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
-    kernels[0]["lane_shapes"] = lane_rows
+    kernels[0]["other_shapes"] = other_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s; sweep "
         f"{sweep['wall_s']:.4f} s + extraction {metrics['wall_s']:.4f} s, "
         f"megatet {mega['wall_s']:.4f} s, jacobi lane-minor "
@@ -972,7 +1225,8 @@ def main():
         f"{single['wall_s']:.4f} s; the apps {t_apps:.1f} s: step01 "
         f"{step01['wall_s']:.4f} s, step02 {step02['wall_s']:.4f} s, "
         f"serial check {step02s['wall_s']:.4f} s, step03 --batch "
-        f"{step03['wall_s']:.4f} s")
+        f"{step03['wall_s']:.4f} s, step04 --thermal --nonlinear "
+        f"{step04['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Reference anchors of the step01 / step02 / step03-batch paths, computed
-with the JAX package on the CPU with x64 on (the numbers chip_smoke.py
-holds the PyTorch port's card run against).
+"""Reference anchors of the step01 / step02 / step03-batch / step04 paths,
+computed with the JAX package on the CPU with x64 on (the numbers
+chip_smoke.py holds the PyTorch port's card run against).
 
     python dev/torch_port_anchors.py [--out anchors.json] [--skip-step03]
-                                     [--coarse-step03]
+                                     [--coarse-step03] [--only-step04]
 
 Prints one JSON object:
   step01   the five gate values of apps/run_step01 (box, solve_auto)
@@ -19,6 +19,22 @@ Prints one JSON object:
            per radius group the lattice, per-lane iterations and
            residuals, and the rows' compliance_V, total_current_A,
            roi_mean_E, peak_J_skin_no_elec; wall seconds of each group
+  step04   apps/run_step04 --thermal --nonlinear at its defaults (15
+           contact levels), its own calls step by step: the vmapped
+           linear sweep's per-lane MG iterations and certified residuals;
+           the rows' STEP04_KEYS with the thermal and nonlinear columns;
+           t95 and the dry level's steady skin rise; per level the
+           nonlinear fixed point's Picard passes, inner iterations,
+           certified residual and convergence; as the spread two
+           certified sweeps leave in the rows, the largest relative (for
+           flux_err absolute) difference of each key between the
+           vmapped batched_mg_solve_refined and the fused
+           batched_mg_solve_fused_refined on the same tables; and, as
+           the envelope f32 rounding leaves the MG iteration counts in,
+           each lane's least and largest count of both sweeps over the
+           tables and the tables with every conductivity moved by +-1
+           and +-2 f32 units in the last place (2^-23, 2^-22 relative),
+           with each of those ten sweeps' total over the lanes
 """
 
 import argparse
@@ -45,6 +61,9 @@ STEP02_KEYS = ("peak_J", "mean_J_top", "I_total_A", "I_consistent_A",
                "flux_err")
 STEP03_KEYS = ("compliance_V", "total_current_A", "roi_mean_E",
                "peak_J_skin_no_elec")
+STEP04_KEYS = ("compliance_V", "contact_impedance_ohm", "roi_mean_E",
+               "charge_density_mC_cm2", "total_current_A",
+               "peak_J_skin_no_elec", "flux_err")
 
 
 def step01():
@@ -155,13 +174,159 @@ def step03(coarse):
     return dict(coarse=coarse, groups=groups)
 
 
+def step04():
+    """run_step04 --thermal --nonlinear at its defaults, call by call."""
+    from pelvistim_fem_tpu.mesh import core as mcore
+    from pelvistim_fem_tpu.models.pressure import (build_pressure_case,
+                                                   build_pressure_spec,
+                                                   sigma_tables_for_sweep)
+    from pelvistim_fem_tpu.ops import nonlinear as nl
+    from pelvistim_fem_tpu.ops.bioheat import (
+        DEFAULT_K, DEFAULT_PERFUSION, build_bioheat_case,
+        skin_temperature_metrics, solve_bioheat, solve_bioheat_transient,
+        thermal_tables)
+    from pelvistim_fem_tpu.ops.fields import cell_power_density
+    from pelvistim_fem_tpu.ops.lattice_assembly import (assemble_lattice,
+                                                        spec_device_arrays)
+    from pelvistim_fem_tpu.ops.metrics import (compliance_voltage,
+                                               extract_results_batched)
+    from pelvistim_fem_tpu.ops.multigrid import (
+        batched_mg_solve_fused_refined, batched_mg_solve_refined)
+    from pelvistim_fem_tpu.utils.config import default_params
+    t_start = time.perf_counter()
+    p = default_params("step04_pressure")
+    sweep = p["pressure_sweep"]["sigma_contact_Spm"]
+    labels = p["pressure_sweep"]["labels"]
+    spec, _ = build_pressure_spec(p)
+    scase, hier = assemble_lattice(spec, jnp.float64)
+    tables = sigma_tables_for_sweep(scase, p)
+    case_host, _ = build_pressure_case(p, dtype=jnp.float32,
+                                       to_device=False)
+    case = jax.device_put(case_host)
+
+    def rows_of(phi):
+        return extract_results_batched(
+            case, phi.astype(jnp.float32), p,
+            sigma_tables=tables.astype(jnp.float32),
+            pressure_labels=list(labels), sigma_contacts=list(sweep))
+
+    out = batched_mg_solve_refined(scase, hier, tables, tol=1e-8)
+    results = rows_of(out.phi)
+    fused = batched_mg_solve_fused_refined(scase, hier, tables, tol=1e-8)
+    spread = {}
+    for k in STEP04_KEYS:
+        a = np.array([r[k] for r in results])
+        b = np.array([r[k] for r in rows_of(fused.phi)])
+        d = np.abs(a - b)
+        spread[k] = float((d if k == "flux_err" else d / np.abs(a)).max())
+    counts = [np.asarray(out.iterations), np.asarray(fused.iterations)]
+    for eps in (2.0 ** -23, -2.0 ** -23, 2.0 ** -22, -2.0 ** -22):
+        t = np.asarray(tables).copy()
+        t[:, 1:] *= 1.0 + eps
+        for solve in (batched_mg_solve_refined,
+                      batched_mg_solve_fused_refined):
+            counts.append(np.asarray(solve(scase, hier, jnp.asarray(t),
+                                           tol=1e-8).iterations))
+    counts = np.stack(counts)
+    print(f"step04 linear sweep done, {time.perf_counter() - t_start:.1f} s",
+          file=sys.stderr, flush=True)
+
+    # --thermal, as the app
+    duty = (p["stim"].get("pulse_width_us", 200.0) * 1e-6
+            * p["stim"].get("frequency_Hz", 10.0))
+    kt, pt = thermal_tables(
+        case.meta.n_bodies,
+        {mcore.BODY_MUSCLE: DEFAULT_K["muscle"],
+         mcore.BODY_FAT: DEFAULT_K["fat"],
+         mcore.BODY_SKIN: DEFAULT_K["skin"],
+         mcore.BODY_CONTACT_ACTIVE: DEFAULT_K["contact"],
+         mcore.BODY_CONTACT_RETURN: DEFAULT_K["contact"]},
+        {mcore.BODY_MUSCLE: DEFAULT_PERFUSION["muscle"],
+         mcore.BODY_FAT: DEFAULT_PERFUSION["fat"],
+         mcore.BODY_SKIN: DEFAULT_PERFUSION["skin"],
+         mcore.BODY_CONTACT_ACTIVE: 0.0,
+         mcore.BODY_CONTACT_RETURN: 0.0})
+    bh = build_bioheat_case(case_host, kt, pt)
+    skin_tets = np.asarray(case_host.tets)[
+        np.asarray(case_host.tet_body) == mcore.BODY_SKIN]
+    q = jax.vmap(lambda ph, s: cell_power_density(case, ph, s) * duty)(
+        out.phi.astype(jnp.float32), tables.astype(jnp.float32))
+    q = jnp.concatenate([jnp.zeros_like(q[:1]), q], axis=0)
+    th = jax.vmap(lambda qc: solve_bioheat(case, bh, qc, tol=3e-6))(q)
+    Ts = np.asarray(th.phi)
+    for i, row in enumerate(results):
+        m = skin_temperature_metrics(case_host, Ts[i + 1],
+                                     skin_body=mcore.BODY_SKIN,
+                                     T_ref=Ts[0], skin_tets=skin_tets)
+        row["dT_skin_max_C"] = m["dT_skin_max"]
+        row["dT_max_C"] = m["dT_max"]
+    skin_nodes = np.unique(skin_tets)
+    T_base = jnp.asarray(Ts[0])
+    _, trace = solve_bioheat_transient(
+        case, bh, q[1], T_base, dt_s=60.0, n_steps=45, tol=1e-7,
+        trace_nodes=jnp.asarray(skin_nodes), trace_ref=T_base)
+    trace = np.asarray(trace)
+    rise = float((Ts[1] - Ts[0])[skin_nodes].max())
+    hit = np.nonzero(trace >= 0.95 * rise)[0]
+    t95 = float((hit[0] + 1) * 60.0 / 60.0) if hit.size else None
+    print(f"step04 thermal done, {time.perf_counter() - t_start:.1f} s",
+          file=sys.stderr, flush=True)
+
+    # --nonlinear, as the app
+    case64, _ = build_pressure_case(p, dtype=jnp.float64)
+    amp = np.zeros(case64.meta.n_bodies + 1)
+    e0, w = np.ones_like(amp), np.ones_like(amp)
+    amp[mcore.BODY_SKIN], e0[mcore.BODY_SKIN], w[mcore.BODY_SKIN] = \
+        4.0, 2000.0, 500.0
+    dev64 = spec_device_arrays(spec, jnp.float64)
+    skin6 = np.asarray(spec.body6) == mcore.BODY_SKIN
+    tabs64 = np.asarray(tables, np.float64)
+    lanes = []
+    for i, row in enumerate(results):
+        law = nl.FieldLaw(sigma0=jnp.asarray(tabs64[i]),
+                          amp=jnp.asarray(amp), e0=jnp.asarray(e0),
+                          w=jnp.asarray(w))
+        r = nl.solve_lattice_field_dependent(spec, law, tol=1e-8,
+                                             device_arrays=dev64)
+        row["compliance_V_nl"] = compliance_voltage(case64, r.phi)
+        row["skin_sigma_rise"] = float(
+            np.asarray(r.sigma_e)[skin6].mean()
+            / tabs64[i][mcore.BODY_SKIN])
+        lanes.append(dict(picard_iters=int(r.picard_iters),
+                          inner_iters=int(r.inner_iters),
+                          residual=float(r.residual),
+                          sigma_change=float(r.sigma_change),
+                          converged=bool(r.converged)))
+    keys = STEP04_KEYS + ("dT_skin_max_C", "dT_max_C", "compliance_V_nl",
+                          "skin_sigma_rise")
+    return dict(
+        grid=list(spec.grid_shape), nodes=int(case.n_nodes),
+        tets=int(case.n_tets), levels=len(hier.levels),
+        iterations=np.asarray(out.iterations).tolist(),
+        residual=np.asarray(out.residual).tolist(),
+        converged=bool(np.asarray(out.converged).all()),
+        fused_iterations=np.asarray(fused.iterations).tolist(),
+        iterations_envelope=[counts.min(0).tolist(),
+                             counts.max(0).tolist()],
+        iterations_totals=counts.sum(1).tolist(),
+        rows=[{k: row[k] for k in ("pressure_label",) + keys}
+              for row in results],
+        vmapped_vs_fused=spread, t95_min=t95, skin_rise_C=rise,
+        thermal_iterations=np.asarray(th.iterations).tolist(),
+        nonlinear=lanes, wall_s=time.perf_counter() - t_start)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-step03", action="store_true")
     ap.add_argument("--coarse-step03", action="store_true")
+    ap.add_argument("--only-step04", action="store_true")
     args = ap.parse_args()
-    res = dict(step01=step01(), step02=step02())
+    if args.only_step04:
+        print(json.dumps(dict(step04=step04()), indent=1))
+        return
+    res = dict(step01=step01(), step02=step02(), step04=step04())
     print(f"step01, step02 done", file=sys.stderr, flush=True)
     if not args.skip_step03:
         res["step03"] = step03(args.coarse_step03)

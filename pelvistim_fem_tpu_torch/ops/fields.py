@@ -1,6 +1,6 @@
-"""Post-solve field operators: E = -grad phi, J = -sigma grad phi
-(PyTorch twin of the slice of pelvistim_fem_tpu/ops/fields.py that the
-metrics use).
+"""Post-solve field operators: E = -grad phi, J = -sigma grad phi, the
+Joule power density (PyTorch twin of pelvistim_fem_tpu/ops/fields.py,
+scalar conductivities; the tensor tables come with ops/aniso).
 
 With P1 elements the gradient is constant per tet and comes from the
 same shape-function gradients as the assembly.  Every function takes phi
@@ -34,6 +34,20 @@ def cell_J(case, phi, sigma_table=None):
         sigma_table = case.sigma_table
     sigma_e = sigma_table[..., case.tet_body]             # (..., M)
     return sigma_e[..., None] * cell_E(case, phi)
+
+
+def cell_power_density(case, phi, sigma_table=None):
+    """Dissipated power density p = J . E = sigma |E|^2 per tet [W/m^3]
+    (..., M): the tissue-heating source of the bioheat solves."""
+    if sigma_table is None:
+        sigma_table = case.sigma_table
+    E = cell_E(case, phi)
+    return sigma_table[..., case.tet_body] * (E * E).sum(-1)
+
+
+def cell_centers(case):
+    """(M, 3) tet centroids."""
+    return case.nodes[case.tets].mean(-2)
 
 
 def nodal_average(case, cell_values):

@@ -3,7 +3,8 @@
 pelvistim_fem_tpu/ops/lattice_assembly.py).
 
 From the compact host spec (knot axes, coordinate deviations, per-class
-cell bodies, BC grids) the device builds:
+cell bodies, BC grids) the device builds (and, for sigma(|E|) laws,
+reads |grad phi| per tet back off the grid, `lattice_cell_e_mag`):
 
     coefficients  — per-Kuhn-class closed-form P1 stiffness from cell
                     corner coordinates, accumulated as shifted adds;
@@ -76,8 +77,37 @@ def _kuhn_class_areas(h_axes, coords_dev, c):
     return ns, torch.abs(det)
 
 
+def lattice_cell_e_mag(h_axes, coords_dev, phi_grid):
+    """|grad phi| per (Kuhn class, cell): (6, nx, ny, nz) from a
+    grid-shaped potential (X, Y, Z).  On each tet grad phi = sum_a
+    phi(corner_a) n_a / det; carved cells (zero |det|) give 0.  The
+    lattice form of the element |E| that feeds sigma(|E|) laws."""
+    X, Y, Z = phi_grid.shape
+    nx, ny, nz = X - 1, Y - 1, Z - 1
+
+    def corner_phi(cc):
+        return phi_grid[cc[0]:cc[0] + nx, cc[1]:cc[1] + ny,
+                        cc[2]:cc[2] + nz]
+
+    outs = []
+    for t in range(6):
+        c = _KUHN[t]
+        ns, adet = _kuhn_class_areas(h_axes, coords_dev, c)
+        g = [torch.zeros((nx, ny, nz), dtype=phi_grid.dtype,
+                         device=phi_grid.device) for _ in range(3)]
+        for a in range(4):
+            pa = corner_phi(c[a])
+            for i in range(3):
+                g[i] = g[i] + pa * ns[a][i]
+        mag2 = g[0] ** 2 + g[1] ** 2 + g[2] ** 2
+        inv = torch.where(adet > 0, 1.0 / torch.clamp(adet, min=1e-300),
+                          0.0)
+        outs.append(torch.sqrt(mag2) * inv)
+    return torch.stack(outs)
+
+
 def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
-                  sigma_table=None):
+                  sigma_table=None, sigma_cell=None):
     """Per-body stencil coefficient stacks (B, 27, X, Y, Z) from grid
     geometry, on the device of `coords_dev`.
 
@@ -89,12 +119,19 @@ def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
     sigma_table (n_bodies + 1,) with slot 0 == 0: weight each cell by
     its body's sigma during accumulation and return the pre-combined
     (1, 27, X, Y, Z) stack (single-sigma solves never hold per-body
-    stacks)."""
+    stacks).
+
+    sigma_cell (6, nx, ny, nz): a conductivity per (Kuhn class, cell),
+    for laws where every tet has its own sigma (ops/nonlinear); also
+    pre-combined to (1, 27, X, Y, Z).  The caller zeroes carved cells.
+    Mutually exclusive with sigma_table."""
+    if sigma_table is not None and sigma_cell is not None:
+        raise ValueError("pass sigma_table or sigma_cell, not both")
     dt = coords_dev.dtype
     dev = coords_dev.device
     X, Y, Z = coords_dev.shape[1:]
     nx, ny, nz = X - 1, Y - 1, Z - 1
-    B_out = n_bodies if sigma_table is None else 1
+    B_out = n_bodies if sigma_table is None and sigma_cell is None else 1
 
     per_off = [[] for _ in range(27)]
     bids = torch.arange(1, n_bodies + 1, dtype=torch.int64, device=dev)
@@ -102,7 +139,9 @@ def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
         c = _KUHN[t]
         ns, adet = _kuhn_class_areas(h_axes, coords_dev, c)
         inv6det = torch.where(adet > 0, 1.0 / (6.0 * adet), 0.0)
-        if sigma_table is None:
+        if sigma_cell is not None:
+            weight = sigma_cell[t][None].to(dt)
+        elif sigma_table is None:
             weight = (body6[t][None].to(torch.int64)
                       == bids[:, None, None, None]).to(dt)
         else:

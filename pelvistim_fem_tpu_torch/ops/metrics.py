@@ -1,6 +1,7 @@
 """Post-processed metrics of a solve or a sweep (PyTorch twin of
-pelvistim_fem_tpu/ops/metrics.py: `injected_currents`, the serial
-`extract_results` and the batched `extract_results_batched`).
+pelvistim_fem_tpu/ops/metrics.py: `injected_currents`,
+`compliance_voltage`, the serial `extract_results` and the batched
+`extract_results_batched`).
 
 All lanes' metric scalars come out of one device pass over a lane axis
 (no vmap) and one host read of an (10, L) stack; the lane-independent
@@ -54,6 +55,22 @@ def injected_currents(case, phi, sigma_table=None, *, nodal_J=None):
                 I_active_consistent=ia_c, I_return_consistent=ir_c,
                 flux_err_consistent=(abs(ia_c - ir_c) / denom_c
                                      if denom_c > 0 else np.nan))
+
+
+def compliance_voltage(case, phi):
+    """Mean potential of the active electrode's nodes minus that of the
+    return electrode's (the nodes of the tagged BC faces); NaN without an
+    active patch.  phi (N,), on any device."""
+    from pelvistim_fem_tpu_torch.ops.bc import electrode_node_masks
+    act, ret = electrode_node_masks(case.faces.cpu().numpy(),
+                                    case.face_bcid.cpu().numpy(),
+                                    case.n_nodes)
+    phi_np = phi.cpu().numpy()
+    if not act.any():
+        return np.nan
+    v_act = float(phi_np[act].mean())
+    v_ret = float(phi_np[ret].mean()) if ret.any() else 0.0
+    return v_act - v_ret
 
 
 def extract_results(case, phi, params, *, sigma_table=None,

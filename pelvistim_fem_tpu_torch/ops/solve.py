@@ -128,14 +128,17 @@ def batched_cg(op, b, M, x0, *, tol, maxiter, lane_dim=0):
 
 
 def refine_lanes(op64, b64, x0, inner, *, tol, inner_tol,
-                 max_refinements, lanes=True):
+                 max_refinements, lanes=True, warm=False):
     """Mixed-precision refinement of lane-stacked (L, X, Y, Z) systems, or
     of one system of any shape with lanes=False: each pass solves
     op r = b64 - op64(x) in f32 by `inner(r32, tol_k)` -> (dx,
     iterations), with a per-lane adaptive inner tolerance, and adds dx in
     f64, until every lane's TRUE f64 relative residual meets `tol`.  A
     certified lane freezes (its x, residual and count stop changing).
-    Returns (x, residual, iterations), each (L,) or 0-d."""
+    warm=True measures x0's true residual first (a warm start: a lane
+    already certified takes no pass, and the first pass's inner
+    tolerance follows that residual, not inner_tol).  Returns (x,
+    residual, iterations), each (L,) or 0-d."""
     f64 = torch.float64
     dims = tuple(range(1 if lanes else 0, b64.dim()))
     ex = lambda v: v.reshape(v.shape + (1,) * (b64.dim() - v.dim()))
@@ -143,7 +146,8 @@ def refine_lanes(op64, b64, x0, inner, *, tol, inner_tol,
     bnorm = nrm(b64)
     bden = torch.where(bnorm > 0, bnorm, 1.0)
     x = x0
-    rel = torch.full(bnorm.shape, float("inf"), dtype=f64, device=x.device)
+    rel = (nrm(b64 - op64(x0)) / bden if warm else
+           torch.full(bnorm.shape, float("inf"), dtype=f64, device=x.device))
     total_it = torch.zeros(bnorm.shape, dtype=torch.int64, device=x.device)
     k = 0
     while bool(torch.any(rel > tol)) and k < max_refinements:
@@ -178,7 +182,12 @@ def _case_operator(case, sigma_table):
     projection: op(x) = x on fixed nodes, K x on free ones.  sigma_table
     (T,) is a scalar conductivity per body (the tensor tables of
     anisotropic tissue come with ops/aniso)."""
-    sigvol = sigma_table[case.tet_body] * case.vol
+    return elem_operator(case, sigma_table[case.tet_body])
+
+
+def elem_operator(case, sigma_e):
+    """_case_operator with a conductivity per element, sigma_e (M,)."""
+    sigvol = sigma_e * case.vol
     free = case.free_mask
 
     def raw(x):

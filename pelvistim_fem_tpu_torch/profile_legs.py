@@ -11,7 +11,11 @@ lane-major), one megatet step03 assemble + solve, and the geometry
 batches of the apps: the step02 padded group's per-lane hierarchy
 probing and its certified multigrid solve (8 lanes, (8, 67, 29, 8)), and
 one step03 --batch radius group's certified solve (r = 15 mm, 3 lanes,
-(3, 55, 33, 45)); their cases are built before, off the profile.  For
+(3, 55, 33, 45)); and the step04 app's chains on its own (55, 31, 19)
+lattice: the thermal chain (16 f32 Pennes lanes, then 45 implicit-Euler
+steps of the driest level) and three Picard passes of the driest
+level's sigma_skin(|E|) fixed point (the app's law) with its final
+certified solve.  Their cases are built before, off the profile.  For
 each it
 prints the wall time, the summed device time of all kernels, their
 ratio (the device busy share; the rest is host time between launches),
@@ -163,7 +167,54 @@ def main():
     _profile("step03_group_r15", step03_group)
     print(f"  iterations {out['step03'].iterations.tolist()} residual max "
           f"{float(out['step03'].residual.max()):.3e}")
+
+    _profile_step04(dev)
     return 0
+
+
+def _profile_step04(dev):
+    """The step04 app's thermal chain and three Picard passes of its
+    nonlinear chain, on the app's lattice at its defaults."""
+    from pelvistim_fem_tpu_torch.apps.run_step04 import (
+        skin_law, step04_thermal_tables)
+    from pelvistim_fem_tpu_torch.models.pressure import (
+        build_pressure_case, build_pressure_spec, sigma_tables_for_sweep)
+    from pelvistim_fem_tpu_torch.ops import bioheat as bh
+    from pelvistim_fem_tpu_torch.ops import nonlinear as nl
+    from pelvistim_fem_tpu_torch.ops.fields import cell_power_density
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
+        assemble_lattice, spec_device_arrays)
+    from pelvistim_fem_tpu_torch.ops.multigrid import \
+        batched_mg_solve_fused_refined
+    f32, f64 = torch.float32, torch.float64
+    spec, p = build_pressure_spec()
+    scase, hier = assemble_lattice(spec, f64, device=dev)
+    tables = sigma_tables_for_sweep(scase, p)
+    case, _ = build_pressure_case(p, dtype=f32, device=dev)
+    phi = batched_mg_solve_fused_refined(scase, hier, tables, tol=1e-8).phi
+    b = bh.build_bioheat_case(case, *step04_thermal_tables(
+        case.meta.n_bodies))
+    q = cell_power_density(case, phi.to(f32), tables.to(f32)) * 2e-3
+    q = torch.cat([torch.zeros_like(q[:1]), q])
+
+    def thermal():
+        T = bh.solve_bioheat(case, b, q, tol=3e-6).phi
+        bh.solve_bioheat_transient(case, b, q[1], T[0], dt_s=60.0,
+                                   n_steps=45, tol=1e-7)
+
+    _profile("step04_thermal", thermal)
+
+    law = skin_law(tables[0], amp=4.0, e0=2000.0, w=500.0)
+    dev64 = spec_device_arrays(spec, f64, dev)
+    out = {}
+
+    def nonlinear():
+        out["nl"] = nl.solve_lattice_field_dependent(
+            spec, law, tol=1e-8, max_picard=3, device_arrays=dev64)
+
+    _profile("step04_nonlinear_3_passes", nonlinear)
+    print(f"  inner iterations {int(out['nl'].inner_iters)} residual "
+          f"{float(out['nl'].residual):.3e}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
-"""Human-facing reports of the step03 app: the per-case BC debug report
-and the end-of-run summary (stdlib twin of the slice of
-pelvistim_fem_tpu/utils/report.py that apps/run_step03 uses; the same
-text, line for line).
+"""Human-facing reports of the apps: the per-case BC debug report, the
+end-of-run summary (step03) and the sanity table (step04); stdlib twin
+of pelvistim_fem_tpu/utils/report.py, the same text, line for line.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 from pelvistim_fem_tpu_torch.mesh.core import BC_ACTIVE, BC_RETURN
@@ -97,3 +97,37 @@ def print_run_summary(results, params):
         print(f"    roi_mean_E         : {ex.get('roi_mean_E', nan):.4f} V/m")
         print(f"    efficiency         : {ex.get('efficiency', nan):.4e} m")
     print(f"{'='*60}\n")
+
+
+def print_sanity_table(results, params):
+    """Per-case console table: currents, flux error, deviation from the
+    target current, compliance voltage, ROI layer fractions."""
+    st = get_stim(params)
+    mode = st.get("control_mode", "voltage")
+    I_target = st.get("injected_current_mA", 5.0) * 1e-3
+    nan = float("nan")
+    print(f"\n{'='*100}")
+    print("  SANITY TABLE")
+    print(f"{'='*100}")
+    hdr = (f"  {'case':<22}{'I_act[mA]':>10}{'I_ret[mA]':>10}"
+           f"{'flux_err%':>10}{'dev%':>8}{'compl[V]':>10}"
+           f"{'ROI musc/fat/skin':>20}")
+    print(hdr)
+    print("  " + "-" * 96)
+    for r in results:
+        label = (r.get("pressure_label")
+                 or f"tfat{r.get('t_fat_mm', 0):.0f}mm_r"
+                 f"{r.get('elec_r_mm', 0):.0f}mm")
+        ia = r.get("total_current_A", r.get("I_active_A", nan))
+        ir = r.get("I_return_A", nan)
+        fe = r.get("flux_err", nan)
+        dev = (abs(ia - I_target) / I_target * 100
+               if (mode == "current" and isinstance(ia, float)
+                   and math.isfinite(ia)) else nan)
+        cv = r.get("compliance_V", nan)
+        fr = (f"{r.get('roi_frac_muscle', nan):.2f}/"
+              f"{r.get('roi_frac_fat', nan):.2f}/"
+              f"{r.get('roi_frac_skin', nan):.2f}")
+        print(f"  {label:<22}{ia*1e3:>10.3f}{ir*1e3:>10.3f}"
+              f"{fe*100:>10.2f}{dev:>8.2f}{cv:>10.2f}{fr:>20}")
+    print(f"{'='*100}\n")
