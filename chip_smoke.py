@@ -8,12 +8,18 @@ PyTorch built for CUDA.  It drives the port (pelvistim_fem_tpu_torch)
 through its paths at the benchmark's full sizes, and imports no JAX:
 
   1. device     the card's name and power limit; TF32 pinned off
-  2. build      nvcc compiles the stencil kernels from the checkout;
-                ptxas's registers and spills of the instantiations
+  2. build      nvcc compiles the stencil kernels from the checkout, and
+                two builds of the plane-FMA probe at other block sizes,
+                all at once; ptxas's registers and spills of the
+                instantiations
   3. parity     each CUDA kernel against its plain PyTorch twin, f32 and
-                f64, at small shapes, at the batched kernels' edges (grids
-                that end mid-tile, lane counts that fill no lane group,
-                1 and 8 bodies) and at the paths' shapes; kernel
+                f64 (the bf16-coefficient kernel: f32 x), at small shapes,
+                at the batched kernels' edges (grids that end mid-tile,
+                lane counts that fill no lane group, 1 and 8 bodies), at
+                the probes' edges (X = 1, grids that end mid-block, 3
+                lanes) and at the paths' shapes; the two probes at kernel
+                1's four timed shapes, with kernel 1's time minus the
+                3-row probe's (what the neighbour shifts cost); kernel
                 device times (a CUDA graph of 20 launches, replayed
                 between CUDA events) and call and twin times (CUDA
                 events), medians of 20, each launch on one of enough
@@ -63,11 +69,18 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 stencil (solve_bioheat_stencil, kernel 1) against the
                 element path (solve_bioheat): iterations within 3, T
                 within 1e-8 degC
+ 14. probes     the dev SpMV probes' entry points at full size:
+                spmv_kernels_ab (the megatet stencil assembled in f32:
+                kernel 1, the 3-row plane-FMA probe and the bf16-coefficient
+                kernel, each against its twin, then timed) and
+                roofline_probe (stream and bf16 matmul ceilings, the
+                probe's copy, 27-plane and 3-row forms at three block
+                sizes)
 
 The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
-each of the paths 4-13 and read after it; each path must have launched
+each of the paths 4-14 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape), and
 every kernel must have run.  Every (kernel, dtype, shapes) the paths launched is counted
 (`launches_by_shape` in the kernels line), and each that phase 3 did not
@@ -88,6 +101,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -101,6 +115,8 @@ MEGATET_ITERS = 50
 MEGATET_TETS, MEGATET_GRID = 1_747_398, (112, 68, 41)
 SWEEP_NODES, SWEEP_GRID = 66_228, (89, 41, 19)
 SWEEP_TETS = 361_920
+# the coarsest level of the sweep's hierarchy, where kernel 2 launches most
+SWEEP_COARSEST = (7, 4, 3)
 # The reference's extraction of the same 100-lane sweep (BENCH_r05).
 MAX_FLUX_ERR, MAX_FLUX_ERR_CONSISTENT = 0.00564, 1.86e-7
 TOL = 1e-8
@@ -187,6 +203,9 @@ STEP03_GROUPS = {
 # inner iterations follow rounding (the secant fixed point is chaotic) and
 # are printed beside the anchors, not held.
 STEP04_GRID, STEP04_NODES, STEP04_TETS = (55, 31, 19), 31_052, 167_104
+# the coarser levels of its multigrid hierarchy, where the nonlinear chain
+# launches kernel 1 most
+STEP04_LEVELS = [(28, 16, 10), (15, 9, 6), (8, 5, 4), (5, 3, 3)]
 STEP04_ITERS = [32, 31, 27, 26, 26, 28, 29, 29, 31, 33, 35, 42, 45, 46, 48]
 STEP04_ITERS_LO = [30, 26, 25, 25, 25, 25, 24, 24, 26, 27, 30, 36, 39, 40,
                    42]
@@ -257,12 +276,31 @@ STEP04_ROWS = {
 STEP02_LANES = STEP02_ENVELOPE
 STEP03_LANES = (3, 55, 33, 45)
 
+# the probes: kernel 1's four timed shapes, and edges (X = 1, a grid that
+# ends mid-block, 3 lanes)
+PROBE_TIMED = [MEGATET_GRID, STEP04_GRID, STEP02_LANES, STEP03_LANES]
+PROBE_EDGES = [(1, 7, 6), (9, 7, 5), (3, 9, 7, 5)]
+
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
 REPLACES = {
     "stencil_spmv_cuda": f"{PALLAS}:326, {PALLAS}:75",
     "batched_stencil_spmv_cuda": f"{PALLAS}:410, {PALLAS}:202",
     "batched_stencil_spmv_lminor_cuda": f"{PALLAS}:128",
+    "stencil_spmv_bf16c_cuda": "dev/spmv_kernels_ab.py:68",
+    "plane_fma_cuda": "dev/spmv_kernels_ab.py:107, dev/roofline_probe.py:90",
+}
+# Why an entry's library_ms is null: no one PyTorch call computes it.
+NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
+              "stencil (conv3d shares one kernel across the grid)")
+LIBRARY_NOTE = {
+    "stencil_spmv_cuda": NO_LIBRARY,
+    "batched_stencil_spmv_cuda": NO_LIBRARY,
+    "batched_stencil_spmv_lminor_cuda": NO_LIBRARY,
+    "stencil_spmv_bf16c_cuda": NO_LIBRARY,
+    "plane_fma_cuda": ("no one PyTorch call sums 27 planes times three x "
+                       "rows; the 1-row forms are timed against torch.mul "
+                       "(P = 1) and torch.einsum (P = 27) in other_shapes"),
 }
 
 
@@ -305,7 +343,10 @@ def phase_parity(dev):
 
     covered = set()
 
-    def run(name, dn, shape, timed):
+    def run(name, dn, shape, timed, library=None):
+        """Hold kernel `name` against its twin at `shape`; if `timed`, time
+        kernel, call and twin (and `library`, one PyTorch call of the
+        same function, where given)."""
         dtype = getattr(torch, dn)
         kernel = getattr(sk, name)
         twin = getattr(sk, name.replace("_cuda", "_plain"))
@@ -324,14 +365,18 @@ def phase_parity(dev):
             pms = measure.cuda_ms(lambda: twin(*next(turn)))
             line += (f" kernel {ms:.4f} ms (one call with its wrapper "
                      f"{call:.4f} ms) plain {pms:.4f} ms")
+            lib = None
+            if library is not None:     # device time, as the kernel's
+                lib = measure.kernel_ms(library, copies)
+                line += f" library {lib:.4f} ms"
             # the first timed shape of a (kernel, dtype) is its main row
-            results.setdefault((name, dn), (err, ms, pms, shape, call))
-            results[(name, dn, shape)] = (err, ms, pms, shape, call)
+            results.setdefault((name, dn), (err, ms, pms, shape, call, lib))
+            results[(name, dn, shape)] = (err, ms, pms, shape, call, lib)
         log(line)
 
     # kernel 1 timed at the megatet grid and at the step04 app's lattice
-    # (the nonlinear chain's fine level, f32 and f64)
-    timed_single = [MEGATET_GRID, STEP04_GRID]
+    # and its coarser levels (the nonlinear chain's, f32 and f64)
+    timed_single = [MEGATET_GRID, STEP04_GRID] + STEP04_LEVELS
     single = [(8, 7, 6), (20, 13, 9), (31, 16, 8), SWEEP_GRID] + timed_single
     # the batched kernels: tiles cut by the grid's end (G not a multiple
     # of the points per block), lane counts that fill no lane group or
@@ -339,7 +384,8 @@ def phase_parity(dev):
     edges = [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)), (1, 8, (9, 7, 5)),
              (33, 1, (9, 7, 5)), (40, 3, (9, 7, 6))]
     batched = edges + [(LANES_PER_CHUNK, 5, SWEEP_GRID),
-                       (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
+                       (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID),
+                       (LANES_PER_CHUNK, 5, SWEEP_COARSEST)]
     lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
     timed_lanes = [STEP02_LANES, STEP03_LANES, (1,) + MEGATET_GRID]
     lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
@@ -350,10 +396,29 @@ def phase_parity(dev):
             run("stencil_spmv_cuda", dn, shape, shape in timed_lanes)
         for L, B, shape in batched:
             run("batched_stencil_spmv_cuda", dn, (L, B, shape),
-                L == LANES_PER_CHUNK and shape == SWEEP_GRID)
+                L == LANES_PER_CHUNK)
         for L, B, shape in lminor:
             run("batched_stencil_spmv_lminor_cuda", dn, (L, B, shape),
                 L == JACOBI_LANES)
+        # the probes: 3 x rows at kernel 1's timed shapes (the first is the
+        # main row), the 1-row forms against their one-call equivalents
+        for grid in PROBE_TIMED + PROBE_EDGES:
+            run("plane_fma_cuda", dn, (27, 3, grid), grid in PROBE_TIMED)
+        run("plane_fma_cuda", dn, (1, 1, MEGATET_GRID), True,
+            library=lambda x, C, xrows: torch.mul(C[0], x))
+        run("plane_fma_cuda", dn, (27, 1, MEGATET_GRID), True,
+            library=lambda x, C, xrows: torch.einsum("p...,...->...", C, x))
+        run("plane_fma_cuda", dn, (5, 1, (9, 7, 5)), False)
+        run("plane_fma_cuda", dn, (1, 1, (3, 9, 7, 5)), False)
+        if dn == "float32":             # bf16 coefficients, f32 x and sums
+            for grid in PROBE_TIMED + PROBE_EDGES:
+                run("stencil_spmv_bf16c_cuda", dn, grid, grid in PROBE_TIMED)
+    for dn in ("float32", "float64"):
+        for grid in PROBE_TIMED:
+            k1 = results[("stencil_spmv_cuda", dn, grid)][1]
+            pr = results[("plane_fma_cuda", dn, (27, 3, grid))][1]
+            log(f"kernel 1 minus probe {dn} {grid}: {k1:.4f} - {pr:.4f} = "
+                f"{k1 - pr:.4f} ms (what the neighbour shifts cost)")
     # one-hot neighbour directions: each offset picks the right neighbour
     shape = (6, 5, 4)
     x = rand(shape, torch.float64)
@@ -381,16 +446,21 @@ def phase_parity(dev):
 
 
 def signature(name, args):
-    """(kernel, dtype, input shapes) of one launch."""
+    """(kernel, dtype of the first argument, input shapes and other
+    arguments) of one launch."""
     return (name, str(args[0].dtype).split(".")[-1],
-            tuple(tuple(a.shape) for a in args))
+            tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                  for a in args))
 
 
 def shape_key(name, dn, shapes):
-    """A launch signature as "<dtype> (L, B, (X, Y, Z))", or "<dtype> (X,
-    Y, Z)" for stencil_spmv_cuda (the parity lines' shapes)."""
-    if name == "stencil_spmv_cuda":
+    """A launch signature as "<dtype> (L, B, (X, Y, Z))", "<dtype> (X, Y,
+    Z)" for kernel 1 and its bf16 probe, "<dtype> (P, xrows, (X, Y, Z))"
+    for the plane-FMA probe (the parity lines' shapes)."""
+    if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         return f"{dn} {shapes[0]}"
+    if name == "plane_fma_cuda":
+        return f"{dn} {(shapes[1][-4], shapes[2], shapes[0])}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
     return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
@@ -421,9 +491,12 @@ def phase_path_parity(dev, seen, covered):
     for name, dn, shapes in todo:
         dtype = getattr(torch, dn)
         args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
-                                device=dev) for s in shapes]
-        if name != "stencil_spmv_cuda":        # sigma: positive, as solved
+                                device=dev) if isinstance(s, tuple) else s
+                for s in shapes]
+        if name.startswith("batched"):         # sigma: positive, as solved
             args[2] = args[2].abs()
+        if name == "stencil_spmv_bf16c_cuda":
+            args[1] = args[1].to(torch.bfloat16)
         twin = getattr(sk, name.replace("_cuda", "_plain"))
         y = getattr(sk, name)(*args)
         err = measure.check_close(f"path {name} {dn} {shapes}", y,
@@ -1062,6 +1135,40 @@ def phase_bioheat_stencil(dev, gpu):
     return dict(wall_s=t_elem + t_sten)
 
 
+def phase_probes(dev, gpu):
+    """The dev SpMV probes' entry points at full size: spmv_kernels_ab on
+    the megatet stencil (kernel 1, the 3-row plane-FMA probe and the
+    bf16-coefficient kernel, each held against its twin by the script,
+    then timed) and roofline_probe (the stream and bf16 matmul ceilings,
+    the probe's three forms at three block sizes, each held against its
+    twin)."""
+    from pelvistim_fem_tpu_torch import roofline_probe, spmv_kernels_ab
+    t0 = time.perf_counter()
+    ab = spmv_kernels_ab.main(["--device", dev])
+    rows = ab["rows"]
+    if tuple(ab["grid"]) != MEGATET_GRID or \
+            set(rows) != {"xla", "v0", "vnoop", "vbf16"} or \
+            not all(0 < r["ms"] < float("inf") for r in rows.values()):
+        raise AssertionError(f"probes: A/B on {ab['grid']}, rows {rows}")
+    roof = roofline_probe.main()
+    probe = roof["probe"]
+    if len(probe) != len(roofline_probe.FORMS) * len(
+            roofline_probe.THREADS) or not all(
+            0 < r["ms"] < float("inf") for r in probe) or \
+            not 0 < roof["stream"]["gb_s"] < float("inf") or \
+            not 0 < roof["matmul"]["tflop_s"] < float("inf"):
+        raise AssertionError(f"probes: roofline rows {roof}")
+    wall = time.perf_counter() - t0
+    log(f"probes: A/B on {ab['grid']}: v0 {rows['v0']['ms']:.4f} ms, vnoop "
+        f"{rows['vnoop']['ms']:.4f} ms, vbf16 {rows['vbf16']['ms']:.4f} ms, "
+        f"xla {rows['xla']['ms']:.4f} ms; vbf16 max rel err vs the f32 "
+        f"product {ab['errors']['vbf16']:.2e} (printed, not held); stream "
+        f"{roof['stream']['gb_s']:.0f} GB/s, matmul "
+        f"{roof['matmul']['tflop_s']:.1f} TFLOP/s; wall {wall:.1f} s on "
+        f"{gpu}")
+    return dict(wall_s=wall, ab=ab, roofline=roof)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -1088,10 +1195,15 @@ def main():
     # 2. build
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    from pelvistim_fem_tpu_torch import roofline_probe
     t0 = time.perf_counter()
-    sk.build()
+    with ThreadPoolExecutor(len(roofline_probe.THREADS)) as pool:
+        for f in [pool.submit(sk.build, roofline_probe.probe_flags(t))
+                  for t in roofline_probe.THREADS]:
+            f.result()
     log(f"build: stencil kernels compiled and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s (with the probe at "
+        f"{roofline_probe.THREADS} threads a block, in parallel)")
     usage = sk.ptxas_usage()
     for k, u in usage.items():
         if not k.startswith("batched") or k.split(",")[1] in ("1", "5"):
@@ -1108,7 +1220,7 @@ def main():
     log(f"parity: done in {time.perf_counter() - t0:.1f} s; clocks "
         f"{gpu_query('clocks.sm,clocks.max.sm')}")
 
-    # 4-11. the paths, each counted on its own
+    # 4-14. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
     restore = record_launches(sk, seen)
@@ -1167,6 +1279,8 @@ def main():
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
                 phase_bioheat_stencil, dev, gpu)
+    probes = path("probes", ["stencil_spmv_cuda", "stencil_spmv_bf16c_cuda",
+                             "plane_fma_cuda"], phase_probes, dev, gpu)
 
     restore()
     phase_path_parity(dev, seen, covered)
@@ -1187,36 +1301,42 @@ def main():
                           ("batched_stencil_spmv_cuda", "float32",
                            "float64"),
                           ("batched_stencil_spmv_lminor_cuda", "float64",
-                           "float32")):
-        err, ms, pms, shape, call = parity[(name, dn)]
+                           "float32"),
+                          ("stencil_spmv_bf16c_cuda", "float32", None),
+                          ("plane_fma_cuda", "float32", "float64")):
+        err, ms, pms, shape, call, lib = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
-        a_err, a_ms, a_pms, _, a_call = parity[(name, alt)]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=launches[name], launches_by_shape=by_shape[name],
             max_abs_err=err, ms=ms, plain_ms=pms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, dtype=dn,
-            shape=str(shape), call_ms=call,
-            other_dtype=dict(dtype=alt, max_abs_err=a_err, ms=a_ms,
-                             plain_ms=a_pms, call_ms=a_call,
-                             bound_ms=measure.bound(name, shape, alt)[0])))
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            library_note=LIBRARY_NOTE[name] if lib is None else None,
+            dtype=dn, shape=str(shape), call_ms=call, other_dtype=None)
+        if alt is not None:
+            a_err, a_ms, a_pms, _, a_call, _ = parity[(name, alt)]
+            entry["other_dtype"] = dict(
+                dtype=alt, max_abs_err=a_err, ms=a_ms, plain_ms=a_pms,
+                call_ms=a_call, bound_ms=measure.bound(name, shape, alt)[0])
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
-    # kernel 1 at its other timed shapes (lane axis, step04 levels),
-    # beside its main row
-    other_rows = []
-    for (name, *key), (err, ms, pms, shape, call) in parity.items():
-        if name != "stencil_spmv_cuda" or len(key) != 2 or \
-                shape == MEGATET_GRID:
-            continue
-        dn = key[0]
-        b_ms, b_by = measure.bound(name, shape, dn)
-        other_rows.append(dict(dtype=dn, shape=str(shape), max_abs_err=err,
-                               ms=ms, plain_ms=pms, call_ms=call,
-                               bound_ms=b_ms, bound_by=b_by))
-        log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
-            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
-    kernels[0]["other_shapes"] = other_rows
+        # the kernel at its other timed shapes, beside its main row
+        other_rows = []
+        for (k, *key), (o_err, o_ms, o_pms, o_shape, o_call, o_lib) in \
+                parity.items():
+            if k != name or len(key) != 2 or o_shape == shape:
+                continue
+            o_dn = key[0]
+            ob_ms, ob_by = measure.bound(name, o_shape, o_dn)
+            other_rows.append(dict(
+                dtype=o_dn, shape=str(o_shape), max_abs_err=o_err, ms=o_ms,
+                plain_ms=o_pms, call_ms=o_call, bound_ms=ob_ms,
+                bound_by=ob_by, library_ms=o_lib))
+            log(f"{name} {o_dn} {o_shape}: {o_ms:.4f} ms against a bound of "
+                f"{ob_ms:.4f} ms ({ob_by}), {100 * ob_ms / o_ms:.1f}% of it"
+                + (f"; library {o_lib:.4f} ms" if o_lib is not None else ""))
+        entry["other_shapes"] = other_rows
+        kernels.append(entry)
     log(f"total: {time.perf_counter() - t_start:.1f} s; sweep "
         f"{sweep['wall_s']:.4f} s + extraction {metrics['wall_s']:.4f} s, "
         f"megatet {mega['wall_s']:.4f} s, jacobi lane-minor "
@@ -1226,7 +1346,8 @@ def main():
         f"{step01['wall_s']:.4f} s, step02 {step02['wall_s']:.4f} s, "
         f"serial check {step02s['wall_s']:.4f} s, step03 --batch "
         f"{step03['wall_s']:.4f} s, step04 --thermal --nonlinear "
-        f"{step04['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s")
+        f"{step04['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s; "
+        f"probes {probes['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

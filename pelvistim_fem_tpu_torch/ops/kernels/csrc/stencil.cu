@@ -10,19 +10,28 @@
 //   batched_stencil_spmv_lminor
 //                           <- batched_stencil_spmv_fused_lminor (the same
 //                              function as batched_stencil_spmv, lane-minor)
+// and the Pallas probes of dev/spmv_kernels_ab.py and dev/roofline_probe.py,
+// which no solve runs:
+//   stencil_spmv_bf16c      <- spmv_slice with bf16 coefficient planes
+//                              (kernel 1 reading bf16 C, f32 x and sums)
+//   plane_fma               <- spmv_noop (27 planes, x rows i-1, i, i+1, no
+//                              neighbour shifts) and fma (P planes, one x
+//                              row; P = 1 is a copy)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
 //   Xs (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B)
 //   Xm (X, Y, Z, L), coeff (B, 27, X, Y, Z), sig (B, L)   [lane-minor]
+//   x (S, X, Y, Z), C (S, P, X, Y, Z)    [plane_fma; bf16c: C in bf16]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
-// All three are bound by device-memory bandwidth: per grid point the
-// single kernel reads 27 coefficients and writes one value, doing 27
-// multiply-adds, far below the card's ratio of operations to bytes.  One
-// thread computes one grid point; consecutive threads take consecutive z,
-// so every coefficient plane and x row is read coalesced, and the 27
-// neighbour reads of a warp hit the same few cache lines.
+// All are bound by device-memory bandwidth: per grid point the single
+// kernel reads 27 coefficients and writes one value, doing 27
+// multiply-adds, far below the card's ratio of operations to bytes.  In it
+// and in the probes one thread computes one grid point; consecutive
+// threads take consecutive z, so every coefficient plane and x row is read
+// coalesced, and the 27 neighbour reads of a warp hit the same few cache
+// lines.
 //
 // The two batched kernels compute Y[l] = sum_o (sum_b sig[l, b] C_b[o])
 // * shift_o(X[l]) over B*27 coefficient planes that all L lanes share; an
@@ -68,6 +77,7 @@
 #include <algorithm>
 #include <atomic>
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Tile constants of the batched kernels (B2 lane-major, LM lane-minor),
@@ -122,6 +132,12 @@
 #ifndef PST_LM_MINB_F64
 #define PST_LM_MINB_F64 2
 #endif
+// Threads per block of the plane-FMA probe.  The dev script's Pallas block
+// heights (8, 16 and 56 rows of the packed lattice) size VMEM tiles and
+// have no CUDA meaning; roofline_probe.py sweeps this instead.
+#ifndef PST_PROBE_THREADS
+#define PST_PROBE_THREADS 256
+#endif
 
 namespace {
 
@@ -163,12 +179,23 @@ constexpr int lanes_per_thread(int B, int most) {
   return fit < 1 ? 1 : (fit < most ? fit : most);
 }
 
-// y[s] = sum_o C[s, o] * shift_o(x[s]) for lane s = blockIdx.y: each lane
-// has its own stencil and its own grid; lanes never mix.
+// A coefficient as the accumulator's type: itself, or a bf16 widened
+// exactly to float.
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
-stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
-                    T* __restrict__ y, int X, int Y, int Z) {
+__device__ __forceinline__ T widen(T c) { return c; }
+__device__ __forceinline__ float widen(__nv_bfloat16 c) {
+  return __bfloat162float(c);
+}
+
+// y[s] = sum_o C[s, o] * shift_o(x[s]) for lane s = blockIdx.y: each lane
+// has its own stencil and its own grid; lanes never mix.  The one body of
+// kernel 1 and of its bf16-coefficient probe (TC the coefficient type, T
+// that of x, y and the sums): acc += C_o * x_o for o = 0..26 in order.
+template <typename T, typename TC>
+__device__ __forceinline__ void stencil_point(const T* __restrict__ x,
+                                              const TC* __restrict__ C,
+                                              T* __restrict__ y, int X, int Y,
+                                              int Z) {
   const long long G = (long long)X * Y * Z;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= G) return;
@@ -197,9 +224,64 @@ stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
         if (oky && kk >= 0 && kk < Z) {
           xv = x[((long long)ii * Y + jj) * Z + kk];
         }
-        acc += C[(long long)o * G + p] * xv;
+        acc += widen(C[(long long)o * G + p]) * xv;
       }
     }
+  }
+  y[p] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ C,
+                    T* __restrict__ y, int X, int Y, int Z) {
+  stencil_point<T, T>(x, C, y, X, Y, Z);
+}
+
+// Kernel 1 with bf16 coefficient planes: half its coefficient bytes, each
+// plane widened to float before its multiply-add, f32 sums in kernel 1's
+// order.  A probe of what halving the coefficient traffic buys; no solve
+// runs it.
+__global__ void __launch_bounds__(kBlock)
+stencil_spmv_bf16c_kernel(const float* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ C,
+                          float* __restrict__ y, int X, int Y, int Z) {
+  stencil_point<float, __nv_bfloat16>(x, C, y, X, Y, Z);
+}
+
+// The plane-FMA probe: y[s, i, j, k] = sum_{p < P} C[s, p, i, j, k] *
+// x[s, i + dx(p), j, k], lane s = blockIdx.y.  xrows == 3 (P == 27): dx(p)
+// = p / 9 - 1, kernel 1's offset order, rows outside 0 <= i < X read 0;
+// its result is wrong by design (no j, k shifts), its traffic is kernel
+// 1's: the bytes and multiply-adds of an apply without the shifts.
+// xrows == 1: dx = 0 for any P.  Sums in p order from 0, by fma.  Bound
+// by device memory: P + 2 values moved per point for P multiply-adds.
+template <typename T>
+__global__ void __launch_bounds__(PST_PROBE_THREADS)
+plane_fma_kernel(const T* __restrict__ x, const T* __restrict__ C,
+                 T* __restrict__ y, int P, int xrows, int X, int Y, int Z) {
+  const long long YZ = (long long)Y * Z;
+  const long long G = X * YZ;
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= G) return;
+  x += blockIdx.y * G;
+  C += blockIdx.y * P * G;
+  y += blockIdx.y * G;
+  T acc = T(0);
+  if (xrows == 3) {
+    const int i = (int)(p / YZ);
+    T xv[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int ii = i + d - 1;
+      xv[d] = (ii >= 0 && ii < X) ? x[p + (d - 1) * YZ] : T(0);
+    }
+#pragma unroll
+    for (int o = 0; o < 27; ++o) acc = fma(C[o * G + p], xv[o / 9], acc);
+  } else {
+    const T xv = x[p];
+#pragma unroll 4
+    for (int o = 0; o < P; ++o) acc = fma(C[o * G + p], xv, acc);
   }
   y[p] = acc;
 }
@@ -449,19 +531,38 @@ bool fits_int(long long G, int L, int B) {
 }
 
 // S lanes as gridDim.y (at most 65535).  The kernel indexes in 64 bits,
-// so no grid size is refused for overflowing an int.
-template <typename T>
-int launch_stencil_spmv(const void* x, const void* C, void* y, int S, int X,
-                        int Y, int Z, void* stream) {
+// so no grid size is refused for overflowing an int.  Kernel 1 and its
+// bf16-coefficient probe (TC its coefficient type).
+template <typename T, typename TC, typename Kernel>
+int launch_stencil_spmv(Kernel kernel, const void* x, const void* C, void* y,
+                        int S, int X, int Y, int Z, void* stream) {
   const long long G = (long long)X * Y * Z;
   if (S < 0 || S > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   if (G == 0 || S == 0) return 0;
   const unsigned blocks = (unsigned)((G + kBlock - 1) / kBlock);
-  stencil_spmv_kernel<T>
-      <<<dim3(blocks, S), kBlock, 0, (cudaStream_t)stream>>>(
-          (const T*)x, (const T*)C, (T*)y, X, Y, Z);
+  kernel<<<dim3(blocks, S), kBlock, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const TC*)C, (T*)y, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+// The plane-FMA probe: S lanes as gridDim.y; P >= 1, xrows 1, or 3 with
+// P == 27.
+template <typename T>
+int launch_plane_fma(const void* x, const void* C, void* y, int S, int P,
+                     int xrows, int X, int Y, int Z, void* stream) {
+  const long long G = (long long)X * Y * Z;
+  if (S < 0 || S > 65535 || P < 1 || !(xrows == 1 || xrows == 3) ||
+      (xrows == 3 && P != 27)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (G == 0 || S == 0) return 0;
+  const unsigned blocks =
+      (unsigned)((G + PST_PROBE_THREADS - 1) / PST_PROBE_THREADS);
+  plane_fma_kernel<T>
+      <<<dim3(blocks, S), PST_PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+          (const T*)x, (const T*)C, (T*)y, P, xrows, X, Y, Z);
   return (int)cudaGetLastError();
 }
 
@@ -599,12 +700,30 @@ int pst_max_bodies() { return kMaxBodies; }
 
 int pst_stencil_spmv_f32(const void* x, const void* C, void* y, int S, int X,
                          int Y, int Z, void* stream) {
-  return launch_stencil_spmv<float>(x, C, y, S, X, Y, Z, stream);
+  return launch_stencil_spmv<float, float>(stencil_spmv_kernel<float>, x, C,
+                                           y, S, X, Y, Z, stream);
 }
 
 int pst_stencil_spmv_f64(const void* x, const void* C, void* y, int S, int X,
                          int Y, int Z, void* stream) {
-  return launch_stencil_spmv<double>(x, C, y, S, X, Y, Z, stream);
+  return launch_stencil_spmv<double, double>(stencil_spmv_kernel<double>, x,
+                                             C, y, S, X, Y, Z, stream);
+}
+
+int pst_stencil_spmv_bf16c(const void* x, const void* C, void* y, int S,
+                           int X, int Y, int Z, void* stream) {
+  return launch_stencil_spmv<float, __nv_bfloat16>(
+      stencil_spmv_bf16c_kernel, x, C, y, S, X, Y, Z, stream);
+}
+
+int pst_plane_fma_f32(const void* x, const void* C, void* y, int S, int P,
+                      int xrows, int X, int Y, int Z, void* stream) {
+  return launch_plane_fma<float>(x, C, y, S, P, xrows, X, Y, Z, stream);
+}
+
+int pst_plane_fma_f64(const void* x, const void* C, void* y, int S, int P,
+                      int xrows, int X, int Y, int Z, void* stream) {
+  return launch_plane_fma<double>(x, C, y, S, P, xrows, X, Y, Z, stream);
 }
 
 int pst_batched_stencil_spmv_f32(const void* Xs, const void* coeff,

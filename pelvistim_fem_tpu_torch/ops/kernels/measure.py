@@ -45,13 +45,17 @@ def cuda_ms(fn, reps=20, warmup=10):
 
 
 def input_copies(args):
-    """args and clones of it, enough that using them in turn reads at
-    least ROTATE_BYTES: between two uses of one copy the others evict it
-    from L2, so each launch reads its inputs from HBM, as inside a solve
-    where the CG vectors evict the coefficients."""
-    nbytes = sum(a.numel() * a.element_size() for a in args)
+    """args and clones of its tensors (other arguments kept), enough that
+    using them in turn reads at least ROTATE_BYTES: between two uses of
+    one copy the others evict it from L2, so each launch reads its inputs
+    from HBM, as inside a solve where the CG vectors evict the
+    coefficients."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    nbytes = sum(a.numel() * a.element_size() for a in tensors)
     n = max(2, math.ceil(ROTATE_BYTES / nbytes))
-    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    return [tuple(args)] + [
+        tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        for _ in range(n - 1)]
 
 
 def kernel_ms(kernel, copies, launches=20, reps=20, warmup=10):
@@ -72,24 +76,42 @@ def kernel_ms(kernel, copies, launches=20, reps=20, warmup=10):
     return cuda_ms(graph.replay, reps=reps, warmup=2) / launches
 
 
-def bound(name, shape, dtype):
-    """(bound_ms, bound_by) of one apply: the larger of the bytes it must
-    move (each input read once, the output written once) over the HBM
-    rate and its multiply-adds over the peak rate of its dtype.  shape:
-    (X, Y, Z) or (S, X, Y, Z) (S lanes, each its own stencil) for
-    stencil_spmv_cuda, (L, B, (X, Y, Z)) for the batched kernels, whose
-    per-lane coefficient is a B-term combine (2B - 1 operations) before
-    the multiply-add."""
+def _lanes_points(grid):
+    """(S, G) of a grid (X, Y, Z), S = 1, or (S, X, Y, Z)."""
+    return (grid[0] if len(grid) == 4 else 1), int(np.prod(grid[-3:]))
+
+
+def work(name, shape, dtype):
+    """(bytes, operations) one apply must move and do: each input read
+    once, the output written once; multiply-adds as 2.  shape: (X, Y, Z)
+    or (S, X, Y, Z) (S lanes, each its own stencil) for stencil_spmv_cuda
+    and stencil_spmv_bf16c_cuda (float32 x and y, bf16 coefficients:
+    dtype "float32"), (P, xrows, grid) for plane_fma_cuda (P planes, x
+    and y: P + 2 values a point, P multiply-adds), (L, B, (X, Y, Z)) for
+    the batched kernels, whose per-lane coefficient is a B-term combine
+    (2B - 1 operations) before the multiply-add."""
     es = 4 if dtype == "float32" else 8
     if name == "stencil_spmv_cuda":
-        S = shape[0] if len(shape) == 4 else 1
-        G = int(np.prod(shape[-3:]))
-        nbytes, flops = S * 29 * G * es, S * 2 * 27 * G
-    else:
-        L, B, grid = shape
-        G = int(np.prod(grid))
-        nbytes = (2 * L * G + 27 * B * G + L * B) * es
-        flops = L * G * 27 * (2 * B + 1)
+        S, G = _lanes_points(shape)
+        return S * 29 * G * es, S * 2 * 27 * G
+    if name == "stencil_spmv_bf16c_cuda":
+        S, G = _lanes_points(shape)
+        return S * (27 * 2 + 2 * 4) * G, S * 2 * 27 * G
+    if name == "plane_fma_cuda":
+        P, _, grid = shape
+        S, G = _lanes_points(grid)
+        return (P + 2) * S * G * es, 2 * P * S * G
+    L, B, grid = shape
+    G = int(np.prod(grid))
+    return ((2 * L * G + 27 * B * G + L * B) * es,
+            L * G * 27 * (2 * B + 1))
+
+
+def bound(name, shape, dtype):
+    """(bound_ms, bound_by) of one apply (shape as `work` takes it): the
+    larger of its bytes over the HBM rate and its operations over the
+    peak rate of its dtype."""
+    nbytes, flops = work(name, shape, dtype)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -98,7 +120,9 @@ def bound(name, shape, dtype):
 def check_close(name, y, ref, dtype):
     """f32: rtol 2e-5, atol 1e-5 max|ref|; f64: rtol 1e-12, atol 1e-12
     max|ref| (random 27-term sums: the atol covers entries that cancel
-    to near zero).  Returns the max abs error."""
+    to near zero).  stencil_spmv_bf16c_cuda is held at float32 against
+    its twin fed the same bf16 coefficients.  Returns the max abs
+    error."""
     scale = float(ref.abs().max())
     rtol, atol = (2e-5, 1e-5 * scale) if dtype == torch.float32 else \
         (1e-12, 1e-12 * scale)
@@ -112,16 +136,24 @@ def check_close(name, y, ref, dtype):
 
 
 def kernel_inputs(name, shape, dtype, device, rng):
-    """Random inputs of kernel `name` at `shape` ((X, Y, Z) or (S, X, Y,
-    Z), or (L, B, (X, Y, Z)) for the batched kernels) in its layout; the
-    two batched kernels get one problem from one `rng` state, and sigma
-    is positive, as solved."""
+    """Random arguments of kernel `name` at `shape` (as `bound` takes it)
+    in its layout: bf16 coefficients for stencil_spmv_bf16c_cuda (dtype
+    float32 for x), xrows after x and C for plane_fma_cuda; the two
+    batched kernels get one problem from one `rng` state, and sigma is
+    positive, as solved."""
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
-    if name == "stencil_spmv_cuda":
+    if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         shape = tuple(shape)
-        return rand(shape), rand(shape[:-3] + (27,) + shape[-3:])
+        x, C = rand(shape), rand(shape[:-3] + (27,) + shape[-3:])
+        if name == "stencil_spmv_bf16c_cuda":
+            return x, C.to(torch.bfloat16)
+        return x, C
+    if name == "plane_fma_cuda":
+        P, xrows, grid = shape
+        grid = tuple(grid)
+        return rand(grid), rand(grid[:-3] + (P,) + grid[-3:]), xrows
     L, B, grid = shape
     grid = tuple(grid)
     Xs, coeff = rand((L,) + grid), rand((B, 27) + grid)

@@ -21,6 +21,24 @@ pelvistim_fem_tpu/ops/pallas_stencil.py).
                                        batched_stencil_spmv_fused_lminor
       twin: batched_stencil_spmv_lminor_plain
 
+and the two probes of the dev SpMV A/B scripts, which no solve runs
+(spmv_kernels_ab.py, roofline_probe.py launch them):
+
+  stencil_spmv_bf16c(x, Cb)            y = K x as kernel 1, f32 x and sums,
+                                       coefficients Cb in bf16
+      CUDA: stencil_spmv_bf16c_cuda    replaces spmv_slice's bf16 variant
+                                       (dev/spmv_kernels_ab.py)
+      twin: stencil_spmv_bf16c_plain
+  plane_fma(x, C, xrows)               y = sum_p C[p] * x[row i + dx(p)]:
+                                       xrows 3, 27 planes on rows i-1, i,
+                                       i+1 without neighbour shifts (kernel
+                                       1's traffic); xrows 1, P planes on
+                                       row i (P = 1: a copy)
+      CUDA: plane_fma_cuda             replaces spmv_noop
+                                       (dev/spmv_kernels_ab.py) and fma
+                                       (dev/roofline_probe.py)
+      twin: plane_fma_plain
+
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
 
@@ -57,7 +75,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launch counts of the CUDA wrappers (reset with reset_launches()).
 LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
-            "batched_stencil_spmv_lminor_cuda": 0}
+            "batched_stencil_spmv_lminor_cuda": 0,
+            "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0}
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -85,6 +104,42 @@ def stencil_spmv_plain(x, C):
         y = y + C[..., o, :, :, :] * xp[..., 1 + dx:1 + dx + X,
                                         1 + dy:1 + dy + Y, 1 + dz:1 + dz + Z]
     return y
+
+
+def stencil_spmv_bf16c_plain(x, Cb):
+    """stencil_spmv_plain with bf16 coefficients Cb widened to float32 (a
+    widening is exact, so the twin rounds nothing the kernel does not).
+    x float32, Cb bfloat16; raises on other dtypes."""
+    if x.dtype != torch.float32 or Cb.dtype != torch.bfloat16:
+        raise TypeError(f"stencil_spmv_bf16c_plain: x {x.dtype}, C "
+                        f"{Cb.dtype}; expected float32 x and bfloat16 C")
+    return stencil_spmv_plain(x, Cb.float())
+
+
+def plane_fma_plain(x, C, xrows):
+    """y[..., i, j, k] = sum_{p < P} C[..., p, i, j, k] * x[..., i + dx(p),
+    j, k] for x (X, Y, Z), C (P, X, Y, Z), or S lanes, x (S, X, Y, Z), C
+    (S, P, X, Y, Z); summed in p order from 0.  xrows 3: P = 27, dx(p) =
+    p // 9 - 1 (the offsets' order), rows outside the grid read 0; xrows
+    1: dx = 0."""
+    _probe_form("plane_fma_plain", C.shape[-4], xrows)
+    X = x.shape[-3]
+    y = torch.zeros_like(x)
+    if xrows == 1:
+        for p in range(C.shape[-4]):
+            y = y + C[..., p, :, :, :] * x
+        return y
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+    for p in range(27):
+        dx = p // 9 - 1
+        y = y + C[..., p, :, :, :] * xp[..., 1 + dx:1 + dx + X, :, :]
+    return y
+
+
+def _probe_form(name, P, xrows):
+    if xrows not in (1, 3) or P < 1 or (xrows == 3 and P != 27):
+        raise ValueError(f"{name}: xrows {xrows} with {P} planes (xrows 1 "
+                         "with P >= 1, or 3 with P = 27)")
 
 
 def batched_stencil_spmv_plain(Xs, coeff, sig):
@@ -174,9 +229,13 @@ def build(extra_flags=()) -> ctypes.CDLL:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        for dt in ("f32", "f64"):
+        for dt in ("f32", "f64", "bf16c"):
             fn = getattr(lib, f"pst_stencil_spmv_{dt}")
             fn.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
+            fn.restype = i
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_plane_fma_{dt}")
+            fn.argtypes = [ptr, ptr, ptr, i, i, i, i, i, i, ptr]
             fn.restype = i
             for name in ("batched_stencil_spmv",
                          "batched_stencil_spmv_lminor"):
@@ -192,21 +251,71 @@ def build(extra_flags=()) -> ctypes.CDLL:
 
 
 def ptxas_usage(extra_flags=()) -> dict:
-    """Per kernel instantiation of build(extra_flags) (named like
-    "batched_stencil_spmv_kernel<float,5,4,64>", template arguments in
-    source order): {"registers": n, "spill_bytes": stores + loads} from
-    ptxas -v."""
+    """ptxas -v's report of build(extra_flags), per kernel (parse_ptxas)."""
     build(extra_flags)
-    usage, name = {}, None
     report = _library_path(extra_flags).with_suffix(".ptxas.txt")
-    for line in report.read_text().splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)"
-                      r"I([fd])((?:Li\d+E)*)E", line)
-        if m:
-            args = ["float" if m[2] == "f" else "double",
-                    *re.findall(r"Li(\d+)E", m[3])]
-            name = f"{m[1]}<{','.join(args)}>"
+    return parse_ptxas(report.read_text())
+
+
+_BUILTIN = {"f": "float", "d": "double", "i": "int", "j": "unsigned",
+            "b": "bool"}
+
+
+def _read_ident(s, pos):
+    """(identifier, end) of the length-prefixed identifier at s[pos:]."""
+    m = re.match(r"\d+", s[pos:])
+    if not m:
+        return None, pos
+    start = pos + len(m[0])
+    return s[start:start + int(m[0])], start + int(m[0])
+
+
+def demangle_kernel(mangled):
+    """Readable name of a kernel entry from its Itanium-mangled symbol:
+    the last component of its (possibly nested) name, with its template
+    arguments in source order, e.g.
+    "_ZN12_GLOBAL__N_127batched_stencil_spmv_kernelIfLi5ELi4ELi64EEEv..."
+    -> "batched_stencil_spmv_kernel<float,5,4,64>"; an untemplated entry
+    is its bare name.  Each identifier is read by its length prefix, so
+    names with digits read whole."""
+    pos = 2 + (mangled[2] == "N")          # after "_Z" or "_ZN"
+    name, args = None, []
+    while True:
+        ident, end = _read_ident(mangled, pos)
+        if ident is None:
+            break
+        name, pos = ident, end
+    if mangled.startswith("I", pos):
+        pos += 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            if m := re.match(r"L[a-z](-?\d+)E", mangled[pos:]):
+                args.append(m[1])
+                pos += len(m[0])
+            elif mangled[pos] in _BUILTIN:
+                args.append(_BUILTIN[mangled[pos]])
+                pos += 1
+            else:
+                ident, pos = _read_ident(mangled, pos)
+                if ident is None:
+                    raise ValueError(f"cannot read template arguments of "
+                                     f"{mangled}")
+                args.append(ident)
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def parse_ptxas(text) -> dict:
+    """Per kernel entry of a ptxas -v report (named by demangle_kernel,
+    e.g. "batched_stencil_spmv_kernel<float,5,4,64>"): {"registers": n,
+    "spill_bytes": stores + loads}.  Each "Function properties" and "Used
+    N registers" line is credited to the entry it follows by name; lines
+    of a function that is no entry are dropped."""
+    usage, entries, name = {}, {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = entries[m[1]] = demangle_kernel(m[1])
             usage[name] = {"registers": 0, "spill_bytes": 0}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            name = entries.get(m[1])
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
                                       r"bytes spill loads", line)):
             usage[name]["spill_bytes"] = int(m[1]) + int(m[2])
@@ -218,7 +327,9 @@ def ptxas_usage(extra_flags=()) -> dict:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(name, dtype, device, **tensors):
+def _check(name, dtype, device, allowed=_SUFFIX, **tensors):
+    """Each of `tensors` on `device`, of `dtype` (one of `allowed`),
+    contiguous; raises otherwise."""
     for arg, t in tensors.items():
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{name}: {arg} must lie on {device}, "
@@ -228,22 +339,49 @@ def _check(name, dtype, device, **tensors):
                             f"expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    if dtype not in _SUFFIX:
+    if dtype not in allowed:
         raise TypeError(f"{name}: dtype {dtype} not supported "
-                        "(float32, float64)")
+                        f"({', '.join(str(d) for d in allowed)})")
 
 
-def _dims_single(x, C):
-    """(S, X, Y, Z) of x (X, Y, Z) with C (27, X, Y, Z), S = 1, or of x
-    (S, X, Y, Z) with C (S, 27, X, Y, Z)."""
-    name = "stencil_spmv_cuda"
-    _check(name, x.dtype, x.device, x=x, C=C)
+def _lanes_grid(name, x, C, planes):
+    """(S, X, Y, Z) of x (X, Y, Z) with C (planes, X, Y, Z), S = 1, or of
+    x (S, X, Y, Z) with C (S, planes, X, Y, Z)."""
     lanes = tuple(x.shape[:-3])
     if x.dim() not in (3, 4) or \
-            tuple(C.shape) != lanes + (27,) + tuple(x.shape[-3:]):
+            tuple(C.shape) != lanes + (planes,) + tuple(x.shape[-3:]):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
                          f"C {tuple(C.shape)}")
     return (lanes[0] if lanes else 1,) + tuple(x.shape[-3:])
+
+
+# Per kernel: its arguments checked, then (the tensors, the int arguments
+# of its C entry point after their pointers, that entry point's name).
+def _dims_single(x, C):
+    name = "stencil_spmv_cuda"
+    _check(name, x.dtype, x.device, x=x, C=C)
+    return ((x, C), _lanes_grid(name, x, C, 27),
+            f"pst_stencil_spmv_{_SUFFIX[x.dtype]}")
+
+
+def _dims_bf16c(x, Cb):
+    name = "stencil_spmv_bf16c_cuda"
+    _check(name, torch.float32, x.device, (torch.float32,), x=x)
+    _check(name, torch.bfloat16, x.device, (torch.bfloat16,), C=Cb)
+    return (x, Cb), _lanes_grid(name, x, Cb, 27), "pst_stencil_spmv_bf16c"
+
+
+def _dims_plane_fma(x, C, xrows):
+    name = "plane_fma_cuda"
+    _check(name, x.dtype, x.device, x=x, C=C)
+    if C.dim() != x.dim() + 1:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
+                         f"C {tuple(C.shape)}")
+    P = C.shape[-4]
+    _probe_form(name, P, xrows)
+    S, X, Y, Z = _lanes_grid(name, x, C, P)
+    return ((x, C), (S, P, xrows, X, Y, Z),
+            f"pst_plane_fma_{_SUFFIX[x.dtype]}")
 
 
 def _dims_batched(Xs, coeff, sig):
@@ -256,7 +394,8 @@ def _dims_batched(Xs, coeff, sig):
             or tuple(sig.shape) != (L, B)):
         raise ValueError(f"{name}: shapes Xs {tuple(Xs.shape)}, coeff "
                          f"{tuple(coeff.shape)}, sig {tuple(sig.shape)}")
-    return (L, B) + tuple(Xs.shape[1:])
+    return ((Xs, coeff, sig), (L, B) + tuple(Xs.shape[1:]),
+            f"pst_batched_stencil_spmv_{_SUFFIX[Xs.dtype]}")
 
 
 def _dims_lminor(Xm, coeff, sig):
@@ -268,34 +407,36 @@ def _dims_lminor(Xm, coeff, sig):
             or tuple(sig.shape) != (B, Xm.shape[3])):
         raise ValueError(f"{name}: shapes Xm {tuple(Xm.shape)}, coeff "
                          f"{tuple(coeff.shape)}, sig {tuple(sig.shape)}")
-    return (Xm.shape[3], B) + tuple(Xm.shape[:3])
+    return ((Xm, coeff, sig), (Xm.shape[3], B) + tuple(Xm.shape[:3]),
+            f"pst_batched_stencil_spmv_lminor_{_SUFFIX[Xm.dtype]}")
 
 
 _DIMS = {"stencil_spmv_cuda": _dims_single,
          "batched_stencil_spmv_cuda": _dims_batched,
-         "batched_stencil_spmv_lminor_cuda": _dims_lminor}
+         "batched_stencil_spmv_lminor_cuda": _dims_lminor,
+         "stencil_spmv_bf16c_cuda": _dims_bf16c,
+         "plane_fma_cuda": _dims_plane_fma}
 
 
 def launch(name, *args, extra_flags=()):
-    """Check the CUDA tensors `args` of kernel `name` (a key of LAUNCHES)
-    as its wrapper does, launch the kernel of build(extra_flags) on them
-    and return its output.  Counts nothing: the *_cuda wrappers, which launch
+    """Check the arguments `args` of kernel `name` (a key of LAUNCHES) as
+    its wrapper does, launch the kernel of build(extra_flags) on them and
+    return its output.  Counts nothing: the *_cuda wrappers, which launch
     the default build, count.  The batched kernels take 1..8 bodies and
-    L*G and B*27*G within a 32-bit int, stencil_spmv_cuda at most 65535
-    lanes (it indexes in 64 bits); the launch raises otherwise."""
-    dims = _DIMS[name](*args)
+    L*G and B*27*G within a 32-bit int, kernel 1, its bf16 probe and the
+    plane-FMA probe at most 65535 lanes (they index in 64 bits); the
+    launch raises otherwise."""
+    tensors, dims, entry = _DIMS[name](*args)
     lib = build(extra_flags)
-    if name != "stencil_spmv_cuda" and \
+    if name.startswith("batched") and \
             not 1 <= dims[1] <= lib.pst_max_bodies():
         raise ValueError(f"{name}: {dims[1]} bodies, the kernel takes "
                          f"1..{lib.pst_max_bodies()}")
-    out = torch.empty_like(args[0])
-    fn = getattr(lib, f"pst_{name[:-len('_cuda')]}_"
-                 + _SUFFIX[args[0].dtype])
+    out = torch.empty_like(tensors[0])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), *dims,
-                stream)
+        rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
+                                 out.data_ptr(), *dims, stream)
     if rc != 0:
         msg = lib.pst_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
@@ -329,6 +470,26 @@ def batched_stencil_spmv_lminor_cuda(Xm, coeff, sig):
     return Ym
 
 
+def stencil_spmv_bf16c_cuda(x, Cb):
+    """CUDA kernel for y = K x with bf16 coefficients: x (X, Y, Z) float32,
+    Cb (27, X, Y, Z) bfloat16; or S lanes, x (S, X, Y, Z), Cb (S, 27, X,
+    Y, Z).  Contiguous, on one CUDA device; any other dtype raises (no
+    cast)."""
+    y = launch("stencil_spmv_bf16c_cuda", x, Cb)
+    LAUNCHES["stencil_spmv_bf16c_cuda"] += 1
+    return y
+
+
+def plane_fma_cuda(x, C, xrows):
+    """CUDA kernel of the plane-FMA probe (plane_fma_plain's function): x
+    (X, Y, Z), C (P, X, Y, Z), or S lanes, x (S, X, Y, Z), C (S, P, X, Y,
+    Z); contiguous float32 or float64 on one CUDA device; xrows 1, or 3
+    with P = 27."""
+    y = launch("plane_fma_cuda", x, C, xrows)
+    LAUNCHES["plane_fma_cuda"] += 1
+    return y
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -354,3 +515,19 @@ def batched_stencil_spmv_lminor(Xm, coeff, sig):
     if Xm.is_cuda:
         return batched_stencil_spmv_lminor_cuda(Xm, coeff, sig)
     return batched_stencil_spmv_lminor_plain(Xm, coeff, sig)
+
+
+def stencil_spmv_bf16c(x, Cb):
+    """y = K x with bf16 coefficients: the CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors."""
+    if x.is_cuda:
+        return stencil_spmv_bf16c_cuda(x, Cb)
+    return stencil_spmv_bf16c_plain(x, Cb)
+
+
+def plane_fma(x, C, xrows):
+    """The plane-FMA probe: the CUDA kernel for CUDA tensors, the plain
+    twin for CPU tensors."""
+    if x.is_cuda:
+        return plane_fma_cuda(x, C, xrows)
+    return plane_fma_plain(x, C, xrows)

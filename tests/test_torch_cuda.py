@@ -106,11 +106,13 @@ def test_lminor_kernel_counts_and_refuses(dev):
 
 
 def test_kernels_spill_no_registers(dev):
-    """ptxas -v of the build: no kernel instantiation (kernel 1, and both
-    batched kernels at every dtype and body count) spills to local
-    memory."""
+    """ptxas -v of the build: no kernel instantiation (kernel 1, both
+    batched kernels at every dtype and body count, the bf16-coefficient
+    kernel and the plane-FMA probe) spills to local memory."""
     usage = sk.ptxas_usage()
-    assert len(usage) == 2 + 2 * 2 * 8, sorted(usage)
+    assert len(usage) == 2 + 2 * 2 * 8 + 3, sorted(usage)
+    assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
+            "plane_fma_kernel<double>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -288,3 +290,72 @@ def test_group_mg_solve_on_card_matches_cpu(dev):
     assert int((g.iterations.cpu() - c.iterations).abs().max()) <= 2
     scale = float(c.phi.abs().max())
     assert float((g.phi.cpu() - c.phi).abs().max()) <= 1e-6 * scale
+
+
+# The probes: the plane-FMA kernel (27 planes on 3 x rows, P planes on 1)
+# and kernel 1 with bf16 coefficients, 3-D and with lanes, X = 1 and grids
+# that end mid-block.
+PROBE_GRIDS = [(1, 7, 6), (9, 7, 5), (20, 13, 9), (3, 9, 7, 5),
+               (2, 31, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("P,xrows", [(27, 3), (1, 1), (27, 1), (5, 1)])
+@pytest.mark.parametrize("grid", PROBE_GRIDS)
+def test_plane_fma_kernel_matches_twin(dev, dtype, P, xrows, grid):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    args = measure.kernel_inputs("plane_fma_cuda", (P, xrows, grid),
+                                 getattr(torch, dtype), dev,
+                                 np.random.default_rng(P + len(grid)))
+    torch.testing.assert_close(sk.plane_fma_cuda(*args),
+                               sk.plane_fma_plain(*args),
+                               **(F32 if dtype == "float32" else F64))
+
+
+@pytest.mark.parametrize("grid", PROBE_GRIDS)
+def test_bf16c_kernel_matches_twin(dev, grid):
+    """At f32 tolerance against the twin fed the same bf16 coefficients,
+    and bit for bit kernel 1 on those coefficients widened (one body,
+    one order of multiply-adds)."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    x, Cb = measure.kernel_inputs("stencil_spmv_bf16c_cuda", grid,
+                                  torch.float32, dev,
+                                  np.random.default_rng(len(grid)))
+    y = sk.stencil_spmv_bf16c_cuda(x, Cb)
+    torch.testing.assert_close(y, sk.stencil_spmv_bf16c_plain(x, Cb), **F32)
+    assert torch.equal(y, sk.stencil_spmv_cuda(x, Cb.float()))
+
+
+def test_probe_wrappers_count_and_refuse(dev):
+    sk.reset_launches()
+    x = torch.ones((4, 3, 3), device=dev)
+    C = torch.ones((27, 4, 3, 3), device=dev)
+    sk.plane_fma(x, C, 3)
+    sk.stencil_spmv_bf16c(x, C.to(torch.bfloat16))
+    assert sk.LAUNCHES["plane_fma_cuda"] == 1
+    assert sk.LAUNCHES["stencil_spmv_bf16c_cuda"] == 1
+    with pytest.raises(TypeError):       # f32 coefficients: no quiet cast
+        sk.stencil_spmv_bf16c_cuda(x, C)
+    with pytest.raises(TypeError):
+        sk.stencil_spmv_bf16c_cuda(x.double(), C.to(torch.bfloat16))
+    with pytest.raises(ValueError):      # 3 x rows take 27 planes
+        sk.plane_fma_cuda(x, C[:5].contiguous(), 3)
+    with pytest.raises(ValueError):
+        sk.plane_fma_cuda(x, C, 2)
+    with pytest.raises(TypeError):
+        sk.plane_fma_cuda(x, C.double(), 1)
+    assert sk.LAUNCHES["plane_fma_cuda"] == 1
+    assert sk.LAUNCHES["stencil_spmv_bf16c_cuda"] == 1
+
+
+@pytest.mark.parametrize("threads", [128, 512])
+def test_plane_fma_block_sizes_match_twin(dev, threads):
+    """The roofline probe's other builds (PST_PROBE_THREADS) compute the
+    same function."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.roofline_probe import probe_flags
+    args = measure.kernel_inputs("plane_fma_cuda", (27, 3, (9, 7, 5)),
+                                 torch.float32, dev,
+                                 np.random.default_rng(threads))
+    y = sk.launch("plane_fma_cuda", *args, extra_flags=probe_flags(threads))
+    torch.testing.assert_close(y, sk.plane_fma_plain(*args), **F32)

@@ -152,6 +152,8 @@ from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
     solve_lattice_mg_refined)
 import pelvistim_fem_tpu_torch.interop
 import pelvistim_fem_tpu_torch.ops.multigrid
+import pelvistim_fem_tpu_torch.roofline_probe
+import pelvistim_fem_tpu_torch.spmv_kernels_ab
 spec, _ = build_pressure_spec(coarse=True)
 r = solve_lattice_mg_refined(spec, tol=1e-8, device="cpu")
 assert bool(r.converged) and float(r.residual) <= 1e-8, r

@@ -170,11 +170,21 @@ def test_cpu_tensors_take_the_twin():
     sig = torch.ones((2, 1))
     assert torch.equal(sk.batched_stencil_spmv(Xs, coeff, sig),
                        sk.batched_stencil_spmv_plain(Xs, coeff, sig))
+    Cb = C.to(torch.bfloat16)
+    assert torch.equal(sk.stencil_spmv_bf16c(x, Cb),
+                       sk.stencil_spmv_bf16c_plain(x, Cb))
+    assert torch.equal(sk.plane_fma(x, C, 3), sk.plane_fma_plain(x, C, 3))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_cuda": 0,
-                           "batched_stencil_spmv_lminor_cuda": 0}
+                           "batched_stencil_spmv_lminor_cuda": 0,
+                           "stencil_spmv_bf16c_cuda": 0,
+                           "plane_fma_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.stencil_spmv_bf16c_cuda(x, Cb)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.plane_fma_cuda(x, C, 3)
     with pytest.raises(ValueError, match="must lie on"):
         sk.batched_stencil_spmv_cuda(Xs, coeff, sig)
 
