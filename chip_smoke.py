@@ -19,7 +19,14 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 the probes' edges (X = 1, grids that end mid-block, 3
                 lanes) and at the paths' shapes; the two probes at kernel
                 1's four timed shapes, with kernel 1's time minus the
-                3-row probe's (what the neighbour shifts cost); kernel
+                3-row probe's (what the neighbour shifts cost); the 1-row
+                probe at P = 1, 2, 5, 27 on grids whose points are no
+                multiple of 4 and on inputs one element off 16-byte
+                alignment; the coarse CG on the step04 app's own (5, 3,
+                3) coarsest level and, on SPD stencils, at the megatet's
+                and step02's coarsest shapes and past shared memory
+                (16, 11, 11), its plain loop also timed as one CUDA
+                graph (the launches it replaces); kernel
                 device times (a CUDA graph of 20 launches, replayed
                 between CUDA events) and call and twin times (CUDA
                 events), medians of 20, each launch on one of enough
@@ -61,7 +68,8 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 nodes, 167,104 tets; the certified linear sweep (kernel 2),
                 the f32 Pennes lanes and heating course, and the 15
                 sigma_skin(|E|) fixed points on the lattice (kernel 1 in
-                f64 and f32 at every level, kernel 2 probing the frozen
+                f64 and f32 at every level but the coarsest, which is one
+                coarse CG launch a V-cycle, kernel 2 probing the frozen
                 V-cycle at one body); lanes, rows, temperatures, t95 and
                 the nonlinear columns against the JAX package's anchors;
                 walls and launches per app phase
@@ -81,10 +89,14 @@ The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
 each of the paths 4-14 and read after it; each path must have launched
-its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape), and
-every kernel must have run.  Every (kernel, dtype, shapes) the paths launched is counted
-(`launches_by_shape` in the kernels line), and each that phase 3 did not
-hold is then held against its twin on random inputs of those shapes.
+its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
+megatet, step02 and step04 the coarse CG), and every kernel must have
+run; kernel 1 must not have run at any shape the coarse CG ran at (every
+coarsest level goes through the coarse CG).  Every (kernel, dtype,
+shapes) the paths launched is counted (`launches_by_shape` in the
+kernels line), and each that phase 3 did not hold is then held against
+its twin on random inputs of those shapes; the coarse CG, on the first
+inputs it was given at each shape on the paths, in f32 and f64.
 Every phase checks its results and raises on failure; the exit code is
 then non-zero and no result line is printed.  The second-to-last line
 is a JSON summary of the kernels (times, bounds, launches); the last
@@ -281,14 +293,27 @@ STEP03_LANES = (3, 55, 33, 45)
 PROBE_TIMED = [MEGATET_GRID, STEP04_GRID, STEP02_LANES, STEP03_LANES]
 PROBE_EDGES = [(1, 7, 6), (9, 7, 5), (3, 9, 7, 5)]
 
+# the coarse CG: its four timed shapes (the step04 app's coarsest level,
+# from the app's own hierarchy, then the megatet's and step02's coarsest
+# shapes and one past shared memory, on SPD stencils); the V-cycles'
+# coarse_iters
+COARSE_ITERS = 24
+COARSE_TIMED = [(5, 3, 3), (5, 4, 3), (8, 10, 5, 2), (16, 11, 11)]
+# the 1-row plane-FMA probe's edges: the unrolled and the runtime plane
+# counts, on grids of 105 points (no 16-byte loads) and of 120
+PROBE_ROW_P = [1, 2, 5, 27]
+PROBE_ROW_GRIDS = [(3, 5, 7), (4, 6, 5)]
+
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
+MULTIGRID = "pelvistim_fem_tpu/ops/multigrid.py"
 REPLACES = {
     "stencil_spmv_cuda": f"{PALLAS}:326, {PALLAS}:75",
     "batched_stencil_spmv_cuda": f"{PALLAS}:410, {PALLAS}:202",
     "batched_stencil_spmv_lminor_cuda": f"{PALLAS}:128",
     "stencil_spmv_bf16c_cuda": "dev/spmv_kernels_ab.py:68",
     "plane_fma_cuda": "dev/spmv_kernels_ab.py:107, dev/roofline_probe.py:90",
+    "coarse_cg_cuda": f"{MULTIGRID}:428, {MULTIGRID}:799",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -301,6 +326,9 @@ LIBRARY_NOTE = {
     "plane_fma_cuda": ("no one PyTorch call sums 27 planes times three x "
                        "rows; the 1-row forms are timed against torch.mul "
                        "(P = 1) and torch.einsum (P = 27) in other_shapes"),
+    "coarse_cg_cuda": ("no one PyTorch call runs a fixed-iteration CG; "
+                       "plain_graph_ms is the plain loop (~505 launches) "
+                       "as one CUDA graph replay"),
 }
 
 
@@ -314,6 +342,25 @@ def gpu_query(fields):
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def step04_level(dev):
+    """The step04 app's coarsest multigrid level on the card: its own
+    (55, 31, 19) lattice assembled in f64 and Galerkin-coarsened, the
+    level's stencil combined with the sigma table of the app's first
+    contact level."""
+    import torch
+    from pelvistim_fem_tpu_torch.models.pressure import (
+        build_pressure_spec, sigma_tables_for_sweep)
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
+    from pelvistim_fem_tpu_torch.ops.stencil import combine_coeffs
+    spec, p = build_pressure_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    lv = hier.levels[-1]
+    if tuple(lv.free.shape) != COARSE_TIMED[0]:
+        raise AssertionError(f"step04 coarsest level {tuple(lv.free.shape)}")
+    tab = sigma_tables_for_sweep(scase, p)[0]
+    return dict(C=combine_coeffs(lv.coeff, tab).contiguous(), free=lv.free)
 
 
 def phase_parity(dev):
@@ -343,20 +390,57 @@ def phase_parity(dev):
 
     covered = set()
 
-    def run(name, dn, shape, timed, library=None):
-        """Hold kernel `name` against its twin at `shape`; if `timed`, time
-        kernel, call and twin (and `library`, one PyTorch call of the
-        same function, where given)."""
+    def probe_row_edge(dn, P, grid):
+        """The 1-row probe against its twin, then on copies of its inputs
+        one element off 16-byte alignment (the scalar body): equal."""
+        dtype = getattr(torch, dn)
+        x, C, _ = measure.kernel_inputs("plane_fma_cuda", (P, 1, grid), dtype,
+                                        dev, rng)
+        y = sk.plane_fma_cuda(x, C, 1)
+        err = measure.check_close(f"plane_fma 1-row P={P} {grid} {dn}", y,
+                                  sk.plane_fma_plain(x, C, 1), dtype)
+        off = []
+        for a in (x, C):
+            buf = torch.empty(a.numel() + 1, dtype=dtype, device=dev)
+            off.append(buf[1:].view(a.shape).copy_(a))
+        if not torch.equal(sk.plane_fma_cuda(*off, 1), y):
+            raise AssertionError(f"plane_fma 1-row P={P} {grid} {dn}: the "
+                                 "unaligned inputs give another result")
+        log(f"parity plane_fma_cuda {dn} {(P, 1, grid)}: max_abs_err "
+            f"{err:.3e}; inputs off 16-byte alignment: equal")
+
+    def step04_coarsest(dtype):
+        """(b, C, free, iters) on the step04 app's coarsest level (its own
+        lattice and hierarchy, the driest contact level's sigma), b a
+        seeded residual masked as the V-cycle masks it."""
+        b = torch.where(level04["free"], torch.as_tensor(
+            rng.standard_normal(COARSE_TIMED[0]), dtype=dtype, device=dev),
+            0.0)
+        return b, level04["C"].to(dtype), level04["free"], COARSE_ITERS
+
+    level04 = step04_level(dev)
+
+    def run(name, dn, shape, timed, library=None, args=None):
+        """Hold kernel `name` against its twin at `shape` (on `args`, else
+        random inputs); if `timed`, time kernel, call and twin (and
+        `library`, one PyTorch call of the same function, where given;
+        and the coarse CG's twin as one CUDA graph)."""
         dtype = getattr(torch, dn)
         kernel = getattr(sk, name)
         twin = getattr(sk, name.replace("_cuda", "_plain"))
-        args = measure.kernel_inputs(name, shape, dtype, dev, rng)
+        if args is None:
+            args = measure.kernel_inputs(name, shape, dtype, dev, rng)
         covered.add(signature(name, args))
         y = kernel(*args)
-        ref = twin(*args)
-        torch.cuda.synchronize()
-        err = measure.check_close(f"{name} {shape} {dn}", y, ref, dtype)
-        line = f"parity {name} {dn} {shape}: max_abs_err {err:.3e}"
+        if name == "coarse_cg_cuda":
+            err = measure.check_coarse_cg(f"{name} {shape} {dn}", y, args)
+            scale = f" (max|x| {float(y.abs().max()):.3e})"
+        else:
+            ref = twin(*args)
+            torch.cuda.synchronize()
+            err = measure.check_close(f"{name} {shape} {dn}", y, ref, dtype)
+            scale = ""
+        line = f"parity {name} {dn} {shape}: max_abs_err {err:.3e}{scale}"
         if timed:
             copies = measure.input_copies(args)
             ms = measure.kernel_ms(kernel, copies)
@@ -365,13 +449,17 @@ def phase_parity(dev):
             pms = measure.cuda_ms(lambda: twin(*next(turn)))
             line += (f" kernel {ms:.4f} ms (one call with its wrapper "
                      f"{call:.4f} ms) plain {pms:.4f} ms")
-            lib = None
+            lib = graph = None
             if library is not None:     # device time, as the kernel's
                 lib = measure.kernel_ms(library, copies)
                 line += f" library {lib:.4f} ms"
+            if name == "coarse_cg_cuda":
+                graph = measure.kernel_ms(twin, copies)
+                line += f" plain as one CUDA graph {graph:.4f} ms"
             # the first timed shape of a (kernel, dtype) is its main row
-            results.setdefault((name, dn), (err, ms, pms, shape, call, lib))
-            results[(name, dn, shape)] = (err, ms, pms, shape, call, lib)
+            row = (err, ms, pms, shape, call, lib, graph)
+            results.setdefault((name, dn), row)
+            results[(name, dn, shape)] = row
         log(line)
 
     # kernel 1 timed at the megatet grid and at the step04 app's lattice
@@ -410,6 +498,13 @@ def phase_parity(dev):
             library=lambda x, C, xrows: torch.einsum("p...,...->...", C, x))
         run("plane_fma_cuda", dn, (5, 1, (9, 7, 5)), False)
         run("plane_fma_cuda", dn, (1, 1, (3, 9, 7, 5)), False)
+        for P, grid in itertools.product(PROBE_ROW_P, PROBE_ROW_GRIDS):
+            probe_row_edge(dn, P, grid)
+        # the coarse CG: the step04 app's coarsest level first (main row)
+        run("coarse_cg_cuda", dn, (COARSE_ITERS, COARSE_TIMED[0]), True,
+            args=step04_coarsest(getattr(torch, dn)))
+        for grid in COARSE_TIMED[1:]:
+            run("coarse_cg_cuda", dn, (COARSE_ITERS, grid), True)
         if dn == "float32":             # bf16 coefficients, f32 x and sums
             for grid in PROBE_TIMED + PROBE_EDGES:
                 run("stencil_spmv_bf16c_cuda", dn, grid, grid in PROBE_TIMED)
@@ -456,38 +551,57 @@ def signature(name, args):
 def shape_key(name, dn, shapes):
     """A launch signature as "<dtype> (L, B, (X, Y, Z))", "<dtype> (X, Y,
     Z)" for kernel 1 and its bf16 probe, "<dtype> (P, xrows, (X, Y, Z))"
-    for the plane-FMA probe (the parity lines' shapes)."""
+    for the plane-FMA probe, "<dtype> (iters, (X, Y, Z))" for the coarse
+    CG (the parity lines' shapes)."""
     if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         return f"{dn} {shapes[0]}"
     if name == "plane_fma_cuda":
         return f"{dn} {(shapes[1][-4], shapes[2], shapes[0])}"
+    if name == "coarse_cg_cuda":
+        return f"{dn} {(shapes[3], shapes[0])}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
     return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
 
 
-def record_launches(sk, seen):
+def record_launches(sk, seen, first):
     """Wrap the CUDA wrappers of `sk` so that each launch through the
-    package counts its signature in the Counter `seen`; returns a function
-    that puts the wrappers back."""
+    package counts its signature in the Counter `seen` (and the coarse
+    CG keeps a copy of the first arguments of each signature in `first`);
+    returns a function that puts the wrappers back."""
     originals = {name: getattr(sk, name) for name in sk.LAUNCHES}
     for name, fn in originals.items():
         def wrapped(*args, _fn=fn, _name=name):
-            seen[signature(_name, args)] += 1
+            sig = signature(_name, args)
+            seen[sig] += 1
+            if _name == "coarse_cg_cuda" and sig not in first:
+                first[sig] = tuple(a.clone() if hasattr(a, "clone") else a
+                                   for a in args)
             return _fn(*args)
         setattr(sk, name, wrapped)
     return lambda: [setattr(sk, n, f) for n, f in originals.items()]
 
 
-def phase_path_parity(dev, seen, covered):
+def phase_path_parity(dev, seen, covered, first):
     """Each (kernel, dtype, shapes) the paths launched and phase_parity did
     not hold (the MG levels, the assembly's probes, the right-hand sides),
-    against its twin on random inputs of those shapes."""
+    against its twin on random inputs of those shapes; the coarse CG at
+    each of its path shapes on the first inputs the path gave it, in
+    their dtype and in the other."""
     import torch
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     rng = np.random.default_rng(1)
-    todo = sorted(set(seen) - covered)
+    for (name, dn, shapes), args in sorted(first.items()):
+        b, C, free, iters = args
+        for dtype in (torch.float32, torch.float64):
+            cast = (b.to(dtype), C.to(dtype), free, iters)
+            y = sk.coarse_cg_cuda(*cast)
+            err = measure.check_coarse_cg(f"path {name} {shapes}", y, cast)
+            log(f"parity path {name} {str(dtype)[6:]} {shapes} on the "
+                f"path's inputs ({dn}): max_abs_err {err:.3e} (max|x| "
+                f"{float(y.abs().max()):.3e})")
+    todo = sorted(set(seen) - covered - set(first))
     for name, dn, shapes in todo:
         dtype = getattr(torch, dn)
         args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
@@ -1223,7 +1337,8 @@ def main():
     # 4-14. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
-    restore = record_launches(sk, seen)
+    first = {}
+    restore = record_launches(sk, seen, first)
 
     def path(name, kernels, fn, *args, lanes=False):
         """fn(*args) with the counters set to 0 before and read after;
@@ -1255,7 +1370,8 @@ def main():
 
     sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda"],
                           sweep_leg)
-    mega = path("megatet", ["stencil_spmv_cuda"], phase_megatet, dev, gpu)
+    mega = path("megatet", ["stencil_spmv_cuda", "coarse_cg_cuda"],
+                phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda"],
                   phase_jacobi, dev, gpu, sweep, metrics["case"])
@@ -1267,14 +1383,16 @@ def main():
         step01 = path("step01", ["stencil_spmv_cuda"], phase_step01, dev,
                       gpu, outdir)
         step02 = path("step02", ["stencil_spmv_cuda",
-                                 "batched_stencil_spmv_cuda"],
+                                 "batched_stencil_spmv_cuda",
+                                 "coarse_cg_cuda"],
                       phase_step02, dev, gpu, outdir, lanes=True)
         step02s = path("step02-serial", ["stencil_spmv_cuda"],
                        phase_step02_serial, dev, gpu, step02)
         step03 = path("step03-batch", ["stencil_spmv_cuda"], phase_step03,
                       dev, gpu, outdir, lanes=True)
         step04 = path("step04", ["stencil_spmv_cuda",
-                                 "batched_stencil_spmv_cuda"],
+                                 "batched_stencil_spmv_cuda",
+                                 "coarse_cg_cuda"],
                       phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -1283,7 +1401,7 @@ def main():
                              "plane_fma_cuda"], phase_probes, dev, gpu)
 
     restore()
-    phase_path_parity(dev, seen, covered)
+    phase_path_parity(dev, seen, covered, first)
     log(f"launches: {launches}")
     by_shape = {name: {} for name in launches}
     for (name, dn, shapes), n in seen.most_common():
@@ -1295,6 +1413,16 @@ def main():
             raise AssertionError(f"{name}: launches by shape add up to "
                                  f"{sum(by_shape[name].values())}, not {n}")
         log(f"launches by shape {name}: {by_shape[name]}")
+    # every coarsest level goes through the coarse CG, never kernel 1
+    coarse = {(dn, shapes[0]) for name, dn, shapes in seen
+              if name == "coarse_cg_cuda"}
+    k1 = {(dn, shapes[0]): n for (name, dn, shapes), n in seen.items()
+          if name == "stencil_spmv_cuda" and (dn, shapes[0]) in coarse}
+    if k1:
+        raise AssertionError(f"stencil_spmv_cuda launched at coarse CG "
+                             f"shapes: {k1}")
+    log(f"coarsest levels: coarse_cg_cuda at {sorted(coarse)}, "
+        "stencil_spmv_cuda there 0 times")
 
     kernels = []
     for name, dn, alt in (("stencil_spmv_cuda", "float32", "float64"),
@@ -1303,8 +1431,9 @@ def main():
                           ("batched_stencil_spmv_lminor_cuda", "float64",
                            "float32"),
                           ("stencil_spmv_bf16c_cuda", "float32", None),
-                          ("plane_fma_cuda", "float32", "float64")):
-        err, ms, pms, shape, call, lib = parity[(name, dn)]
+                          ("plane_fma_cuda", "float32", "float64"),
+                          ("coarse_cg_cuda", "float32", "float64")):
+        err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
         entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -1312,18 +1441,21 @@ def main():
             max_abs_err=err, ms=ms, plain_ms=pms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             library_note=LIBRARY_NOTE[name] if lib is None else None,
-            dtype=dn, shape=str(shape), call_ms=call, other_dtype=None)
+            dtype=dn, shape=str(shape), call_ms=call, other_dtype=None,
+            plain_graph_ms=graph)
         if alt is not None:
-            a_err, a_ms, a_pms, _, a_call, _ = parity[(name, alt)]
+            a_err, a_ms, a_pms, _, a_call, _, a_graph = parity[(name, alt)]
             entry["other_dtype"] = dict(
                 dtype=alt, max_abs_err=a_err, ms=a_ms, plain_ms=a_pms,
-                call_ms=a_call, bound_ms=measure.bound(name, shape, alt)[0])
+                call_ms=a_call, bound_ms=measure.bound(name, shape, alt)[0],
+                plain_graph_ms=a_graph)
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
-            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it"
+            + (f"; plain graph {graph:.4f} ms" if graph is not None else ""))
         # the kernel at its other timed shapes, beside its main row
         other_rows = []
-        for (k, *key), (o_err, o_ms, o_pms, o_shape, o_call, o_lib) in \
-                parity.items():
+        for (k, *key), (o_err, o_ms, o_pms, o_shape, o_call, o_lib,
+                        o_graph) in parity.items():
             if k != name or len(key) != 2 or o_shape == shape:
                 continue
             o_dn = key[0]
@@ -1331,10 +1463,12 @@ def main():
             other_rows.append(dict(
                 dtype=o_dn, shape=str(o_shape), max_abs_err=o_err, ms=o_ms,
                 plain_ms=o_pms, call_ms=o_call, bound_ms=ob_ms,
-                bound_by=ob_by, library_ms=o_lib))
+                bound_by=ob_by, library_ms=o_lib, plain_graph_ms=o_graph))
             log(f"{name} {o_dn} {o_shape}: {o_ms:.4f} ms against a bound of "
                 f"{ob_ms:.4f} ms ({ob_by}), {100 * ob_ms / o_ms:.1f}% of it"
-                + (f"; library {o_lib:.4f} ms" if o_lib is not None else ""))
+                + (f"; library {o_lib:.4f} ms" if o_lib is not None else "")
+                + (f"; plain graph {o_graph:.4f} ms" if o_graph is not None
+                   else ""))
         entry["other_shapes"] = other_rows
         kernels.append(entry)
     log(f"total: {time.perf_counter() - t_start:.1f} s; sweep "

@@ -17,12 +17,19 @@
 //   plane_fma               <- spmv_noop (27 planes, x rows i-1, i, i+1, no
 //                              neighbour shifts) and fma (P planes, one x
 //                              row; P = 1 is a copy)
+// and one kernel that runs a whole multigrid coarsest level in one launch:
+//   coarse_cg               <- the coarse branch of cycle_impl
+//                              (pelvistim_fem_tpu/ops/multigrid.py: 24
+//                              fixed CG iterations of kernel 1's apply,
+//                              which the TPU ran as ~21 XLA ops each)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
 //   Xs (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B)
 //   Xm (X, Y, Z, L), coeff (B, 27, X, Y, Z), sig (B, L)   [lane-minor]
 //   x (S, X, Y, Z), C (S, P, X, Y, Z)    [plane_fma; bf16c: C in bf16]
+//   b (S, X, Y, Z), C (S, 27, X, Y, Z), free (S or 1, X, Y, Z) bytes
+//                                        [coarse_cg]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
 // All are bound by device-memory bandwidth: per grid point the single
@@ -77,6 +84,7 @@
 #include <algorithm>
 #include <atomic>
 #include <climits>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -249,41 +257,85 @@ stencil_spmv_bf16c_kernel(const float* __restrict__ x,
   stencil_point<float, __nv_bfloat16>(x, C, y, X, Y, Z);
 }
 
-// The plane-FMA probe: y[s, i, j, k] = sum_{p < P} C[s, p, i, j, k] *
-// x[s, i + dx(p), j, k], lane s = blockIdx.y.  xrows == 3 (P == 27): dx(p)
-// = p / 9 - 1, kernel 1's offset order, rows outside 0 <= i < X read 0;
-// its result is wrong by design (no j, k shifts), its traffic is kernel
-// 1's: the bytes and multiply-adds of an apply without the shifts.
-// xrows == 1: dx = 0 for any P.  Sums in p order from 0, by fma.  Bound
-// by device memory: P + 2 values moved per point for P multiply-adds.
+// The plane-FMA probe's 3-row form: y[s, i, j, k] = sum_{p < 27} C[s, p,
+// i, j, k] * x[s, i + dx(p), j, k], lane s = blockIdx.y, dx(p) = p / 9 - 1
+// (kernel 1's offset order), rows outside 0 <= i < X read 0.  Its result is
+// wrong by design (no j, k shifts), its traffic is kernel 1's: the bytes
+// and multiply-adds of an apply without the shifts.  Sums in p order from
+// 0, by fma.  Bound by device memory: 29 values moved per point for 27
+// multiply-adds.
 template <typename T>
 __global__ void __launch_bounds__(PST_PROBE_THREADS)
 plane_fma_kernel(const T* __restrict__ x, const T* __restrict__ C,
-                 T* __restrict__ y, int P, int xrows, int X, int Y, int Z) {
+                 T* __restrict__ y, int X, int Y, int Z) {
   const long long YZ = (long long)Y * Z;
   const long long G = X * YZ;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= G) return;
   x += blockIdx.y * G;
-  C += blockIdx.y * P * G;
+  C += blockIdx.y * 27 * G;
   y += blockIdx.y * G;
   T acc = T(0);
-  if (xrows == 3) {
-    const int i = (int)(p / YZ);
-    T xv[3];
+  const int i = (int)(p / YZ);
+  T xv[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int ii = i + d - 1;
-      xv[d] = (ii >= 0 && ii < X) ? x[p + (d - 1) * YZ] : T(0);
-    }
-#pragma unroll
-    for (int o = 0; o < 27; ++o) acc = fma(C[o * G + p], xv[o / 9], acc);
-  } else {
-    const T xv = x[p];
-#pragma unroll 4
-    for (int o = 0; o < P; ++o) acc = fma(C[o * G + p], xv, acc);
+  for (int d = 0; d < 3; ++d) {
+    const int ii = i + d - 1;
+    xv[d] = (ii >= 0 && ii < X) ? x[p + (d - 1) * YZ] : T(0);
   }
+#pragma unroll
+  for (int o = 0; o < 27; ++o) acc = fma(C[o * G + p], xv[o / 9], acc);
   y[p] = acc;
+}
+
+// V consecutive values, aligned to their size: one 16-byte load or store
+// for V * sizeof(T) == 16.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T e[V];
+};
+
+// The probe's 1-row form: y[s, q] = sum_{p < P} C[s, p, q] * x[s, q] over
+// the flattened grid q, lane s = blockIdx.y.  A thread takes V consecutive
+// points: V = 16 / sizeof(T) with 16-byte loads and stores where the
+// launcher finds G a multiple of V and every plane 16-byte aligned, else 1
+// with scalar loads.  P is a template parameter, its planes unrolled, so
+// that all of a thread's coefficient loads are in flight at once (P = 0:
+// the runtime count nP, unrolled by 4).  32-bit indices: the launcher
+// refuses S * P * G past INT_MAX.  Sums in p order from 0, by fma, per
+// point as the scalar form.  Bound by device memory: P + 2 values moved
+// per point for P multiply-adds.
+template <typename T, int P, int V>
+__global__ void __launch_bounds__(PST_PROBE_THREADS)
+plane_fma_row_kernel(const T* __restrict__ x, const T* __restrict__ C,
+                     T* __restrict__ y, int nP, int G) {
+  using Pk = Pack<T, V>;
+  const int n = G / V;  // packs a plane
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int planes = P > 0 ? P : nP;
+  const Pk* xs = reinterpret_cast<const Pk*>(x + blockIdx.y * G);
+  const Pk* cs = reinterpret_cast<const Pk*>(C + blockIdx.y * planes * G);
+  const Pk xv = xs[i];
+  Pk acc;
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc.e[v] = T(0);
+  if constexpr (P > 0) {
+#pragma unroll
+    for (int o = 0; o < P; ++o) {
+      const Pk c = cs[o * n + i];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc.e[v] = fma(c.e[v], xv.e[v], acc.e[v]);
+    }
+  } else {
+#pragma unroll 4
+    for (int o = 0; o < nP; ++o) {
+      const Pk c = cs[o * n + i];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc.e[v] = fma(c.e[v], xv.e[v], acc.e[v]);
+    }
+  }
+  reinterpret_cast<Pk*>(y + blockIdx.y * G)[i] = acc;
 }
 
 // One element of global memory to shared memory, asynchronously.
@@ -508,6 +560,164 @@ batched_stencil_spmv_lminor_kernel(const T* __restrict__ Xm,
   }
 }
 
+// The coarsest multigrid level's fixed CG in one launch: for each lane s
+// (one block each), with diag = free && C[13] != 0 ? C[13] : 1, dinv =
+// 1 / diag and op(v) = free ? K (free ? v : 0) : v (kernel 1's apply),
+//   z = dinv b;  x = 0, r = b, p = z, rz = sum b z;  `iters` times:
+//   ap = op(p);  alpha = rz / (pap != 0 ? pap : 1), pap = sum p ap;
+//   x += alpha p;  r -= alpha ap;  z = dinv r;
+//   beta = rz' / (rz != 0 ? rz : 1), rz' = sum r z;  p = z + beta p;
+// and x is written.  Run as ~21 launches an iteration, the level costs
+// ~505 launches a V-cycle at the launch floor; the whole level fits in one
+// SM, so one block runs all its iterations:
+//   * The block is 1..kCgMaxWarps warps (one per 32 points); a thread
+//     keeps x, r and dinv of its K points q = tid + k * blockDim.x in
+//     registers (touched only by unrolled elementwise updates).
+//   * Shared memory: with kSmemC the lane's 27 coefficient planes, copied
+//     in once (cp.async), so that every apply reads them from there
+//     (without, for a level too large, from device memory, where L2 keeps
+//     them); p; free ? p : 0, which the neighbour reads take (zero outside
+//     the grid, as in kernel 1); ap, then z; and each point's 27 neighbour
+//     bits and free bit.  The apply is a plain loop over the thread's
+//     points, its 27 offsets unrolled, acc = fma(C_o, p_o, acc) over o =
+//     0..26 in order: a thread holds one point's loads at a time (holding
+//     all K points' in registers spilled).
+//   * Dot products: a __shfl_xor_sync butterfly in each warp (every lane
+//     ends with the same sum), then the warps' partials added in warp
+//     order by every thread: the same sums in every run, and every thread
+//     forms alpha and beta itself, with IEEE division.
+// Bound by latency, not by bytes or operations: each iteration is three
+// block barriers and two reductions in sequence.  A grid is a few blocks,
+// so a block may take all the registers an SM gives it (launch bounds of
+// one block an SM).
+constexpr int kCgMaxWarps = 8;
+constexpr int kCgMaxPoints = 8;  // points a thread at most
+constexpr unsigned kCgFree = 1u << 31;
+
+// Block-wide sum of v into slot[0..warps) (see coarse_cg_kernel).
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* slot) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  T sum = slot[0];
+  for (int w = 1; w < warps; ++w) sum += slot[w];
+  return sum;
+}
+
+template <typename T, int K, bool kSmemC>
+__global__ void __launch_bounds__(kCgMaxWarps * 32, 1)
+coarse_cg_kernel(const T* __restrict__ b, const T* __restrict__ C,
+                 const unsigned char* __restrict__ free, T* __restrict__ x,
+                 int free_stride, int iters, int X, int Y, int Z) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* sm = reinterpret_cast<T*>(s_raw);
+  const int G = X * Y * Z;
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  b += blockIdx.x * G;
+  x += blockIdx.x * G;
+  free += blockIdx.x * free_stride;
+  const T* c = C + blockIdx.x * 27 * G;
+  if constexpr (kSmemC) {
+    for (int t = tid; t < 27 * G; t += nt) cp_async_elem(sm + t, c + t);
+    c = sm;
+  }
+  T* pm = sm + (kSmemC ? 27 * G : 0);  // free ? p : 0, for the neighbours
+  T* pu = pm + G;                      // p
+  T* tz = pu + G;                      // ap, then z
+  T* red = tz + G;  // [0, kCgMaxWarps): p.ap partials; then r.z partials
+  unsigned* nbs = reinterpret_cast<unsigned*>(red + 2 * kCgMaxWarps);
+
+  T xk[K], rk[K], dk[K];  // x, r, dinv of the thread's points
+  unsigned fr = 0;        // bit k: point k is free
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt;
+    xk[k] = rk[k] = dk[k] = T(0);
+    if (q < G) {
+      const Nbr nbr(q, X, Y, Z);
+      unsigned nb = 0;
+#pragma unroll
+      for (int o = 0; o < 27; ++o) nb |= (unsigned)nbr.ok(o) << o;
+      if (free[q]) {
+        nb |= kCgFree;
+        fr |= 1u << k;
+      }
+      nbs[q] = nb;
+      rk[k] = b[q];
+    }
+  }
+  if constexpr (kSmemC) cp_async_wait_block();
+  T part = T(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt;
+    if (q < G) {
+      const bool f = fr >> k & 1u;
+      const T c13 = c[13 * G + q];
+      dk[k] = T(1) / ((f && c13 != T(0)) ? c13 : T(1));
+      const T z = dk[k] * rk[k];
+      pu[q] = z;
+      pm[q] = f ? z : T(0);
+      part = fma(rk[k], z, part);
+    }
+  }
+  T rz = block_sum(part, red + kCgMaxWarps);
+  for (int it = 0; it < iters; ++it) {
+    __syncthreads();  // every point's p written
+    T pap = T(0);
+    for (int q = tid; q < G; q += nt) {
+      const unsigned nb = nbs[q];
+      const T pq = pu[q];
+      T ap = pq;
+      if (nb & kCgFree) {
+        ap = T(0);
+#pragma unroll
+        for (int o = 0; o < 27; ++o) {
+          const T pv = (nb >> o & 1u) ? pm[q + shift(o, Y, Z)] : T(0);
+          ap = fma(c[o * G + q], pv, ap);
+        }
+      }
+      tz[q] = ap;
+      pap = fma(pq, ap, pap);
+    }
+    const T den = block_sum(pap, red);
+    const T alpha = rz / (den != T(0) ? den : T(1));
+    T rzp = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = tid + k * nt;
+      if (q < G) {
+        xk[k] = fma(alpha, pu[q], xk[k]);
+        rk[k] = fma(-alpha, tz[q], rk[k]);
+        const T z = dk[k] * rk[k];
+        tz[q] = z;
+        rzp = fma(rk[k], z, rzp);
+      }
+    }
+    const T rzn = block_sum(rzp, red + kCgMaxWarps);
+    const T beta = rzn / (rz != T(0) ? rz : T(1));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = tid + k * nt;
+      if (q < G) {
+        const T pn = fma(beta, pu[q], tz[q]);
+        pu[q] = pn;
+        pm[q] = (fr >> k & 1u) ? pn : T(0);
+      }
+    }
+    rz = rzn;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt;
+    if (q < G) x[q] = xk[k];
+  }
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory on the current
 // device: cudaFuncSetAttribute once per device, recorded in bit d of
 // `done` (one `done` per kernel instantiation).
@@ -547,22 +757,48 @@ int launch_stencil_spmv(Kernel kernel, const void* x, const void* C, void* y,
   return (int)cudaGetLastError();
 }
 
+// The probe's 1-row form with V points a thread, P = 1 and 27 unrolled.
+template <typename T, int V>
+int launch_plane_fma_row(const void* x, const void* C, void* y, int S, int P,
+                         int G, cudaStream_t stream) {
+  const dim3 grid((G / V + PST_PROBE_THREADS - 1) / PST_PROBE_THREADS, S);
+  const auto kernel = P == 1    ? plane_fma_row_kernel<T, 1, V>
+                      : P == 27 ? plane_fma_row_kernel<T, 27, V>
+                                : plane_fma_row_kernel<T, 0, V>;
+  kernel<<<grid, PST_PROBE_THREADS, 0, stream>>>((const T*)x, (const T*)C,
+                                                 (T*)y, P, G);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // The plane-FMA probe: S lanes as gridDim.y; P >= 1, xrows 1, or 3 with
-// P == 27.
+// P == 27.  The 3-row form indexes in 64 bits; the 1-row form in 32 (S * P
+// * G past INT_MAX is refused), with 16-byte loads where G is a multiple
+// of their points and x, C and y start 16-byte aligned.
 template <typename T>
 int launch_plane_fma(const void* x, const void* C, void* y, int S, int P,
                      int xrows, int X, int Y, int Z, void* stream) {
   const long long G = (long long)X * Y * Z;
   if (S < 0 || S > 65535 || P < 1 || !(xrows == 1 || xrows == 3) ||
-      (xrows == 3 && P != 27)) {
+      (xrows == 3 && P != 27) || (xrows == 1 && G * P * S > INT_MAX)) {
     return (int)cudaErrorInvalidValue;
   }
   if (G == 0 || S == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (xrows == 1) {
+    constexpr int V = 16 / sizeof(T);
+    if (G % V == 0 && aligned16(x) && aligned16(C) && aligned16(y)) {
+      return launch_plane_fma_row<T, V>(x, C, y, S, P, (int)G, st);
+    }
+    return launch_plane_fma_row<T, 1>(x, C, y, S, P, (int)G, st);
+  }
   const unsigned blocks =
       (unsigned)((G + PST_PROBE_THREADS - 1) / PST_PROBE_THREADS);
-  plane_fma_kernel<T>
-      <<<dim3(blocks, S), PST_PROBE_THREADS, 0, (cudaStream_t)stream>>>(
-          (const T*)x, (const T*)C, (T*)y, P, xrows, X, Y, Z);
+  plane_fma_kernel<T><<<dim3(blocks, S), PST_PROBE_THREADS, 0, st>>>(
+      (const T*)x, (const T*)C, (T*)y, X, Y, Z);
   return (int)cudaGetLastError();
 }
 
@@ -692,11 +928,78 @@ int launch_batched(const void* X_, const void* coeff, const void* sig,
   }
 }
 
+// Shared memory of a coarse_cg block: the coefficient planes (kSmemC),
+// p twice, ap or z, the two reductions' partials and a word a point.
+template <typename T>
+long long coarse_cg_smem(int G, bool smem_c) {
+  return ((smem_c ? 27LL * G : 0) + 3LL * G + 2 * kCgMaxWarps) *
+             (long long)sizeof(T) +
+         4LL * G;
+}
+
+template <typename T, int K, bool kSmemC>
+int launch_coarse_cg_as(const void* b, const void* C, const void* free,
+                        void* x, int S, int free_stride, int iters, int X,
+                        int Y, int Z, int threads, cudaStream_t stream) {
+  const auto kernel = coarse_cg_kernel<T, K, kSmemC>;
+  static std::atomic<unsigned> opted{0};
+  const cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)coarse_cg_smem<T>(X * Y * Z, kSmemC);
+  kernel<<<S, threads, smem, stream>>>(
+      (const T*)b, (const T*)C, (const unsigned char*)free, (T*)x,
+      free_stride, iters, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_coarse_cg_k(const void* b, const void* C, const void* free,
+                       void* x, int S, int free_stride, int iters, int X,
+                       int Y, int Z, int threads, cudaStream_t st) {
+  if (coarse_cg_smem<T>(X * Y * Z, true) <= kMaxSmem) {
+    return launch_coarse_cg_as<T, K, true>(b, C, free, x, S, free_stride,
+                                           iters, X, Y, Z, threads, st);
+  }
+  return launch_coarse_cg_as<T, K, false>(b, C, free, x, S, free_stride,
+                                          iters, X, Y, Z, threads, st);
+}
+
+// S lanes, one block each; free shared by the lanes (free_lanes 1) or one
+// a lane (free_lanes S); G at most kCgMaxWarps * 32 * kCgMaxPoints.
+template <typename T>
+int launch_coarse_cg(const void* b, const void* C, const void* free, void* x,
+                     int S, int free_lanes, int iters, int X, int Y, int Z,
+                     void* stream) {
+  const long long G = (long long)X * Y * Z;
+  if (S < 0 || iters < 0 || !(free_lanes == 1 || free_lanes == S) ||
+      G > kCgMaxWarps * 32 * kCgMaxPoints || !fits_int(G, S, S)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (G == 0 || S == 0) return 0;
+  const int threads = 32 * std::min(kCgMaxWarps, (int)((G + 31) / 32));
+  const int need = (int)((G + threads - 1) / threads);
+  const int free_stride = free_lanes == 1 ? 0 : (int)G;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (need <= 1)
+    return launch_coarse_cg_k<T, 1>(b, C, free, x, S, free_stride, iters, X,
+                                    Y, Z, threads, st);
+  if (need <= 2)
+    return launch_coarse_cg_k<T, 2>(b, C, free, x, S, free_stride, iters, X,
+                                    Y, Z, threads, st);
+  if (need <= 4)
+    return launch_coarse_cg_k<T, 4>(b, C, free, x, S, free_stride, iters, X,
+                                    Y, Z, threads, st);
+  return launch_coarse_cg_k<T, 8>(b, C, free, x, S, free_stride, iters, X,
+                                  Y, Z, threads, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 int pst_max_bodies() { return kMaxBodies; }
+
+int pst_coarse_cg_max_points() { return kCgMaxWarps * 32 * kCgMaxPoints; }
 
 int pst_stencil_spmv_f32(const void* x, const void* C, void* y, int S, int X,
                          int Y, int Z, void* stream) {
@@ -754,6 +1057,20 @@ int pst_batched_stencil_spmv_lminor_f64(const void* Xm, const void* coeff,
                                         void* stream) {
   return launch_batched<double, Lminor>(Xm, coeff, sig, Ym, L, B, X, Y, Z,
                                         stream);
+}
+
+int pst_coarse_cg_f32(const void* b, const void* C, const void* free,
+                      void* x, int S, int free_lanes, int iters, int X, int Y,
+                      int Z, void* stream) {
+  return launch_coarse_cg<float>(b, C, free, x, S, free_lanes, iters, X, Y, Z,
+                                 stream);
+}
+
+int pst_coarse_cg_f64(const void* b, const void* C, const void* free,
+                      void* x, int S, int free_lanes, int iters, int X, int Y,
+                      int Z, void* stream) {
+  return launch_coarse_cg<double>(b, C, free, x, S, free_lanes, iters, X, Y,
+                                  Z, stream);
 }
 
 const char* pst_error_string(int code) {

@@ -15,6 +15,9 @@ import math
 import numpy as np
 import torch
 
+from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
+    coarse_cg_plain
+
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
 # (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
 # TFLOP/s float64 outside the tensor cores.
@@ -89,8 +92,15 @@ def work(name, shape, dtype):
     dtype "float32"), (P, xrows, grid) for plane_fma_cuda (P planes, x
     and y: P + 2 values a point, P multiply-adds), (L, B, (X, Y, Z)) for
     the batched kernels, whose per-lane coefficient is a B-term combine
-    (2B - 1 operations) before the multiply-add."""
+    (2B - 1 operations) before the multiply-add, (iters, grid) for
+    coarse_cg_cuda (b, 27 planes, a free byte and x a point; per point
+    and iteration 27 multiply-adds of the apply, two dot products and
+    the x, r, z and p updates: 54 + 4 + 7 operations; 4 to start)."""
     es = 4 if dtype == "float32" else 8
+    if name == "coarse_cg_cuda":
+        iters, grid = shape
+        S, G = _lanes_points(grid)
+        return S * G * (29 * es + 1), S * G * (65 * iters + 4)
     if name == "stencil_spmv_cuda":
         S, G = _lanes_points(shape)
         return S * 29 * G * es, S * 2 * 27 * G
@@ -135,12 +145,69 @@ def check_close(name, y, ref, dtype):
     return float(err.max())
 
 
+def spd_stencil(grid, rng):
+    """A 27-point stencil C (27, X, Y, Z) (numpy, float64) of a symmetric
+    positive definite operator: random positive weights w on the grid's
+    edges, C[o] = -w of the edge along offset o (zero where the neighbour
+    lies outside the grid), C[13] = the row's weights plus a positive
+    mass.  Diagonally dominant, condition ~60."""
+    X, Y, Z = grid
+    C = np.zeros((27,) + tuple(grid))
+    for o in range(14, 27):
+        dx, dy, dz = o // 9 - 1, o // 3 % 3 - 1, o % 3 - 1
+        w = 0.1 + rng.random(grid)
+        lo = (slice(max(0, -dx), X - max(0, dx)),
+              slice(max(0, -dy), Y - max(0, dy)),
+              slice(max(0, -dz), Z - max(0, dz)))
+        hi = tuple(slice(s.start + d, s.stop + d)
+                   for s, d in zip(lo, (dx, dy, dz)))
+        C[o][lo] = -w[lo]             # row p, column p + offset
+        C[26 - o][hi] = -w[lo]        # row p + offset, column p
+    C[13] = -C.sum(axis=0) + 0.5 + rng.random(grid)
+    return C
+
+
+def check_coarse_cg(name, y, args):
+    """Holds coarse_cg_cuda's y against its twin on the same inputs
+    `args`; returns max|y - twin|.  A fixed CG passes every rounding on,
+    amplified by the operator's conditioning, and more so once it has
+    converged (on the step04 app's coarsest level kernel and twin differ
+    in f64 by 4e7 unit roundoffs of max|x|).  So the bound is the
+    twin's own spread on these inputs: e = the largest max|twin(b', C')
+    - twin(b, C)| over 3 copies of b and C with each entry
+    moved by one unit roundoff of their dtype, up or down at random
+    (seeded); then max|y - twin| <= 8 e + atol, atol 2e-5 (f32) or 1e-12
+    (f64) times max|twin|."""
+    b, C, free, iters = args
+    ref = coarse_cg_plain(b, C, free, iters)
+    u = torch.finfo(b.dtype).eps
+    rng = np.random.default_rng(0)
+    e = 0.0
+    for _ in range(3):
+        moved = [a * (1 + u * torch.as_tensor(
+            rng.choice([-1.0, 1.0], tuple(a.shape)), dtype=a.dtype,
+            device=a.device)) for a in (b, C)]
+        e = max(e, float((coarse_cg_plain(*moved, free, iters)
+                          - ref).abs().max()))
+    scale = float(ref.abs().max())
+    atol = (2e-5 if b.dtype == torch.float32 else 1e-12) * scale
+    err = float((y - ref).abs().max())
+    if not bool(torch.isfinite(y).all()) or not err <= 8 * e + atol:
+        raise AssertionError(f"{name}: max abs err {err:.3e} against the "
+                             f"bound {8 * e + atol:.3e} (twin's spread "
+                             f"{e:.3e}, scale {scale:.3e})")
+    return err
+
+
 def kernel_inputs(name, shape, dtype, device, rng):
     """Random arguments of kernel `name` at `shape` (as `bound` takes it)
     in its layout: bf16 coefficients for stencil_spmv_bf16c_cuda (dtype
     float32 for x), xrows after x and C for plane_fma_cuda; the two
     batched kernels get one problem from one `rng` state, and sigma is
-    positive, as solved."""
+    positive, as solved; coarse_cg_cuda an SPD stencil a lane
+    (spd_stencil), a mask free on 85% of the points, one a lane, and b
+    on every point (so that the masked-out points' identity rows run
+    too)."""
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
@@ -154,6 +221,16 @@ def kernel_inputs(name, shape, dtype, device, rng):
         P, xrows, grid = shape
         grid = tuple(grid)
         return rand(grid), rand(grid[:-3] + (P,) + grid[-3:]), xrows
+    if name == "coarse_cg_cuda":
+        iters, grid = shape
+        grid = tuple(grid)
+        lanes = grid[:-3]
+        C = np.stack([spd_stencil(grid[-3:], rng)
+                      for _ in range(int(np.prod(lanes)))])
+        free = torch.as_tensor(rng.random(grid) < 0.85, device=device)
+        C = torch.as_tensor(C.reshape(lanes + (27,) + grid[-3:]),
+                            dtype=dtype, device=device)
+        return rand(grid), C, free, iters
     L, B, grid = shape
     grid = tuple(grid)
     Xs, coeff = rand((L,) + grid), rand((B, 27) + grid)

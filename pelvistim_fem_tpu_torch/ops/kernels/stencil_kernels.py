@@ -39,6 +39,19 @@ and the two probes of the dev SpMV A/B scripts, which no solve runs
                                        (dev/roofline_probe.py)
       twin: plane_fma_plain
 
+and the multigrid coarsest level in one launch:
+
+  coarse_cg(b, C, free, iters)         `iters` fixed CG iterations on
+                                       op(v) = free ? K (free ? v : 0) : v
+                                       from x = 0, Jacobi-preconditioned;
+                                       b 3-D, or S lanes each with its own
+                                       stencil and mask
+      CUDA: coarse_cg_cuda             replaces the coarse branch of
+                                       cycle_impl
+                                       (pelvistim_fem_tpu/ops/multigrid.py)
+      twin: coarse_cg_plain            (the loop fixed_cg, with
+                                       stencil_spmv_plain as its apply)
+
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
 
@@ -76,7 +89,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts of the CUDA wrappers (reset with reset_launches()).
 LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0,
-            "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0}
+            "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
+            "coarse_cg_cuda": 0}
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -140,6 +154,47 @@ def _probe_form(name, P, xrows):
     if xrows not in (1, 3) or P < 1 or (xrows == 3 and P != 27):
         raise ValueError(f"{name}: xrows {xrows} with {P} planes (xrows 1 "
                          "with P >= 1, or 3 with P = 27)")
+
+
+def fixed_cg(op, dinv, b, iters):
+    """`iters` CG iterations on op from x = 0, preconditioned by dinv,
+    with zero-guarded divisions (a fixed SPD approximation of op^-1, the
+    multigrid coarsest level's solve).  b 3-D: one system, dots over the
+    grid; b (S, X, Y, Z): S systems, dots per lane."""
+    if b.dim() == 3:
+        red, lanes = torch.sum, lambda a: a
+    else:
+        red = lambda a: torch.sum(a, dim=(1, 2, 3))
+        lanes = lambda a: a[:, None, None, None]
+    z0 = dinv * b
+    x, r, p, rz = torch.zeros_like(b), b, z0, red(b * z0)
+    for _ in range(iters):
+        ap = op(p)
+        denom = red(p * ap)
+        alpha = rz / torch.where(denom != 0, denom, 1.0)
+        x = x + lanes(alpha) * p
+        r = r - lanes(alpha) * ap
+        z = dinv * r
+        rz_n = red(r * z)
+        beta = rz_n / torch.where(rz != 0, rz, 1.0)
+        p = z + lanes(beta) * p
+        rz = rz_n
+    return x
+
+
+def coarse_cg_plain(b, C, free, iters):
+    """fixed_cg on op(v) = where(free, K where(free, v, 0), v), K =
+    stencil_spmv_plain with C, and dinv = 1 / where(free & (C_13 != 0),
+    C_13, 1).  b (X, Y, Z), C (27, X, Y, Z), free (X, Y, Z) bool; or S
+    lanes, b (S, X, Y, Z), C (S, 27, X, Y, Z), free (S or 1, X, Y, Z)."""
+    c13 = C[..., DIAG_OFFSET, :, :, :]
+    dinv = 1.0 / torch.where(free & (c13 != 0), c13, 1.0)
+
+    def op(v):
+        return torch.where(free, stencil_spmv_plain(
+            torch.where(free, v, 0.0), C), v)
+
+    return fixed_cg(op, dinv, b, iters)
 
 
 def batched_stencil_spmv_plain(Xs, coeff, sig):
@@ -242,8 +297,13 @@ def build(extra_flags=()) -> ctypes.CDLL:
                 fn = getattr(lib, f"pst_{name}_{dt}")
                 fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
                 fn.restype = i
-        lib.pst_max_bodies.argtypes = []
-        lib.pst_max_bodies.restype = i
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_coarse_cg_{dt}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
+            fn.restype = i
+        for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points):
+            fn.argtypes = []
+            fn.restype = i
         lib.pst_error_string.argtypes = [i]
         lib.pst_error_string.restype = ctypes.c_char_p
         _libs[key] = lib
@@ -411,11 +471,29 @@ def _dims_lminor(Xm, coeff, sig):
             f"pst_batched_stencil_spmv_lminor_{_SUFFIX[Xm.dtype]}")
 
 
+def _dims_coarse_cg(b, C, free, iters):
+    name = "coarse_cg_cuda"
+    _check(name, b.dtype, b.device, b=b, C=C)
+    _check(name, torch.bool, b.device, (torch.bool,), free=free)
+    S, X, Y, Z = _lanes_grid(name, b, C, 27)
+    lanes = tuple(b.shape[:-3])
+    if free.dim() != b.dim() or tuple(free.shape[-3:]) != (X, Y, Z) or \
+            tuple(free.shape[:-3]) not in (lanes, (1,) * len(lanes)):
+        raise ValueError(f"{name}: shapes b {tuple(b.shape)}, free "
+                         f"{tuple(free.shape)}")
+    if not isinstance(iters, int) or iters < 0:
+        raise ValueError(f"{name}: iters {iters!r}")
+    free_lanes = free.shape[0] if lanes else 1
+    return ((b, C, free), (S, free_lanes, iters, X, Y, Z),
+            f"pst_coarse_cg_{_SUFFIX[b.dtype]}")
+
+
 _DIMS = {"stencil_spmv_cuda": _dims_single,
          "batched_stencil_spmv_cuda": _dims_batched,
          "batched_stencil_spmv_lminor_cuda": _dims_lminor,
          "stencil_spmv_bf16c_cuda": _dims_bf16c,
-         "plane_fma_cuda": _dims_plane_fma}
+         "plane_fma_cuda": _dims_plane_fma,
+         "coarse_cg_cuda": _dims_coarse_cg}
 
 
 def launch(name, *args, extra_flags=()):
@@ -424,14 +502,21 @@ def launch(name, *args, extra_flags=()):
     return its output.  Counts nothing: the *_cuda wrappers, which launch
     the default build, count.  The batched kernels take 1..8 bodies and
     L*G and B*27*G within a 32-bit int, kernel 1, its bf16 probe and the
-    plane-FMA probe at most 65535 lanes (they index in 64 bits); the
-    launch raises otherwise."""
+    plane-FMA probe at most 65535 lanes (kernel 1, its probe and the
+    3-row plane-FMA form index in 64 bits, the 1-row form takes S*P*G
+    within an int), the coarse CG S*27*G within an int and at most
+    pst_coarse_cg_max_points() (2048) points a lane; the launch raises
+    otherwise."""
     tensors, dims, entry = _DIMS[name](*args)
     lib = build(extra_flags)
     if name.startswith("batched") and \
             not 1 <= dims[1] <= lib.pst_max_bodies():
         raise ValueError(f"{name}: {dims[1]} bodies, the kernel takes "
                          f"1..{lib.pst_max_bodies()}")
+    if name == "coarse_cg_cuda" and \
+            dims[3] * dims[4] * dims[5] > lib.pst_coarse_cg_max_points():
+        raise ValueError(f"{name}: grid {dims[3:]}, the kernel takes at "
+                         f"most {lib.pst_coarse_cg_max_points()} points")
     out = torch.empty_like(tensors[0])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -490,6 +575,17 @@ def plane_fma_cuda(x, C, xrows):
     return y
 
 
+def coarse_cg_cuda(b, C, free, iters):
+    """CUDA kernel for coarse_cg_plain's function, one block a lane: b
+    (X, Y, Z), C (27, X, Y, Z), free (X, Y, Z); or S lanes, b (S, X, Y,
+    Z), C (S, 27, X, Y, Z), free (S or 1, X, Y, Z).  b and C contiguous
+    float32 or float64, free contiguous bool, on one CUDA device; at most
+    2048 points a lane."""
+    x = launch("coarse_cg_cuda", b, C, free, iters)
+    LAUNCHES["coarse_cg_cuda"] += 1
+    return x
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -531,3 +627,11 @@ def plane_fma(x, C, xrows):
     if x.is_cuda:
         return plane_fma_cuda(x, C, xrows)
     return plane_fma_plain(x, C, xrows)
+
+
+def coarse_cg(b, C, free, iters):
+    """The multigrid coarsest level's fixed CG: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    if b.is_cuda:
+        return coarse_cg_cuda(b, C, free, iters)
+    return coarse_cg_plain(b, C, free, iters)

@@ -11,7 +11,11 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
   * Coarse operators by Galerkin probing (ops/lattice_assembly.py).
   * Smoother: damped Jacobi (omega = 0.7), nu pre and post sweeps; the
     coarsest level takes a fixed number of CG iterations, so the V-cycle
-    is a fixed SPD operator usable inside CG.
+    is a fixed SPD operator usable inside CG.  Where the level has its
+    own combined stencil (one operator, or one per lane), those
+    iterations are one call of kernels.stencil_kernels.coarse_cg (one
+    launch on the card); body-factored lanes run them as fixed_cg on
+    the batched apply.
 
 Three solvers: `solve_stencil_mg_refined` (one operator, the megatet
 leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
@@ -28,6 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (coarse_cg,
+                                                                 fixed_cg)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
                                                refine_lanes)
@@ -162,6 +168,8 @@ class MGHierarchy:
 
 
 def _level_op(level: MGLevel, sigma_table):
+    """(op, diag, C) of one level: its masked apply, Jacobi diagonal and
+    combined stencil."""
     C = combine_coeffs(level.coeff, sigma_table).contiguous()
     free = level.free
     diag = torch.where(free & (C[DIAG_OFFSET] != 0), C[DIAG_OFFSET], 1.0)
@@ -170,14 +178,15 @@ def _level_op(level: MGLevel, sigma_table):
         xm = torch.where(free, x, 0.0)
         return torch.where(free, stencil_spmv(xm, C), x)
 
-    return op, diag
+    return op, diag, C
 
 
 def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
                coarse_iters=24):
     """One V-cycle over explicit level data (finest first), damped-Jacobi
-    smoothing.  ops_diags: [(op, diag)] per level; frees: level free
-    masks; transfers: Transfer between consecutive levels."""
+    smoothing.  ops_diags: [(op, diag, C)] per level (_level_op); frees:
+    level free masks; transfers: Transfer between consecutive levels.
+    The coarsest level is coarse_cg on its combined stencil C."""
     n_levels = len(ops_diags)
 
     def smooth(op, dinv, x, b, n):
@@ -191,24 +200,11 @@ def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
         return smooth(op, dinv, x, b, n - 1) if n > 1 else x
 
     def cycle(level, b):
-        op, diag = ops_diags[level]
-        dinv = 1.0 / diag
+        op, diag, C = ops_diags[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration CG (a fixed SPD approximation)
-            z0 = dinv * b
-            x, r, p, rz = torch.zeros_like(b), b, z0, torch.sum(b * z0)
-            for _ in range(coarse_iters):
-                ap = op(p)
-                denom = torch.sum(p * ap)
-                alpha = rz / torch.where(denom != 0, denom, 1.0)
-                x = x + alpha * p
-                r = r - alpha * ap
-                z = dinv * r
-                rz_n = torch.sum(r * z)
-                beta = rz_n / torch.where(rz != 0, rz, 1.0)
-                p = z + beta * p
-                rz = rz_n
-            return x
+            return coarse_cg(b, C, frees[level], coarse_iters)
+        dinv = 1.0 / diag
         x = smooth0(op, dinv, b, nu)
         r = b - op(x)
         rc = transfers[level].restrict(r)
@@ -282,18 +278,16 @@ def _lanes(v):
     return v[:, None, None, None]
 
 
-def _red(a):
-    return torch.sum(a, dim=(1, 2, 3))
-
-
 def _fused_level_pieces(coeff, free, sig):
-    """(op, dinv, freeb, raw) for one lane-stacked level; raw is the
+    """(op, dinv, freeb, raw, C) for one lane-stacked level; raw is the
     unprojected apply.  sig (L, T) full sigma tables (body b at slot
     b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
-    applied body-factored by batched_stencil_spmv, with free (X, Y, Z);
-    or each lane has its own stack, coeff (L, B, 27, X, Y, Z) with free
-    (L, X, Y, Z) (a geometry batch): each lane's sigma is combined into
-    its own (L, 27, X, Y, Z) stencil, applied by the 4-D stencil_spmv."""
+    applied body-factored by batched_stencil_spmv, with free (X, Y, Z),
+    and C is None; or each lane has its own stack, coeff (L, B, 27, X, Y,
+    Z) with free (L, X, Y, Z) (a geometry batch): each lane's sigma is
+    combined into its own stencil C (L, 27, X, Y, Z), applied by the 4-D
+    stencil_spmv."""
+    C = None
     if coeff.dim() == 6:
         C = combine_lanes(coeff, sig.to(coeff.dtype)).contiguous()
         diag_l = C[:, DIAG_OFFSET]
@@ -318,13 +312,15 @@ def _fused_level_pieces(coeff, free, sig):
         return torch.where(freeb, raw(torch.where(freeb, Xs, 0.0)), Xs)
 
     diag = torch.where(freeb & (diag_l != 0), diag_l, 1.0)
-    return op, 1.0 / diag, freeb, raw
+    return op, 1.0 / diag, freeb, raw, C
 
 
 def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
     """One lane-stacked V-cycle (the recursion of cycle_impl with
     lane-wise reductions).  pieces: _fused_level_pieces per level;
-    b (L, X, Y, Z) -> z (L, X, Y, Z)."""
+    b (L, X, Y, Z) -> z (L, X, Y, Z).  The coarsest level is coarse_cg
+    where the lanes have their own stencils, else fixed_cg on the
+    body-factored apply."""
     n_levels = len(hier.levels)
 
     def smooth(op, dinv, x, bb, n):
@@ -333,23 +329,12 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
         return x
 
     def cycle(level, b):
-        op, dinv = pieces[level][:2]
+        op, dinv, freeb, _, C = pieces[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration lane-aware CG
-            z0 = dinv * b
-            x, r, p, rz = torch.zeros_like(b), b, z0, _red(b * z0)
-            for _ in range(coarse_iters):
-                ap = op(p)
-                denom = _red(p * ap)
-                alpha = rz / torch.where(denom != 0, denom, 1.0)
-                x = x + _lanes(alpha) * p
-                r = r - _lanes(alpha) * ap
-                z = dinv * r
-                rz_n = _red(r * z)
-                beta = rz_n / torch.where(rz != 0, rz, 1.0)
-                p = z + _lanes(beta) * p
-                rz = rz_n
-            return x
+            if C is not None:
+                return coarse_cg(b, C, freeb, coarse_iters)
+            return fixed_cg(op, dinv, b, coarse_iters)
         # the first sweep from x = 0 is exactly omega*dinv*b (saves the
         # zero apply; bit-identical to sweeping from zeros)
         x = smooth(op, dinv, omega * dinv * b, b, nu - 1) if nu else \
@@ -379,7 +364,8 @@ def _fused_bc_pieces(scase, sig):
     (build_padded_group: a leading lane axis on coeff, free, dirichlet
     and b_neumann) gives each lane its own operator and BCs."""
     L = sig.shape[0]
-    op, _, freeb, raw = _fused_level_pieces(scase.coeff, scase.free, sig)
+    op, _, freeb, raw, _ = _fused_level_pieces(scase.coeff, scase.free,
+                                               sig)
     lead = lambda a: a if a.dim() == 4 else a[None]
     phi_d = torch.where(scase.free, 0.0, scase.dirichlet)
     Kphi_d = raw(phi_d.expand((L,) + tuple(phi_d.shape[-3:])).contiguous())

@@ -108,11 +108,18 @@ def test_lminor_kernel_counts_and_refuses(dev):
 def test_kernels_spill_no_registers(dev):
     """ptxas -v of the build: no kernel instantiation (kernel 1, both
     batched kernels at every dtype and body count, the bf16-coefficient
-    kernel and the plane-FMA probe) spills to local memory."""
+    kernel, the plane-FMA probe's 3-row form and its 1-row form at P = 1,
+    27 and any, with and without 16-byte loads, and the coarse CG at
+    1-8 points a thread with its coefficients in shared or device
+    memory) spills to local memory."""
     usage = sk.ptxas_usage()
-    assert len(usage) == 2 + 2 * 2 * 8 + 3, sorted(usage)
+    assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2, \
+        sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
-            "plane_fma_kernel<double>"} <= set(usage)
+            "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
+            "plane_fma_row_kernel<double,0,1>",
+            "coarse_cg_kernel<float,1,1>",
+            "coarse_cg_kernel<double,8,0>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -359,3 +366,86 @@ def test_plane_fma_block_sizes_match_twin(dev, threads):
                                  np.random.default_rng(threads))
     y = sk.launch("plane_fma_cuda", *args, extra_flags=probe_flags(threads))
     torch.testing.assert_close(y, sk.plane_fma_plain(*args), **F32)
+
+
+# The 1-row plane-FMA form: P = 1 and 27 (unrolled) and 2 and 5 (the
+# runtime count), with 16-byte loads (G a multiple of 4) and without (G
+# odd, or x and C starting one element past an aligned address).
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("P", [1, 2, 5, 27])
+@pytest.mark.parametrize("grid", [(3, 5, 7), (4, 6, 5), (2, 9, 7, 4)])
+def test_plane_fma_row_forms_match_twin(dev, dtype, P, grid):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    dt = getattr(torch, dtype)
+    x, C, _ = measure.kernel_inputs("plane_fma_cuda", (P, 1, grid), dt, dev,
+                                    np.random.default_rng(P))
+    y = sk.plane_fma_cuda(x, C, 1)
+    torch.testing.assert_close(y, sk.plane_fma_plain(x, C, 1),
+                               **(F32 if dtype == "float32" else F64))
+
+    def shifted(a):                     # contiguous, 1 element off
+        buf = torch.empty(a.numel() + 1, dtype=dt, device=dev)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    xs, Cs = shifted(x), shifted(C)
+    assert xs.data_ptr() % 16 and Cs.data_ptr() % 16
+    # the scalar and the vector bodies sum each point in one order
+    assert torch.equal(sk.plane_fma_cuda(xs, Cs, 1), y)
+
+
+# The coarse CG: the step04 (5, 3, 3), megatet (5, 4, 3) and step02 (10,
+# 5, 2) coarsest shapes, S = 1 and 8, a mask shared by the lanes, and
+# (16, 11, 11), past shared memory for the coefficients (1,936 points: 8
+# a thread, the coefficients in device memory).
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("grid", [(5, 3, 3), (1, 5, 4, 3), (8, 10, 5, 2),
+                                  (8, 5, 3, 3), (16, 11, 11),
+                                  (2, 16, 11, 11)])
+def test_coarse_cg_kernel_matches_twin(dev, dtype, grid):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    args = measure.kernel_inputs("coarse_cg_cuda", (24, grid),
+                                 getattr(torch, dtype), dev,
+                                 np.random.default_rng(len(grid)))
+    measure.check_coarse_cg(f"coarse_cg {grid}", sk.coarse_cg_cuda(*args),
+                            args)
+
+
+def test_coarse_cg_kernel_shared_mask_and_zero_lane(dev):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    b, C, free, iters = measure.kernel_inputs(
+        "coarse_cg_cuda", (24, (8, 5, 3, 3)), torch.float32, dev,
+        np.random.default_rng(3))
+    b[3] = 0.0
+    args = (b, C, free[:1].contiguous(), iters)
+    x = sk.coarse_cg_cuda(*args)
+    measure.check_coarse_cg("coarse_cg shared mask", x, args)
+    assert torch.equal(x[3], torch.zeros_like(x[3]))
+    # lanes never mix: each lane is the kernel on that lane alone
+    for s in (0, 5):
+        assert torch.equal(x[s], sk.coarse_cg_cuda(
+            b[s].contiguous(), C[s].contiguous(), free[0].contiguous(),
+            iters))
+
+
+def test_coarse_cg_wrapper_counts_and_refuses(dev):
+    sk.reset_launches()
+    b = torch.ones((5, 3, 3), device=dev)
+    C = torch.ones((27, 5, 3, 3), device=dev)
+    free = torch.ones((5, 3, 3), dtype=torch.bool, device=dev)
+    sk.coarse_cg(b, C, free, 24)
+    assert sk.LAUNCHES["coarse_cg_cuda"] == 1
+    with pytest.raises(TypeError):       # a float mask
+        sk.coarse_cg_cuda(b, C, free.float(), 24)
+    with pytest.raises(ValueError):      # a mask of another grid
+        sk.coarse_cg_cuda(b, C, free[:4].contiguous(), 24)
+    with pytest.raises(ValueError):
+        sk.coarse_cg_cuda(b, C, free, -1)
+    with pytest.raises(ValueError):      # past 2048 points a lane
+        sk.coarse_cg_cuda(torch.ones((17, 16, 16), device=dev),
+                          torch.ones((27, 17, 16, 16), device=dev),
+                          torch.ones((17, 16, 16), dtype=torch.bool,
+                                     device=dev), 24)
+    assert sk.LAUNCHES["coarse_cg_cuda"] == 1
+

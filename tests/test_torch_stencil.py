@@ -174,11 +174,15 @@ def test_cpu_tensors_take_the_twin():
     assert torch.equal(sk.stencil_spmv_bf16c(x, Cb),
                        sk.stencil_spmv_bf16c_plain(x, Cb))
     assert torch.equal(sk.plane_fma(x, C, 3), sk.plane_fma_plain(x, C, 3))
+    free = torch.ones((4, 3, 3), dtype=torch.bool)
+    assert torch.equal(sk.coarse_cg(x, C, free, 2),
+                       sk.coarse_cg_plain(x, C, free, 2))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_lminor_cuda": 0,
                            "stencil_spmv_bf16c_cuda": 0,
-                           "plane_fma_cuda": 0}
+                           "plane_fma_cuda": 0,
+                           "coarse_cg_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
@@ -187,6 +191,8 @@ def test_cpu_tensors_take_the_twin():
         sk.plane_fma_cuda(x, C, 3)
     with pytest.raises(ValueError, match="must lie on"):
         sk.batched_stencil_spmv_cuda(Xs, coeff, sig)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.coarse_cg_cuda(x, C, free, 2)
 
 
 PTXAS_REPORT = """\
