@@ -34,6 +34,16 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 the 50 MB L2; the lane-major and lane-minor twins
                 against each other through a transpose; and a small
                 sweep solved on the card and on the CPU
+  3b. tail      the V-cycle tail kernel on the three hierarchies whose
+                V-cycles take it (the step04 app's (55, 31, 19) lattice,
+                the megatet's, step02's padded 8-lane group): one V-cycle
+                through the tail torch.equal to the level-by-level route
+                (kernel 1, PyTorch's ops, the coarse CG; tail_from =
+                len(levels)), in f32 and f64; the kernel against its twin
+                (measure.check_vcycle_tail) there and on a small
+                hierarchy that fits whole, f32 and f64; timed as the
+                kernels are, beside its twin and the level route it
+                replaces as one CUDA graph
   4. sweep      step04 contact sweep: rim-banded (89, 41, 19) lattice,
                 100 log-spaced contact conductivities, certified to a
                 1e-8 true f64 residual in chunks of 25 lanes; then the
@@ -68,8 +78,8 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 nodes, 167,104 tets; the certified linear sweep (kernel 2),
                 the f32 Pennes lanes and heating course, and the 15
                 sigma_skin(|E|) fixed points on the lattice (kernel 1 in
-                f64 and f32 at every level but the coarsest, which is one
-                coarse CG launch a V-cycle, kernel 2 probing the frozen
+                f64 and f32 on the two finest levels, the V-cycle's
+                other levels one tail launch, kernel 2 probing the frozen
                 V-cycle at one body); lanes, rows, temperatures, t95 and
                 the nonlinear columns against the JAX package's anchors;
                 walls and launches per app phase
@@ -90,13 +100,14 @@ The apps run through their entry points (run(parse_args(argv))) with
 kept and shown only if they fail.  Launch counters are set to 0 before
 each of the paths 4-14 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
-megatet, step02 and step04 the coarse CG), and every kernel must have
-run; kernel 1 must not have run at any shape the coarse CG ran at (every
-coarsest level goes through the coarse CG).  Every (kernel, dtype,
-shapes) the paths launched is counted (`launches_by_shape` in the
-kernels line), and each that phase 3 did not hold is then held against
-its twin on random inputs of those shapes; the coarse CG, on the first
-inputs it was given at each shape on the paths, in f32 and f64.
+megatet, step02 and step04 the V-cycle tail), and every kernel but the
+coarse CG must have run; the coarse CG must not have run on any path,
+nor kernel 1 at any level of a tail (every such level goes through the
+tail kernel).  Every (kernel, dtype, shapes) the paths launched is
+counted (`launches_by_shape` in the kernels line), and each that phase 3
+did not hold is then held against its twin on random inputs of those
+shapes; the tail on the first inputs it was given at each shape on the
+paths, in their dtype and, where the tail fits, in f64.
 Every phase checks its results and raises on failure; the exit code is
 then non-zero and no result line is printed.  The second-to-last line
 is a JSON summary of the kernels (times, bounds, launches); the last
@@ -314,6 +325,7 @@ REPLACES = {
     "stencil_spmv_bf16c_cuda": "dev/spmv_kernels_ab.py:68",
     "plane_fma_cuda": "dev/spmv_kernels_ab.py:107, dev/roofline_probe.py:90",
     "coarse_cg_cuda": f"{MULTIGRID}:428, {MULTIGRID}:799",
+    "vcycle_tail_cuda": f"{MULTIGRID}:425",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -329,6 +341,17 @@ LIBRARY_NOTE = {
     "coarse_cg_cuda": ("no one PyTorch call runs a fixed-iteration CG; "
                        "plain_graph_ms is the plain loop (~505 launches) "
                        "as one CUDA graph replay"),
+    "vcycle_tail_cuda": ("no one PyTorch call runs a V-cycle; "
+                         "plain_graph_ms is the level-by-level route it "
+                         "replaces (kernel 1, PyTorch's ops, the coarse "
+                         "CG kernel) as one CUDA graph replay"),
+}
+# Why an entry's launches on the paths are 0.
+LAUNCHES_NOTE = {
+    "coarse_cg_cuda": ("on no path: every V-cycle with its own stencils "
+                       "ends in the tail, whose last step is the coarse "
+                       "CG's body (coarse_cg_run); see vcycle_tail_cuda's "
+                       "launches"),
 }
 
 
@@ -540,41 +563,216 @@ def phase_parity(dev):
     return results, covered
 
 
+def tail_as(tail, dtype):
+    """`tail` (a VcycleTail) with its stencils and transfer weights cast
+    to `dtype`."""
+    from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
+        make_vcycle_tail
+
+    def cast(entries):
+        return [[tuple(t.to(dtype) if t.is_floating_point() else t
+                       for t in e) for e in axes] for axes in entries]
+
+    return make_vcycle_tail([C.to(dtype) for C in tail.Cs], tail.frees,
+                            cast(tail.pro), cast(tail.res))
+
+
+def tail_hierarchies(dev):
+    """The hierarchies of the three paths whose V-cycles run a tail, each
+    as (hierarchy, sigma table, lanes): the step04 app's own (55, 31, 19)
+    lattice (the table of its first contact level) and the megatet's
+    (112, 68, 41), both assembled in f64, one operator each; step02's 8
+    cases padded into one (8, 67, 29, 8) group with a hierarchy a lane
+    (its tables), as the app builds them."""
+    import torch
+    from pelvistim_fem_tpu_torch.apps import run_step02
+    from pelvistim_fem_tpu_torch.device import resolve_device
+    from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
+    from pelvistim_fem_tpu_torch.models.pressure import (
+        build_pressure_spec, sigma_tables_for_sweep)
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
+    from pelvistim_fem_tpu_torch.parallel.geometry_sweep import (
+        build_padded_group, build_padded_group_hierarchy)
+    from pelvistim_fem_tpu_torch.utils.config import (default_params,
+                                                      get_placement)
+    spec, p = build_pressure_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    out = {"step04": (hier, sigma_tables_for_sweep(scase, p)[0], False)}
+    spec, _ = megatet_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    out["megatet"] = (hier, scase.sigma_table, False)
+    p2 = default_params("step02_electrodes")
+    pl = get_placement(p2)
+    device = resolve_device(dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, built = run_step02.build_cases(
+            p2, pl.get("shapes", ["circle", "square"]),
+            pl.get("radii_m", [0.005, 0.010, 0.015, 0.020]), device)
+    stacked, _ = build_padded_group(built, dtype=torch.float64,
+                                    device=device)
+    if tuple(stacked.free.shape) != STEP02_ENVELOPE:
+        raise AssertionError(f"step02 group {tuple(stacked.free.shape)}")
+    out["step02"] = (build_padded_group_hierarchy(stacked),
+                     stacked.sigma_table, True)
+    return out
+
+
+def phase_tail(dev, results):
+    """The V-cycle tail on the paths' hierarchies (tail_hierarchies), f32
+    and f64: one V-cycle through it torch.equal to the level route
+    (tail_from = len(levels)), and from its first level the kernel
+    torch.equal to that route and within check_vcycle_tail of its twin,
+    timed (kernel, call, twin, the route as one CUDA graph) into
+    `results` as phase_parity's rows; then a hierarchy that fits whole,
+    f32 and f64.  Returns the levels each path's tail starts from."""
+    import torch
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    rng = np.random.default_rng(2)
+
+    def rhs(free, dtype):
+        return torch.where(free, torch.as_tensor(
+            rng.standard_normal(tuple(free.shape)), dtype=dtype,
+            device=dev), 0.0)
+
+    def kernel(b, tail, nu, omega, iters):
+        return sk.vcycle_tail_cuda(b, tail, nu, omega, iters)
+
+    def twin(b, tail, nu, omega, iters):
+        return sk.vcycle_tail_plain(b, tail, nu, omega, iters)
+
+    starts = {}
+    for name, (hier, sig, lanes) in tail_hierarchies(dev).items():
+        for dn in ("float32", "float64"):
+            dtype = getattr(torch, dn)
+            h, sg = hier.astype(dtype), sig.to(dtype)
+            n = len(h.levels)
+            t = tmg.tail_start([tuple(lv.free.shape[-3:])
+                                for lv in h.levels], dtype)
+            if lanes:
+                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
+                          for lv in h.levels]
+                frees = [pc[2] for pc in pieces]
+                _, tail = tmg._fused_tail(pieces, h, t, 2)
+                b0 = rhs(frees[0].expand(h.levels[0].coeff.shape[:1]
+                                         + frees[0].shape[1:]), dtype)
+                z = tmg._fused_cycle(pieces, h, b0)
+                want = tmg._fused_cycle(pieces, h, b0, tail_from=n)
+                sub = tmg.MGHierarchy(levels=h.levels[t:],
+                                      transfers=h.transfers[t:])
+
+                def route(b, *_, pieces=pieces, sub=sub, k=n - t):
+                    return tmg._fused_cycle(pieces[n - k:], sub, b,
+                                            tail_from=k)
+            else:
+                ops = [tmg._level_op(lv, sg) for lv in h.levels]
+                frees = [lv.free for lv in h.levels]
+                _, tail = tmg._v_tail([C for *_, C in ops], frees,
+                                      h.transfers, t)
+                b0 = rhs(frees[0], dtype)
+                z = tmg.make_v_cycle(h, sg)(b0)
+                want = tmg.make_v_cycle(h, sg, tail_from=n)(b0)
+
+                def route(b, *_, ops=ops, frees=frees, tr=h.transfers,
+                          t=t):
+                    return tmg.cycle_impl(ops[t:], frees[t:], tr[t:], b,
+                                          tail_from=n - t)
+            if tail is None:
+                raise AssertionError(f"tail {name} {dn}: no tail from "
+                                     f"level {t} of {n}")
+            starts[(name, dn)] = t
+            if not torch.equal(z, want):
+                raise AssertionError(f"tail {name} {dn}: the V-cycle through "
+                                     "the tail is not the level route's")
+            bt = rhs(frees[t].expand(tail.Cs[0].shape[:1]
+                                     + frees[t].shape[1:])
+                     if lanes else frees[t], dtype)
+            args = (bt, tail, 2, 0.7, COARSE_ITERS)
+            y = kernel(*args)
+            if not torch.equal(y, route(bt)):
+                raise AssertionError(f"tail {name} {dn}: the kernel is not "
+                                     "the level route's result")
+            err = measure.check_vcycle_tail(f"tail {name} {dn}", y, args)
+            shape = (2, COARSE_ITERS, tail.lanes, tail.shapes)
+            copies = measure.input_copies(args)
+            ms = measure.kernel_ms(kernel, copies)
+            turn = itertools.cycle(copies)
+            call = measure.cuda_ms(lambda: kernel(*next(turn)))
+            pms = measure.cuda_ms(lambda: twin(*next(turn)))
+            graph = measure.kernel_ms(route, copies)
+            row = (err, ms, pms, shape, call, None, graph)
+            results.setdefault(("vcycle_tail_cuda", dn), row)
+            results[("vcycle_tail_cuda", dn, shape)] = row
+            log(f"tail {name} {dn}: levels {[tuple(f.shape[-3:]) for f in frees]}"
+                f", tail from level {t} {shape}: one V-cycle through the "
+                f"tail equal to the level route (torch.equal), and from "
+                f"level {t}; max_abs_err {err:.3e} (max|x| "
+                f"{float(y.abs().max()):.3e}) kernel {ms:.4f} ms (one call "
+                f"with its wrapper {call:.4f} ms) plain {pms:.4f} ms, the "
+                f"level route as one CUDA graph {graph:.4f} ms")
+    grid = [(9, 7, 5), (5, 4, 3), (3, 3, 2)]
+    for dn in ("float32", "float64"):
+        for S in (1, 3):
+            args = measure.kernel_inputs(
+                "vcycle_tail_cuda", (2, COARSE_ITERS, S, grid),
+                getattr(torch, dn), dev, rng)
+            if tmg.tail_start(grid, args[0].dtype) != 0:
+                raise AssertionError(f"tail {grid} does not fit whole")
+            err = measure.check_vcycle_tail(f"tail {S} x {grid} {dn}",
+                                            kernel(*args), args)
+            log(f"tail {dn} {S} lanes x {grid}, from level 0: max_abs_err "
+                f"{err:.3e}")
+    return starts
+
+
 def signature(name, args):
     """(kernel, dtype of the first argument, input shapes and other
-    arguments) of one launch."""
+    arguments) of one launch; a V-cycle tail as (lanes, level grids)."""
+    def key(a):
+        if hasattr(a, "shapes"):
+            return (a.lanes, a.shapes)
+        return tuple(a.shape) if hasattr(a, "shape") else a
     return (name, str(args[0].dtype).split(".")[-1],
-            tuple(tuple(a.shape) if hasattr(a, "shape") else a
-                  for a in args))
+            tuple(key(a) for a in args))
 
 
 def shape_key(name, dn, shapes):
     """A launch signature as "<dtype> (L, B, (X, Y, Z))", "<dtype> (X, Y,
     Z)" for kernel 1 and its bf16 probe, "<dtype> (P, xrows, (X, Y, Z))"
     for the plane-FMA probe, "<dtype> (iters, (X, Y, Z))" for the coarse
-    CG (the parity lines' shapes)."""
+    CG, "<dtype> (nu, iters, S, level grids)" for the tail (the parity
+    lines' shapes)."""
     if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         return f"{dn} {shapes[0]}"
     if name == "plane_fma_cuda":
         return f"{dn} {(shapes[1][-4], shapes[2], shapes[0])}"
     if name == "coarse_cg_cuda":
         return f"{dn} {(shapes[3], shapes[0])}"
+    if name == "vcycle_tail_cuda":
+        return f"{dn} {tail_shape(shapes)}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
     return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
 
 
+def tail_shape(shapes):
+    """(nu, iters, S, level grids) of a tail launch's signature shapes."""
+    return (shapes[2], shapes[4]) + tuple(shapes[1])
+
+
 def record_launches(sk, seen, first):
     """Wrap the CUDA wrappers of `sk` so that each launch through the
-    package counts its signature in the Counter `seen` (and the coarse
-    CG keeps a copy of the first arguments of each signature in `first`);
-    returns a function that puts the wrappers back."""
+    package counts its signature in the Counter `seen` (and the V-cycle
+    tail keeps a copy of the first arguments of each signature in
+    `first`); returns a function that puts the wrappers back."""
     originals = {name: getattr(sk, name) for name in sk.LAUNCHES}
     for name, fn in originals.items():
         def wrapped(*args, _fn=fn, _name=name):
             sig = signature(_name, args)
             seen[sig] += 1
-            if _name == "coarse_cg_cuda" and sig not in first:
+            if _name == "vcycle_tail_cuda" and sig not in first:
                 first[sig] = tuple(a.clone() if hasattr(a, "clone") else a
                                    for a in args)
             return _fn(*args)
@@ -585,21 +783,25 @@ def record_launches(sk, seen, first):
 def phase_path_parity(dev, seen, covered, first):
     """Each (kernel, dtype, shapes) the paths launched and phase_parity did
     not hold (the MG levels, the assembly's probes, the right-hand sides),
-    against its twin on random inputs of those shapes; the coarse CG at
-    each of its path shapes on the first inputs the path gave it, in
-    their dtype and in the other."""
+    against its twin on random inputs of those shapes; the V-cycle tail
+    at each of its path shapes on the first inputs the path gave it, in
+    their dtype and, where the tail fits, in f64."""
     import torch
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     rng = np.random.default_rng(1)
     for (name, dn, shapes), args in sorted(first.items()):
-        b, C, free, iters = args
+        b, tail, nu, omega, iters = args
         for dtype in (torch.float32, torch.float64):
-            cast = (b.to(dtype), C.to(dtype), free, iters)
-            y = sk.coarse_cg_cuda(*cast)
-            err = measure.check_coarse_cg(f"path {name} {shapes}", y, cast)
-            log(f"parity path {name} {str(dtype)[6:]} {shapes} on the "
-                f"path's inputs ({dn}): max_abs_err {err:.3e} (max|x| "
+            if sk.vcycle_tail_smem(tail.shapes, dtype) > sk.SMEM_MAX:
+                continue
+            cast = (b.to(dtype), tail_as(tail, dtype), nu, omega, iters)
+            y = sk.vcycle_tail_cuda(*cast)
+            err = measure.check_vcycle_tail(f"path {name} {shapes}", y,
+                                            cast)
+            log(f"parity path {name} {str(dtype)[6:]} "
+                f"{tail_shape(shapes)} on the path's inputs ({dn}): "
+                f"max_abs_err {err:.3e} (max|x| "
                 f"{float(y.abs().max()):.3e})")
     todo = sorted(set(seen) - covered - set(first))
     for name, dn, shapes in todo:
@@ -1333,6 +1535,9 @@ def main():
     phase_small_reference(dev)
     log(f"parity: done in {time.perf_counter() - t0:.1f} s; clocks "
         f"{gpu_query('clocks.sm,clocks.max.sm')}")
+    t0 = time.perf_counter()
+    starts = phase_tail(dev, parity)
+    log(f"tail: done in {time.perf_counter() - t0:.1f} s")
 
     # 4-14. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
@@ -1370,7 +1575,7 @@ def main():
 
     sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda"],
                           sweep_leg)
-    mega = path("megatet", ["stencil_spmv_cuda", "coarse_cg_cuda"],
+    mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda"],
                 phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda"],
@@ -1384,7 +1589,7 @@ def main():
                       gpu, outdir)
         step02 = path("step02", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "coarse_cg_cuda"],
+                                 "vcycle_tail_cuda"],
                       phase_step02, dev, gpu, outdir, lanes=True)
         step02s = path("step02-serial", ["stencil_spmv_cuda"],
                        phase_step02_serial, dev, gpu, step02)
@@ -1392,7 +1597,7 @@ def main():
                       dev, gpu, outdir, lanes=True)
         step04 = path("step04", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "coarse_cg_cuda"],
+                                 "vcycle_tail_cuda"],
                       phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -1407,22 +1612,26 @@ def main():
     for (name, dn, shapes), n in seen.most_common():
         by_shape[name][shape_key(name, dn, shapes)] = n
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "coarse_cg_cuda":
             raise AssertionError(f"{name} never launched on the paths")
         if sum(by_shape[name].values()) != n:
             raise AssertionError(f"{name}: launches by shape add up to "
                                  f"{sum(by_shape[name].values())}, not {n}")
         log(f"launches by shape {name}: {by_shape[name]}")
-    # every coarsest level goes through the coarse CG, never kernel 1
-    coarse = {(dn, shapes[0]) for name, dn, shapes in seen
-              if name == "coarse_cg_cuda"}
+    # every level of a tail goes through the tail kernel: never kernel 1,
+    # and the coarse CG on no path
+    tails = {(dn, shapes[0][:-3] + s) for name, dn, shapes in seen
+             if name == "vcycle_tail_cuda" for s in shapes[1][1]}
     k1 = {(dn, shapes[0]): n for (name, dn, shapes), n in seen.items()
-          if name == "stencil_spmv_cuda" and (dn, shapes[0]) in coarse}
-    if k1:
-        raise AssertionError(f"stencil_spmv_cuda launched at coarse CG "
-                             f"shapes: {k1}")
-    log(f"coarsest levels: coarse_cg_cuda at {sorted(coarse)}, "
-        "stencil_spmv_cuda there 0 times")
+          if name == "stencil_spmv_cuda" and (dn, shapes[0]) in tails}
+    if k1 or launches["coarse_cg_cuda"]:
+        raise AssertionError(f"stencil_spmv_cuda launched at tail levels "
+                             f"{k1}; coarse_cg_cuda "
+                             f"{launches['coarse_cg_cuda']} times on the "
+                             "paths")
+    log(f"tails: vcycle_tail_cuda at {sorted(tails)} (from level "
+        f"{starts}), stencil_spmv_cuda there 0 times, coarse_cg_cuda 0 "
+        "times on the paths")
 
     kernels = []
     for name, dn, alt in (("stencil_spmv_cuda", "float32", "float64"),
@@ -1432,22 +1641,27 @@ def main():
                            "float32"),
                           ("stencil_spmv_bf16c_cuda", "float32", None),
                           ("plane_fma_cuda", "float32", "float64"),
-                          ("coarse_cg_cuda", "float32", "float64")):
+                          ("coarse_cg_cuda", "float32", "float64"),
+                          ("vcycle_tail_cuda", "float32", "float64")):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
         entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=launches[name], launches_by_shape=by_shape[name],
+            launches_note=LAUNCHES_NOTE.get(name) if not launches[name]
+            else None,
             max_abs_err=err, ms=ms, plain_ms=pms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             library_note=LIBRARY_NOTE[name] if lib is None else None,
             dtype=dn, shape=str(shape), call_ms=call, other_dtype=None,
             plain_graph_ms=graph)
         if alt is not None:
-            a_err, a_ms, a_pms, _, a_call, _, a_graph = parity[(name, alt)]
+            a_err, a_ms, a_pms, a_shape, a_call, _, a_graph = \
+                parity[(name, alt)]
             entry["other_dtype"] = dict(
-                dtype=alt, max_abs_err=a_err, ms=a_ms, plain_ms=a_pms,
-                call_ms=a_call, bound_ms=measure.bound(name, shape, alt)[0],
+                dtype=alt, shape=str(a_shape), max_abs_err=a_err, ms=a_ms,
+                plain_ms=a_pms, call_ms=a_call,
+                bound_ms=measure.bound(name, a_shape, alt)[0],
                 plain_graph_ms=a_graph)
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it"

@@ -17,11 +17,15 @@
 //   plane_fma               <- spmv_noop (27 planes, x rows i-1, i, i+1, no
 //                              neighbour shifts) and fma (P planes, one x
 //                              row; P = 1 is a copy)
-// and one kernel that runs a whole multigrid coarsest level in one launch:
+// and two kernels that run whole multigrid levels in one launch:
 //   coarse_cg               <- the coarse branch of cycle_impl
 //                              (pelvistim_fem_tpu/ops/multigrid.py: 24
 //                              fixed CG iterations of kernel 1's apply,
 //                              which the TPU ran as ~21 XLA ops each)
+//   vcycle_tail             <- cycle_impl's recursion from a level t to the
+//                              coarsest (multigrid.py:425-460: kernel 1 on
+//                              levels below FLAT_MIN_NODES is XLA there,
+//                              fused with the smoothing and transfers)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
@@ -30,6 +34,8 @@
 //   x (S, X, Y, Z), C (S, P, X, Y, Z)    [plane_fma; bf16c: C in bf16]
 //   b (S, X, Y, Z), C (S, 27, X, Y, Z), free (S or 1, X, Y, Z) bytes
 //                                        [coarse_cg]
+//   b (S, G_t), packed planes (S, 27 * sum G_l), packed free (S or 1,
+//   sum G_l), transfer tables                    [vcycle_tail]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
 // All are bound by device-memory bandwidth: per grid point the single
@@ -198,7 +204,8 @@ __device__ __forceinline__ float widen(__nv_bfloat16 c) {
 // y[s] = sum_o C[s, o] * shift_o(x[s]) for lane s = blockIdx.y: each lane
 // has its own stencil and its own grid; lanes never mix.  The one body of
 // kernel 1 and of its bf16-coefficient probe (TC the coefficient type, T
-// that of x, y and the sums): acc += C_o * x_o for o = 0..26 in order.
+// that of x, y and the sums): acc = fma(C_o, x_o, acc) for o = 0..26 in
+// order, the sum apply_point forms on shared memory.
 template <typename T, typename TC>
 __device__ __forceinline__ void stencil_point(const T* __restrict__ x,
                                               const TC* __restrict__ C,
@@ -232,7 +239,7 @@ __device__ __forceinline__ void stencil_point(const T* __restrict__ x,
         if (oky && kk >= 0 && kk < Z) {
           xv = x[((long long)ii * Y + jj) * Z + kk];
         }
-        acc += widen(C[(long long)o * G + p]) * xv;
+        acc = fma(widen(C[(long long)o * G + p]), xv, acc);
       }
     }
   }
@@ -594,17 +601,131 @@ constexpr int kCgMaxWarps = 8;
 constexpr int kCgMaxPoints = 8;  // points a thread at most
 constexpr unsigned kCgFree = 1u << 31;
 
-// Block-wide sum of v into slot[0..warps) (see coarse_cg_kernel).
+// Block-wide sum of v over the first `warps` warps, through slot[0..warps)
+// (see coarse_cg_kernel); the block's other warps only join the barrier.
 template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* slot) {
+__device__ __forceinline__ T block_sum(T v, T* slot, int warps) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0 && w < warps) slot[w] = v;
   __syncthreads();
-  const int warps = blockDim.x >> 5;
   T sum = slot[0];
-  for (int w = 1; w < warps; ++w) sum += slot[w];
+  for (int i = 1; i < warps; ++i) sum += slot[i];
   return sum;
+}
+
+// Point q's 27 neighbour bits (bit o: offset o lies in the grid) and, if
+// `free`, kCgFree.
+__device__ __forceinline__ unsigned nbr_word(int q, int X, int Y, int Z,
+                                             bool free) {
+  const Nbr nbr(q, X, Y, Z);
+  unsigned nb = free ? kCgFree : 0u;
+#pragma unroll
+  for (int o = 0; o < 27; ++o) nb |= (unsigned)nbr.ok(o) << o;
+  return nb;
+}
+
+// Kernel 1's apply at point q of a grid whose values v lie in shared
+// memory, c the grid's 27 planes of G points: acc = fma(C_o, v_o, acc) over
+// o = 0..26 in order (stencil_point's sum), v_o the neighbour along offset
+// o, 0 where bit o of nb is clear (outside the grid).
+template <typename T>
+__device__ __forceinline__ T apply_point(const T* c, const T* v, unsigned nb,
+                                         int q, int G, int Y, int Z) {
+  T acc = T(0);
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    const T pv = (nb >> o & 1u) ? v[q + shift(o, Y, Z)] : T(0);
+    acc = fma(c[o * G + q], pv, acc);
+  }
+  return acc;
+}
+
+// The coarse CG's work on one lane's level, shared by coarse_cg_kernel and
+// vcycle_tail_kernel: c its 27 planes, nbs its neighbour words (nbr_word),
+// b its right-hand side and x its result (shared or device memory); pm, pu
+// and tz scratch of G values and red 2 * kCgMaxWarps partials in shared
+// memory.  The first nt threads (a multiple of 32) take the points q =
+// tid + k * nt, k < K; the block's other threads only join the barriers.
+template <typename T, int K>
+__device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
+                              T* x, T* pm, T* pu, T* tz, T* red, int nt,
+                              int iters, int G, int Y, int Z) {
+  const int tid = threadIdx.x;
+  const bool act = tid < nt;
+  const int warps = nt >> 5;
+  T xk[K], rk[K], dk[K];  // x, r, dinv of the thread's points
+  unsigned fr = 0;        // bit k: point k is free
+  T part = T(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt;
+    xk[k] = rk[k] = dk[k] = T(0);
+    if (act && q < G) {
+      const bool f = (nbs[q] & kCgFree) != 0u;
+      fr |= (unsigned)f << k;
+      rk[k] = b[q];
+      const T c13 = c[13 * G + q];
+      dk[k] = T(1) / ((f && c13 != T(0)) ? c13 : T(1));
+      const T z = dk[k] * rk[k];
+      pu[q] = z;
+      pm[q] = f ? z : T(0);
+      part = fma(rk[k], z, part);
+    }
+  }
+  T rz = block_sum(part, red + kCgMaxWarps, warps);
+  for (int it = 0; it < iters; ++it) {
+    __syncthreads();  // every point's p written
+    T pap = T(0);
+    if (act) {
+      for (int q = tid; q < G; q += nt) {
+        const unsigned nb = nbs[q];
+        const T pq = pu[q];
+        const T ap = (nb & kCgFree) ? apply_point(c, pm, nb, q, G, Y, Z) : pq;
+        tz[q] = ap;
+        pap = fma(pq, ap, pap);
+      }
+    }
+    const T den = block_sum(pap, red, warps);
+    const T alpha = rz / (den != T(0) ? den : T(1));
+    T rzp = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = tid + k * nt;
+      if (act && q < G) {
+        xk[k] = fma(alpha, pu[q], xk[k]);
+        rk[k] = fma(-alpha, tz[q], rk[k]);
+        const T z = dk[k] * rk[k];
+        tz[q] = z;
+        rzp = fma(rk[k], z, rzp);
+      }
+    }
+    const T rzn = block_sum(rzp, red + kCgMaxWarps, warps);
+    const T beta = rzn / (rz != T(0) ? rz : T(1));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = tid + k * nt;
+      if (act && q < G) {
+        const T pn = fma(beta, pu[q], tz[q]);
+        pu[q] = pn;
+        pm[q] = (fr >> k & 1u) ? pn : T(0);
+      }
+    }
+    rz = rzn;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt;
+    if (act && q < G) x[q] = xk[k];
+  }
+}
+
+// Threads of a coarse CG on G points: one warp per 32 points, at most
+// kCgMaxWarps; then each thread takes ceil(G / threads) points.
+__host__ __device__ __forceinline__ int coarse_cg_threads(int G) {
+  const int w = (G + 31) / 32;
+  return 32 * (w < kCgMaxWarps ? w : kCgMaxWarps);
 }
 
 template <typename T, int K, bool kSmemC>
@@ -630,92 +751,336 @@ coarse_cg_kernel(const T* __restrict__ b, const T* __restrict__ C,
   T* tz = pu + G;                      // ap, then z
   T* red = tz + G;  // [0, kCgMaxWarps): p.ap partials; then r.z partials
   unsigned* nbs = reinterpret_cast<unsigned*>(red + 2 * kCgMaxWarps);
+  for (int q = tid; q < G; q += nt) nbs[q] = nbr_word(q, X, Y, Z, free[q]);
+  if constexpr (kSmemC) {
+    cp_async_wait_block();
+  } else {
+    __syncthreads();
+  }
+  coarse_cg_run<T, K>(c, nbs, b, x, pm, pu, tz, red, nt, iters, G, Y, Z);
+}
 
-  T xk[K], rk[K], dk[K];  // x, r, dinv of the thread's points
-  unsigned fr = 0;        // bit k: point k is free
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int q = tid + k * nt;
-    xk[k] = rk[k] = dk[k] = T(0);
-    if (q < G) {
-      const Nbr nbr(q, X, Y, Z);
-      unsigned nb = 0;
-#pragma unroll
-      for (int o = 0; o < 27; ++o) nb |= (unsigned)nbr.ok(o) << o;
-      if (free[q]) {
-        nb |= kCgFree;
-        fr |= 1u << k;
-      }
-      nbs[q] = nb;
-      rk[k] = b[q];
+// ── the V-cycle tail ──────────────────────────────────────────────────────
+//
+// cycle_impl's V-cycle from a level t down to the coarsest and back, in one
+// launch, one block a lane.  Run level by level, each level below t costs
+// ~75 launches a V-cycle (4 of kernel 1 at a few hundred to a few thousand
+// points, the smoothing's elementwise ops, the transfers' per-axis gathers)
+// and the coarsest one coarse-CG launch; every launch sits at the launch
+// floor, so the card idles between them.  Every level from t on fits one
+// SM's shared memory, so one block keeps the whole tail there:
+//   * Shared memory: every tail level's 27 coefficient planes, copied in at
+//     entry by cp.async, one commit group a level with the top level's
+//     first, so that each level waits only for its own planes (the top
+//     level's first sweep needs none: omega * dinv comes from the diagonal
+//     plane read from device memory); each level's x, b, omega * dinv and
+//     neighbour word a point; and, sized by the top level, the masked x
+//     (two buffers: a Jacobi sweep reads one and writes the other) and two
+//     temporaries for the residual and the transfers' axis passes, which
+//     the coarse CG reuses as its p, masked p and ap.  The transfer tables
+//     (a few hundred values) are read from device memory, where L1 keeps
+//     them.
+//   * Phases (a sweep, the residual, one axis of a transfer) are separated
+//     by __syncthreads() instead of kernel boundaries; in each, the threads
+//     stride over the level's points.  The coarsest level is coarse_cg_run,
+//     on the threads and in the order coarse_cg_kernel uses at its size.
+//   * The route it replaces is repeated bit for bit: the applies are kernel
+//     1's sum (apply_point); the smoothing, residual, masks and transfers
+//     round as PyTorch's op-by-op kernels do: __f*_rn / __d*_rn intrinsics
+//     keep nvcc from contracting a multiply and an add into an fma, in the
+//     twin's operand order: x + (omega dinv) (b - op(x)) with omega in T,
+//     dinv = 1 / diag by IEEE division; restriction acc = in_0 w_0, then
+//     acc + in_k w_k for every table entry k in order (zero-weight padding
+//     included); prolongation in_s0 wl + in_s1 wr.
+// Bound by latency, as the coarse CG: ~10 barrier-separated phases a level
+// plus the coarse CG's three barriers an iteration.
+constexpr int kTailMaxLevels = 8;
+
+#ifndef PST_TAIL_THREADS
+#define PST_TAIL_THREADS 256
+#endif
+static_assert(PST_TAIL_THREADS % 32 == 0 &&
+                  PST_TAIL_THREADS >= kCgMaxWarps * 32,
+              "the tail's block must hold the coarse CG's threads");
+
+struct TailLevel {
+  int X, Y, Z, G;
+  int off;  // the level's first point in the packed layout
+};
+struct TailTransfer {  // level l to l + 1, per axis
+  int K[3];            // restriction entries a coarse point
+  int ioff[3];         // s0 (fine points), then idx (coarse x K) in itab
+  int woff[3];         // wl, wr (fine points each), then wt in wtab
+};
+struct TailMeta {
+  int n;       // levels, the top one first
+  int points;  // points of all levels
+  TailLevel lv[kTailMaxLevels];
+  TailTransfer tr[kTailMaxLevels - 1];
+};
+
+// PyTorch's single-rounded elementwise ops (no contraction into fma).
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's newest commit groups are
+// in flight (0..kTailMaxLevels - 1).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait_group<0>(); break;
+    case 1: cp_async_wait_group<1>(); break;
+    case 2: cp_async_wait_group<2>(); break;
+    case 3: cp_async_wait_group<3>(); break;
+    case 4: cp_async_wait_group<4>(); break;
+    case 5: cp_async_wait_group<5>(); break;
+    case 6: cp_async_wait_group<6>(); break;
+    default: cp_async_wait_group<7>(); break;
+  }
+}
+
+// (i, j, k) of point p of an (n0, n1, n2) grid.
+__device__ __forceinline__ void ijk(int p, int n1, int n2, int* i, int* j,
+                                    int* k) {
+  *k = p % n2;
+  const int q = p / n2;
+  *j = q % n1;
+  *i = q / n1;
+}
+
+// One axis pass of the restriction R = P^T: out (o0, o1, o2) from `in`,
+// whose extent along axis a is nf; out[c] = sum_k in[idx[c, k]] wt[c, k]
+// in k order, acc = in_0 wt_0, then acc + in_k wt_k.  With `mask` (the
+// coarse level's words), out = free ? acc : 0.
+template <typename T>
+__device__ void restrict_axis(const T* in, T* out, int o0, int o1, int o2,
+                              int a, int nf, const int* __restrict__ idx,
+                              const T* __restrict__ wt, int K,
+                              const unsigned* mask) {
+  const int m1 = a == 1 ? nf : o1, m2 = a == 2 ? nf : o2;
+  const int st = a == 0 ? m1 * m2 : (a == 1 ? m2 : 1);
+  const int N = o0 * o1 * o2;
+  for (int p = threadIdx.x; p < N; p += blockDim.x) {
+    int i, j, k;
+    ijk(p, o1, o2, &i, &j, &k);
+    const int c = a == 0 ? i : (a == 1 ? j : k);
+    const int base = (i * m1 + j) * m2 + k - c * st;
+    const int* ix = idx + c * K;
+    const T* w = wt + c * K;
+    T acc = mul_rn(in[base + ix[0] * st], w[0]);
+    for (int e = 1; e < K; ++e) {
+      acc = add_rn(acc, mul_rn(in[base + ix[e] * st], w[e]));
+    }
+    out[p] = (mask == nullptr || (mask[p] & kCgFree)) ? acc : T(0);
+  }
+  __syncthreads();
+}
+
+// One axis pass of the prolongation: the value at (o0, o1, o2) with fine
+// index f along axis a is in_s wl[f] + in_(s+1) wr[f], s = s0[f], from `in`
+// whose extent along axis a is nc.  kAdd: the last pass, added to the
+// level's x (x + P xc) and written masked to xm; else stored in out.
+template <typename T, bool kAdd>
+__device__ void prolong_axis(const T* in, T* out, int o0, int o1, int o2,
+                             int a, int nc, const int* __restrict__ s0,
+                             const T* __restrict__ wl,
+                             const T* __restrict__ wr, T* xm,
+                             const unsigned* nb) {
+  const int m1 = a == 1 ? nc : o1, m2 = a == 2 ? nc : o2;
+  const int st = a == 0 ? m1 * m2 : (a == 1 ? m2 : 1);
+  const int N = o0 * o1 * o2;
+  for (int p = threadIdx.x; p < N; p += blockDim.x) {
+    int i, j, k;
+    ijk(p, o1, o2, &i, &j, &k);
+    const int f = a == 0 ? i : (a == 1 ? j : k);
+    const int at = (i * m1 + j) * m2 + k + (s0[f] - f) * st;
+    const T v = add_rn(mul_rn(in[at], wl[f]), mul_rn(in[at + st], wr[f]));
+    if constexpr (kAdd) {
+      const T xn = add_rn(out[p], v);
+      out[p] = xn;
+      xm[p] = (nb[p] & kCgFree) ? xn : T(0);
+    } else {
+      out[p] = v;
     }
   }
-  if constexpr (kSmemC) cp_async_wait_block();
-  T part = T(0);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int q = tid + k * nt;
-    if (q < G) {
-      const bool f = fr >> k & 1u;
-      const T c13 = c[13 * G + q];
-      dk[k] = T(1) / ((f && c13 != T(0)) ? c13 : T(1));
-      const T z = dk[k] * rk[k];
-      pu[q] = z;
-      pm[q] = f ? z : T(0);
-      part = fma(rk[k], z, part);
+  __syncthreads();
+}
+
+// One level's arrays in shared memory.
+template <typename T>
+struct TailView {
+  const T* c;  // 27 planes
+  T* x;
+  T* b;
+  const T* wd;  // omega * dinv
+  const unsigned* nb;
+  int X, Y, Z, G;
+};
+
+// A damped-Jacobi sweep x = x + wd (b - op(x)), op(x) = free ? K xm : x,
+// xm = free ? x : 0 read from xin; the new masked x goes to xout.
+template <typename T>
+__device__ void jacobi_sweep(const TailView<T>& v, const T* xin, T* xout) {
+  for (int q = threadIdx.x; q < v.G; q += blockDim.x) {
+    const unsigned nb = v.nb[q];
+    const bool f = (nb & kCgFree) != 0u;
+    const T xq = v.x[q];
+    const T ax = f ? apply_point(v.c, xin, nb, q, v.G, v.Y, v.Z) : xq;
+    const T xn = add_rn(xq, mul_rn(v.wd[q], sub_rn(v.b[q], ax)));
+    v.x[q] = xn;
+    xout[q] = f ? xn : T(0);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PST_TAIL_THREADS, 1)
+vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
+                   const unsigned char* __restrict__ Fp,
+                   const int* __restrict__ itab, const T* __restrict__ wtab,
+                   T* __restrict__ x, const __grid_constant__ TailMeta m,
+                   int free_stride, int nu, T omega, int iters) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const int n = m.n, P = m.points, G0 = m.lv[0].G;
+  T* planes = reinterpret_cast<T*>(s_raw);
+  T* xs = planes + 27 * P;
+  T* bs = xs + P;
+  T* wd = bs + P;
+  T* xm = wd + P;      // two buffers of G0: the masked x the applies read
+  T* s1 = xm + 2 * G0;  // the residual; transfer passes
+  T* s2 = s1 + G0;
+  T* red = s2 + G0;  // the coarse CG's partials
+  unsigned* nbs = reinterpret_cast<unsigned*>(red + 2 * kCgMaxWarps);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long lane = blockIdx.x;
+  const T* cl = Cp + lane * 27 * P;
+  const unsigned char* fl = Fp + lane * free_stride;
+  b += lane * G0;
+  x += lane * G0;
+
+  // the planes, one commit group a level, the top level's first
+  for (int l = 0; l < n; ++l) {
+    const int o = 27 * m.lv[l].off, cnt = 27 * m.lv[l].G;
+    for (int t = tid; t < cnt; t += nt) cp_async_elem(planes + o + t, cl + o + t);
+    cp_async_commit();
+  }
+  // meanwhile every level's neighbour words and omega * dinv, and b
+  for (int l = 0; l < n; ++l) {
+    const TailLevel L = m.lv[l];
+    for (int q = tid; q < L.G; q += nt) {
+      const bool f = fl[L.off + q] != 0;
+      nbs[L.off + q] = nbr_word(q, L.X, L.Y, L.Z, f);
+      const T c13 = cl[27LL * L.off + 13LL * L.G + q];
+      wd[L.off + q] = mul_rn(omega, T(1) / ((f && c13 != T(0)) ? c13 : T(1)));
     }
   }
-  T rz = block_sum(part, red + kCgMaxWarps);
-  for (int it = 0; it < iters; ++it) {
-    __syncthreads();  // every point's p written
-    T pap = T(0);
-    for (int q = tid; q < G; q += nt) {
-      const unsigned nb = nbs[q];
-      const T pq = pu[q];
-      T ap = pq;
-      if (nb & kCgFree) {
-        ap = T(0);
-#pragma unroll
-        for (int o = 0; o < 27; ++o) {
-          const T pv = (nb >> o & 1u) ? pm[q + shift(o, Y, Z)] : T(0);
-          ap = fma(c[o * G + q], pv, ap);
-        }
-      }
-      tz[q] = ap;
-      pap = fma(pq, ap, pap);
+  for (int q = tid; q < G0; q += nt) bs[q] = b[q];
+  __syncthreads();
+
+  auto view = [&](int l) {
+    const TailLevel L = m.lv[l];
+    return TailView<T>{planes + 27 * L.off, xs + L.off, bs + L.off,
+                       wd + L.off, nbs + L.off, L.X, L.Y, L.Z, L.G};
+  };
+  // down: pre-smooth, residual, restrict
+  for (int l = 0; l < n - 1; ++l) {
+    const TailView<T> v = view(l);
+    for (int q = tid; q < v.G; q += nt) {  // the first sweep, from x = 0
+      const T xq = mul_rn(v.wd[q], v.b[q]);
+      v.x[q] = xq;
+      xm[q] = (v.nb[q] & kCgFree) ? xq : T(0);
     }
-    const T den = block_sum(pap, red);
-    const T alpha = rz / (den != T(0) ? den : T(1));
-    T rzp = T(0);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int q = tid + k * nt;
-      if (q < G) {
-        xk[k] = fma(alpha, pu[q], xk[k]);
-        rk[k] = fma(-alpha, tz[q], rk[k]);
-        const T z = dk[k] * rk[k];
-        tz[q] = z;
-        rzp = fma(rk[k], z, rzp);
-      }
+    cp_async_wait_pending(n - 1 - l);  // this level's planes
+    __syncthreads();
+    int cur = 0;
+    for (int s = 1; s < nu; ++s, cur ^= 1) {
+      jacobi_sweep(v, xm + cur * G0, xm + (cur ^ 1) * G0);
     }
-    const T rzn = block_sum(rzp, red + kCgMaxWarps);
-    const T beta = rzn / (rz != T(0) ? rz : T(1));
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int q = tid + k * nt;
-      if (q < G) {
-        const T pn = fma(beta, pu[q], tz[q]);
-        pu[q] = pn;
-        pm[q] = (fr >> k & 1u) ? pn : T(0);
-      }
+    for (int q = tid; q < v.G; q += nt) {
+      const unsigned nb = v.nb[q];
+      const T ax = (nb & kCgFree)
+                       ? apply_point(v.c, xm + cur * G0, nb, q, v.G, v.Y, v.Z)
+                       : v.x[q];
+      s1[q] = sub_rn(v.b[q], ax);
     }
-    rz = rzn;
+    __syncthreads();
+    const TailLevel C = m.lv[l + 1];
+    const TailTransfer& tr = m.tr[l];
+    restrict_axis(s1, s2, C.X, v.Y, v.Z, 0, v.X, itab + tr.ioff[0] + v.X,
+                  wtab + tr.woff[0] + 2 * v.X, tr.K[0], (const unsigned*)nullptr);
+    restrict_axis(s2, s1, C.X, C.Y, v.Z, 1, v.Y, itab + tr.ioff[1] + v.Y,
+                  wtab + tr.woff[1] + 2 * v.Y, tr.K[1], (const unsigned*)nullptr);
+    restrict_axis(s1, bs + C.off, C.X, C.Y, C.Z, 2, v.Z,
+                  itab + tr.ioff[2] + v.Z, wtab + tr.woff[2] + 2 * v.Z,
+                  tr.K[2], nbs + C.off);
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int q = tid + k * nt;
-    if (q < G) x[q] = xk[k];
+  // the coarsest level: coarse_cg_kernel's CG at its thread count
+  {
+    const TailView<T> v = view(n - 1);
+    cp_async_wait_pending(0);
+    __syncthreads();
+    const int ntc = coarse_cg_threads(v.G);
+    const int need = (v.G + ntc - 1) / ntc;
+    T* pm = xm;
+    T* pu = xm + G0;
+    if (need <= 1) {
+      coarse_cg_run<T, 1>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
+                          v.G, v.Y, v.Z);
+    } else if (need <= 2) {
+      coarse_cg_run<T, 2>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
+                          v.G, v.Y, v.Z);
+    } else if (need <= 4) {
+      coarse_cg_run<T, 4>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
+                          v.G, v.Y, v.Z);
+    } else {
+      coarse_cg_run<T, 8>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
+                          v.G, v.Y, v.Z);
+    }
+    __syncthreads();
   }
+  // up: prolong and add, post-smooth
+  for (int l = n - 2; l >= 0; --l) {
+    const TailView<T> v = view(l);
+    const TailLevel C = m.lv[l + 1];
+    const TailTransfer& tr = m.tr[l];
+    prolong_axis<T, false>(xs + C.off, s1, v.X, C.Y, C.Z, 0, C.X,
+                           itab + tr.ioff[0], wtab + tr.woff[0],
+                           wtab + tr.woff[0] + v.X, nullptr, nullptr);
+    prolong_axis<T, false>(s1, s2, v.X, v.Y, C.Z, 1, C.Y, itab + tr.ioff[1],
+                           wtab + tr.woff[1], wtab + tr.woff[1] + v.Y,
+                           nullptr, nullptr);
+    prolong_axis<T, true>(s2, v.x, v.X, v.Y, v.Z, 2, C.Z, itab + tr.ioff[2],
+                          wtab + tr.woff[2], wtab + tr.woff[2] + v.Z, xm,
+                          v.nb);
+    int cur = 0;
+    for (int s = 0; s < nu; ++s, cur ^= 1) {
+      jacobi_sweep(v, xm + cur * G0, xm + (cur ^ 1) * G0);
+    }
+  }
+  for (int q = tid; q < G0; q += nt) x[q] = xs[q];
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory on the current
@@ -976,7 +1341,7 @@ int launch_coarse_cg(const void* b, const void* C, const void* free, void* x,
     return (int)cudaErrorInvalidValue;
   }
   if (G == 0 || S == 0) return 0;
-  const int threads = 32 * std::min(kCgMaxWarps, (int)((G + 31) / 32));
+  const int threads = coarse_cg_threads((int)G);
   const int need = (int)((G + threads - 1) / threads);
   const int free_stride = free_lanes == 1 ? 0 : (int)G;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -991,6 +1356,84 @@ int launch_coarse_cg(const void* b, const void* C, const void* free, void* x,
                                     Y, Z, threads, st);
   return launch_coarse_cg_k<T, 8>(b, C, free, x, S, free_stride, iters, X,
                                   Y, Z, threads, st);
+}
+
+// The tail's layout from meta = [n, X_0, Y_0, Z_0, ..., X_{n-1}, Y_{n-1},
+// Z_{n-1}, then K of each transfer l and axis a, (l, a) in order]: the
+// levels' points one after another (offsets in points; the planes at 27
+// times them), each transfer's tables one after another, per axis in order:
+// int s0 (fine points) and idx (coarse points x K); T wl and wr (fine
+// points each) and wt (coarse points x K).  False for a layout the kernel
+// does not take: 1..kTailMaxLevels levels, no extent below 1 or coarser
+// than its next level's, K >= 1, 27 times the points within an int.
+bool tail_meta(const int* meta, bool with_k, TailMeta* m) {
+  const int n = meta[0];
+  if (n < 1 || n > kTailMaxLevels) return false;
+  m->n = n;
+  long long off = 0;
+  for (int l = 0; l < n; ++l) {
+    const int* d = meta + 1 + 3 * l;
+    if (d[0] < 1 || d[1] < 1 || d[2] < 1) return false;
+    const long long G = (long long)d[0] * d[1] * d[2];
+    if (27 * (off + G) > INT_MAX) return false;
+    m->lv[l] = TailLevel{d[0], d[1], d[2], (int)G, (int)off};
+    off += G;
+  }
+  m->points = (int)off;
+  if (!with_k) return true;
+  const int* K = meta + 1 + 3 * n;
+  long long io = 0, wo = 0;
+  for (int l = 0; l + 1 < n; ++l) {
+    for (int a = 0; a < 3; ++a) {
+      const int nf = meta[1 + 3 * l + a], nc = meta[1 + 3 * (l + 1) + a];
+      const int k = K[3 * l + a];
+      if (k < 1 || nc > nf) return false;
+      m->tr[l].K[a] = k;
+      m->tr[l].ioff[a] = (int)io;
+      m->tr[l].woff[a] = (int)wo;
+      io += nf + (long long)nc * k;
+      wo += 2LL * nf + (long long)nc * k;
+      if (wo > INT_MAX) return false;
+    }
+  }
+  return true;
+}
+
+// Shared memory of a vcycle_tail block (see vcycle_tail_kernel): per point
+// of every level 27 planes, x, b and omega * dinv in T and a neighbour word;
+// four arrays of the top level's points; the coarse CG's partials.
+long long vcycle_tail_smem(const TailMeta& m, int elem) {
+  return (30LL * m.points + 4LL * m.lv[0].G + 2 * kCgMaxWarps) * elem +
+         4LL * m.points;
+}
+
+// S lanes, one block each; free shared by the lanes (free_lanes 1) or one
+// a lane (free_lanes S).  Refuses a layout tail_meta refuses, a coarsest
+// level past the coarse CG's kCgMaxWarps * 32 * kCgMaxPoints points, and a
+// tail past kMaxSmem.
+template <typename T>
+int launch_vcycle_tail(const void* b, const void* Cp, const void* Fp,
+                       const void* itab, const void* wtab, void* x,
+                       const int* meta, int S, int free_lanes, int nu,
+                       double omega, int iters, void* stream) {
+  TailMeta m;
+  if (S < 0 || nu < 0 || iters < 0 || !(free_lanes == 1 || free_lanes == S) ||
+      !tail_meta(meta, true, &m) ||
+      m.lv[m.n - 1].G > kCgMaxWarps * 32 * kCgMaxPoints) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = vcycle_tail_smem(m, (int)sizeof(T));
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  const auto kernel = vcycle_tail_kernel<T>;
+  static std::atomic<unsigned> opted{0};
+  const cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<S, PST_TAIL_THREADS, (int)smem, (cudaStream_t)stream>>>(
+      (const T*)b, (const T*)Cp, (const unsigned char*)Fp, (const int*)itab,
+      (const T*)wtab, (T*)x, m, free_lanes == 1 ? 0 : m.points, nu, (T)omega,
+      iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1072,6 +1515,33 @@ int pst_coarse_cg_f64(const void* b, const void* C, const void* free,
   return launch_coarse_cg<double>(b, C, free, x, S, free_lanes, iters, X, Y,
                                   Z, stream);
 }
+
+int pst_vcycle_tail_f32(const void* b, const void* Cp, const void* Fp,
+                        const void* itab, const void* wtab, void* x,
+                        const int* meta, int S, int free_lanes, int nu,
+                        double omega, int iters, void* stream) {
+  return launch_vcycle_tail<float>(b, Cp, Fp, itab, wtab, x, meta, S,
+                                   free_lanes, nu, omega, iters, stream);
+}
+
+int pst_vcycle_tail_f64(const void* b, const void* Cp, const void* Fp,
+                        const void* itab, const void* wtab, void* x,
+                        const int* meta, int S, int free_lanes, int nu,
+                        double omega, int iters, void* stream) {
+  return launch_vcycle_tail<double>(b, Cp, Fp, itab, wtab, x, meta, S,
+                                    free_lanes, nu, omega, iters, stream);
+}
+
+// Shared memory of a vcycle_tail block for the levels of meta ([n, then X,
+// Y, Z a level]) with elements of elem bytes; -1 for levels it refuses.
+long long pst_vcycle_tail_smem(const int* meta, int elem) {
+  TailMeta m;
+  return tail_meta(meta, false, &m) ? vcycle_tail_smem(m, elem) : -1;
+}
+
+int pst_tail_max_levels() { return kTailMaxLevels; }
+
+int pst_max_smem() { return kMaxSmem; }
 
 const char* pst_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -10,13 +10,14 @@ same work (`bound`).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
-from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
-    coarse_cg_plain
+from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
+    VcycleTail, coarse_cg_plain, make_vcycle_tail, vcycle_tail_plain)
 
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
 # (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
@@ -48,17 +49,21 @@ def cuda_ms(fn, reps=20, warmup=10):
 
 
 def input_copies(args):
-    """args and clones of its tensors (other arguments kept), enough that
-    using them in turn reads at least ROTATE_BYTES: between two uses of
-    one copy the others evict it from L2, so each launch reads its inputs
-    from HBM, as inside a solve where the CG vectors evict the
-    coefficients."""
+    """args and clones of its tensors and V-cycle tails (other arguments
+    kept), enough that using them in turn reads at least ROTATE_BYTES:
+    between two uses of one copy the others evict it from L2, so each
+    launch reads its inputs from HBM, as inside a solve where the CG
+    vectors evict the coefficients."""
     tensors = [a for a in args if torch.is_tensor(a)]
+    for a in args:
+        if isinstance(a, VcycleTail) and a.packed is not None:
+            tensors += list(a.packed[:-1])
     nbytes = sum(a.numel() * a.element_size() for a in tensors)
     n = max(2, math.ceil(ROTATE_BYTES / nbytes))
-    return [tuple(args)] + [
-        tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-        for _ in range(n - 1)]
+    copy = lambda a: a.clone() if torch.is_tensor(a) or \
+        isinstance(a, VcycleTail) else a
+    return [tuple(args)] + [tuple(copy(a) for a in args)
+                            for _ in range(n - 1)]
 
 
 def kernel_ms(kernel, copies, launches=20, reps=20, warmup=10):
@@ -95,8 +100,23 @@ def work(name, shape, dtype):
     (2B - 1 operations) before the multiply-add, (iters, grid) for
     coarse_cg_cuda (b, 27 planes, a free byte and x a point; per point
     and iteration 27 multiply-adds of the apply, two dot products and
-    the x, r, z and p updates: 54 + 4 + 7 operations; 4 to start)."""
+    the x, r, z and p updates: 54 + 4 + 7 operations; 4 to start),
+    (nu, iters, S, shapes) for vcycle_tail_cuda (S lanes, each with the
+    levels of grids `shapes`, the top one first: per lane each level's
+    27 planes and free byte, b and x of the top level; operations: at each
+    level but the coarsest 2 nu applies (a single one, the residual, at nu
+    = 0) of 27 multiply-adds a point, their sweeps' 3 operations and the
+    first sweep's and the residual's 1, then the coarse CG's; the
+    transfers' few operations a point are left out)."""
     es = 4 if dtype == "float32" else 8
+    if name == "vcycle_tail_cuda":
+        nu, iters, S, shapes = shape
+        pts = [int(np.prod(s)) for s in shapes]
+        applies = 2 * nu if nu else 1
+        ops = sum(G * (54 * applies + 3 * (applies - 1) + 2)
+                  for G in pts[:-1]) + pts[-1] * (65 * iters + 4)
+        return (S * ((27 * sum(pts) + 2 * pts[0]) * es + sum(pts)),
+                S * ops)
     if name == "coarse_cg_cuda":
         iters, grid = shape
         S, G = _lanes_points(grid)
@@ -167,36 +187,56 @@ def spd_stencil(grid, rng):
     return C
 
 
-def check_coarse_cg(name, y, args):
-    """Holds coarse_cg_cuda's y against its twin on the same inputs
-    `args`; returns max|y - twin|.  A fixed CG passes every rounding on,
-    amplified by the operator's conditioning, and more so once it has
+def check_against_spread(name, y, twin, inputs):
+    """Holds a kernel's y against twin(*inputs), the plain twin on the
+    same inputs; returns max|y - twin|.  A fixed CG passes every rounding
+    on, amplified by the operator's conditioning, and more so once it has
     converged (on the step04 app's coarsest level kernel and twin differ
-    in f64 by 4e7 unit roundoffs of max|x|).  So the bound is the
-    twin's own spread on these inputs: e = the largest max|twin(b', C')
-    - twin(b, C)| over 3 copies of b and C with each entry
-    moved by one unit roundoff of their dtype, up or down at random
+    in f64 by 4e7 unit roundoffs of max|x|).  So the bound is the twin's
+    own spread on these inputs: e = the largest max|twin(inputs') -
+    twin(inputs)| over 3 copies of the float tensors `inputs` with each
+    entry moved by one unit roundoff of their dtype, up or down at random
     (seeded); then max|y - twin| <= 8 e + atol, atol 2e-5 (f32) or 1e-12
     (f64) times max|twin|."""
-    b, C, free, iters = args
-    ref = coarse_cg_plain(b, C, free, iters)
-    u = torch.finfo(b.dtype).eps
+    ref = twin(*inputs)
+    dtype = inputs[0].dtype
+    u = torch.finfo(dtype).eps
     rng = np.random.default_rng(0)
     e = 0.0
     for _ in range(3):
         moved = [a * (1 + u * torch.as_tensor(
             rng.choice([-1.0, 1.0], tuple(a.shape)), dtype=a.dtype,
-            device=a.device)) for a in (b, C)]
-        e = max(e, float((coarse_cg_plain(*moved, free, iters)
-                          - ref).abs().max()))
+            device=a.device)) for a in inputs]
+        e = max(e, float((twin(*moved) - ref).abs().max()))
     scale = float(ref.abs().max())
-    atol = (2e-5 if b.dtype == torch.float32 else 1e-12) * scale
+    atol = (2e-5 if dtype == torch.float32 else 1e-12) * scale
     err = float((y - ref).abs().max())
     if not bool(torch.isfinite(y).all()) or not err <= 8 * e + atol:
         raise AssertionError(f"{name}: max abs err {err:.3e} against the "
                              f"bound {8 * e + atol:.3e} (twin's spread "
                              f"{e:.3e}, scale {scale:.3e})")
     return err
+
+
+def check_coarse_cg(name, y, args):
+    """coarse_cg_cuda's y against its twin on `args` (b, C, free, iters),
+    b and C moved (check_against_spread)."""
+    b, C, free, iters = args
+    return check_against_spread(
+        name, y, lambda b, C: coarse_cg_plain(b, C, free, iters), (b, C))
+
+
+def check_vcycle_tail(name, y, args):
+    """vcycle_tail_cuda's y against its twin on `args` (b, tail, nu,
+    omega, coarse_iters), b and every level's stencil moved
+    (check_against_spread: the tail ends in the coarse CG)."""
+    b, tail, nu, omega, iters = args
+
+    def twin(b, *Cs):
+        return vcycle_tail_plain(b, dataclasses.replace(tail, Cs=Cs),
+                                 nu, omega, iters)
+
+    return check_against_spread(name, y, twin, (b,) + tuple(tail.Cs))
 
 
 def kernel_inputs(name, shape, dtype, device, rng):
@@ -207,7 +247,7 @@ def kernel_inputs(name, shape, dtype, device, rng):
     positive, as solved; coarse_cg_cuda an SPD stencil a lane
     (spd_stencil), a mask free on 85% of the points, one a lane, and b
     on every point (so that the masked-out points' identity rows run
-    too)."""
+    too); vcycle_tail_cuda tail_inputs."""
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
@@ -221,6 +261,8 @@ def kernel_inputs(name, shape, dtype, device, rng):
         P, xrows, grid = shape
         grid = tuple(grid)
         return rand(grid), rand(grid[:-3] + (P,) + grid[-3:]), xrows
+    if name == "vcycle_tail_cuda":
+        return tail_inputs(shape, dtype, device, rng)
     if name == "coarse_cg_cuda":
         iters, grid = shape
         grid = tuple(grid)
@@ -238,3 +280,34 @@ def kernel_inputs(name, shape, dtype, device, rng):
     if name == "batched_stencil_spmv_cuda":
         return Xs, coeff, sig
     return Xs.permute(1, 2, 3, 0).contiguous(), coeff, sig.T.contiguous()
+
+
+def tail_inputs(shape, dtype, device, rng):
+    """(b, tail, nu, 0.7, iters) for vcycle_tail_cuda at shape (nu, iters,
+    S, shapes): levels of grids `shapes` (the top one first, each the
+    every-other-knot coarsening of the one before, multigrid.Transfer on
+    unit-spaced knots), an SPD stencil (spd_stencil) and a mask free on
+    85% of the points a level and lane, and b on every point of the top
+    level; S = 1 gives 3-D arrays (X, Y, Z), else S lanes."""
+    from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
+    nu, iters, S, shapes = shape
+    shapes = [tuple(s) for s in shapes]
+    lead = (S,) if S > 1 else ()
+    axes = [np.arange(n, dtype=float) for n in shapes[0]]
+    pro, res = [], []
+    for fine, coarse in zip(shapes, shapes[1:]):
+        tr = Transfer(axes)
+        if tr.nc != coarse:
+            raise ValueError(f"{fine} coarsens to {tr.nc}, not {coarse}")
+        p, r = tr._tensors(torch.device(device), dtype)
+        pro.append(p)
+        res.append(r)
+        axes = tr.coarse_axes
+    Cs = [torch.as_tensor(np.stack([spd_stencil(g, rng) for _ in range(S)])
+                          .reshape(lead + (27,) + g), dtype=dtype,
+                          device=device) for g in shapes]
+    frees = [torch.as_tensor(rng.random(lead + g) < 0.85, device=device)
+             for g in shapes]
+    b = torch.as_tensor(rng.standard_normal(lead + shapes[0]), dtype=dtype,
+                        device=device)
+    return b, make_vcycle_tail(Cs, frees, pro, res), nu, 0.7, iters

@@ -52,6 +52,22 @@ and the multigrid coarsest level in one launch:
       twin: coarse_cg_plain            (the loop fixed_cg, with
                                        stencil_spmv_plain as its apply)
 
+and a V-cycle's small levels in one launch:
+
+  vcycle_tail(b, tail, nu, omega, coarse_iters)
+                                       one V-cycle (damped-Jacobi sweeps,
+                                       the transfers, the coarse CG) over
+                                       the levels of `tail`
+                                       (make_vcycle_tail), from its top
+                                       level to its coarsest; b 3-D, or S
+                                       lanes each with its own stencils
+      CUDA: vcycle_tail_cuda           replaces cycle_impl's recursion
+                                       below a level t
+                                       (pelvistim_fem_tpu/ops/multigrid.py)
+      twin: vcycle_tail_plain          (that recursion on stencil_spmv_plain,
+                                       prolong_axes, restrict_axes and
+                                       coarse_cg_plain)
+
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
 
@@ -67,7 +83,9 @@ build with other tile constants, uncounted (profile_kernels.py).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import math
 import os
 import re
 import subprocess
@@ -90,7 +108,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0,
             "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
-            "coarse_cg_cuda": 0}
+            "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0}
+
+# The tail kernel's limits (kTailMaxLevels, kMaxSmem and the coarse CG's
+# most points a lane in csrc/stencil.cu; pst_tail_max_levels,
+# pst_max_smem and pst_coarse_cg_max_points report them).
+TAIL_MAX_LEVELS = 8
+SMEM_MAX = 232448
+COARSE_CG_MAX_POINTS = 2048
+_CG_MAX_WARPS = 8
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -197,6 +223,172 @@ def coarse_cg_plain(b, C, free, iters):
     return fixed_cg(op, dinv, b, iters)
 
 
+def _bcast(w, axis):
+    """w (n,) shaped to broadcast along grid axis `axis` of (..., X, Y,
+    Z)."""
+    shape = [1, 1, 1]
+    shape[axis] = -1
+    return w.reshape(shape)
+
+
+def prolong_axes(xc, pro):
+    """Trilinear prolongation (..., Xc, Yc, Zc) -> (..., X, Y, Z) with
+    pro[a] = (s0, s1, wl, wr) a grid axis (multigrid.Transfer's tables),
+    axis by axis in order 0, 1, 2: x[s0] * wl + x[s1] * wr along it."""
+    x = xc
+    for a, (s0, s1, wl, wr) in enumerate(pro):
+        dim = x.dim() - 3 + a
+        x = (x.index_select(dim, s0) * _bcast(wl, a)
+             + x.index_select(dim, s1) * _bcast(wr, a))
+    return x
+
+
+def restrict_axes(xf, res):
+    """The transpose of prolong_axes, (..., X, Y, Z) -> (..., Xc, Yc, Zc),
+    with res[a] = (idx, wt) (nc, K) a grid axis, axis by axis in order 0,
+    1, 2: coarse c sums x[idx[c, k]] * wt[c, k] in k order from the first
+    term (the zero-weight padding entries included)."""
+    y = xf
+    for a, (idx, wt) in enumerate(res):
+        dim = y.dim() - 3 + a
+        acc = None
+        for k in range(idx.shape[1]):
+            term = y.index_select(dim, idx[:, k]) * _bcast(wt[:, k], a)
+            acc = term if acc is None else acc + term
+        y = acc
+    return y
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VcycleTail:
+    """The levels of a V-cycle's tail, the top one first
+    (make_vcycle_tail): Cs[l] a level's combined stencil, (27, X, Y, Z) or,
+    S lanes, (S, 27, X, Y, Z); frees[l] its mask, (X, Y, Z) or (S or 1, X,
+    Y, Z) bool; pro[l] and res[l] the tables of the transfer from level l
+    to l + 1 (prolong_axes, restrict_axes); shapes[l] the level's grid (X,
+    Y, Z); packed, for stencils on a CUDA device, the kernel's arguments,
+    made once: the planes (S, 27 * points), the masks (S or 1, points),
+    the int and the float tables and the layout (a ctypes int array: the
+    level count, each level's X, Y, Z, each transfer axis's K)."""
+    Cs: tuple
+    frees: tuple
+    pro: tuple
+    res: tuple
+    shapes: tuple
+    packed: tuple | None = None
+
+    @property
+    def lanes(self) -> int:
+        return self.Cs[0].shape[0] if self.Cs[0].dim() == 5 else 1
+
+    def clone(self) -> "VcycleTail":
+        """The same levels with copies of the kernel's arguments."""
+        if self.packed is None:
+            return self
+        *tensors, layout = self.packed
+        return dataclasses.replace(
+            self, packed=tuple(t.clone() for t in tensors) + (layout,))
+
+
+def make_vcycle_tail(Cs, frees, pro, res) -> VcycleTail:
+    """A VcycleTail of the levels with stencils Cs and masks frees (the top
+    level first) and the len(Cs) - 1 transfers' tables `pro` and `res`
+    between them; where the stencils lie on a CUDA device, the kernel's
+    arguments are packed here, once.  Raises on tables that do not join
+    the levels."""
+    Cs, frees = tuple(Cs), tuple(frees)
+    pro, res = tuple(map(tuple, pro)), tuple(map(tuple, res))
+    shapes = tuple(tuple(int(d) for d in C.shape[-3:]) for C in Cs)
+    n = len(Cs)
+    if not n or len(frees) != n or len(pro) != n - 1 or len(res) != n - 1:
+        raise ValueError(f"make_vcycle_tail: {n} stencils, {len(frees)} "
+                         f"masks, {len(pro)} / {len(res)} transfers")
+    for l in range(n - 1):
+        for a in range(3):
+            s0, wt = pro[l][a][0], res[l][a][1]
+            if s0.shape[0] != shapes[l][a] or \
+                    wt.shape[0] != shapes[l + 1][a]:
+                raise ValueError(f"make_vcycle_tail: transfer {l} axis {a} "
+                                 f"does not join {shapes[l]} to "
+                                 f"{shapes[l + 1]}")
+    tail = VcycleTail(Cs, frees, pro, res, shapes)
+    if Cs[0].is_cuda:
+        tail = dataclasses.replace(tail, packed=_pack_tail(tail))
+    return tail
+
+
+def _pack_tail(tail):
+    """The kernel's arguments of `tail` (see VcycleTail.packed)."""
+    S = tail.lanes
+    lanes = [f.shape[0] if f.dim() == 4 else 1 for f in tail.frees]
+    if any(k not in (1, S) for k in lanes):
+        raise ValueError(f"make_vcycle_tail: masks of {lanes} lanes for "
+                         f"{S} lanes")
+    FL = S if any(k != 1 for k in lanes) else 1
+    Cp = torch.cat([C.reshape(S, -1) for C in tail.Cs], dim=1)
+    Fp = torch.cat([f.reshape(k, -1).expand(FL, -1)
+                    for f, k in zip(tail.frees, lanes)], dim=1)
+    ints, wts, ks = [], [], []
+    for p_axes, r_axes in zip(tail.pro, tail.res):
+        for (s0, _, wl, wr), (idx, wt) in zip(p_axes, r_axes):
+            ints += [s0, idx.reshape(-1)]
+            wts += [wl, wr, wt.reshape(-1)]
+            ks.append(int(idx.shape[1]))
+    Ip = torch.cat(ints).to(torch.int32) if ints else \
+        torch.zeros(1, dtype=torch.int32, device=Cp.device)
+    Wp = torch.cat(wts).to(Cp.dtype) if wts else torch.zeros_like(Cp[0, :1])
+    layout = [len(tail.shapes)] + [d for s in tail.shapes for d in s] + ks
+    return (Cp.contiguous(), Fp.contiguous(), Ip.contiguous(),
+            Wp.contiguous(), (ctypes.c_int * len(layout))(*layout))
+
+
+def vcycle_tail_smem(shapes, dtype) -> int:
+    """Bytes of shared memory of one vcycle_tail_kernel block for levels of
+    grids `shapes` (the top one first) in `dtype` (the kernel's formula,
+    which pst_vcycle_tail_smem reports): per point of every level its 27
+    planes, x, b and omega * dinv, and a 4-byte neighbour word; four
+    arrays of the top level's points; the coarse CG's 2 x 8 partials."""
+    pts = [math.prod(s) for s in shapes]
+    es = torch.finfo(dtype).bits // 8
+    return (30 * sum(pts) + 4 * pts[0] + 2 * _CG_MAX_WARPS) * es + \
+        4 * sum(pts)
+
+
+def vcycle_tail_plain(b, tail, nu=2, omega=0.7, coarse_iters=24):
+    """One V-cycle over the levels of `tail` from its top level, b (X, Y,
+    Z) or, S lanes, (S, X, Y, Z), as multigrid.cycle_impl runs it: at each
+    level but the coarsest x = omega * dinv * b, then nu - 1 damped-Jacobi
+    sweeps x + omega * dinv * (b - op(x)), with op(x) = where(free, K
+    where(free, x, 0), x) and dinv = 1 / where(free & (C_13 != 0), C_13,
+    1); the residual b - op(x) restricted and masked by the next level's
+    free; the next level's result prolonged and added; nu sweeps.  The
+    coarsest level is coarse_cg_plain."""
+    n = len(tail.Cs)
+
+    def cycle(level, b):
+        C, free = tail.Cs[level], tail.frees[level]
+        if level == n - 1:
+            return coarse_cg_plain(b, C, free, coarse_iters)
+        c13 = C[..., DIAG_OFFSET, :, :, :]
+        dinv = 1.0 / torch.where(free & (c13 != 0), c13, 1.0)
+
+        def op(v):
+            return torch.where(free, stencil_spmv_plain(
+                torch.where(free, v, 0.0), C), v)
+
+        x = omega * dinv * b
+        for _ in range(nu - 1):
+            x = x + omega * dinv * (b - op(x))
+        rc = restrict_axes(b - op(x), tail.res[level])
+        rc = torch.where(tail.frees[level + 1], rc, 0.0)
+        x = x + prolong_axes(cycle(level + 1, rc), tail.pro[level])
+        for _ in range(nu):
+            x = x + omega * dinv * (b - op(x))
+        return x
+
+    return cycle(0, b)
+
+
 def batched_stencil_spmv_plain(Xs, coeff, sig):
     """Lane-stacked body-factored SpMV.  Xs (L, X, Y, Z), coeff (B, 27,
     X, Y, Z), sig (L, B):  Y[l] = sum_o (sum_b sig[l, b] C_b[o]) *
@@ -301,7 +493,14 @@ def build(extra_flags=()) -> ctypes.CDLL:
             fn = getattr(lib, f"pst_coarse_cg_{dt}")
             fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
             fn.restype = i
-        for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_vcycle_tail_{dt}")
+            fn.argtypes = [ptr] * 7 + [i, i, i, ctypes.c_double, i, ptr]
+            fn.restype = i
+        lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
+        lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
+        for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points,
+                   lib.pst_tail_max_levels, lib.pst_max_smem):
             fn.argtypes = []
             fn.restype = i
         lib.pst_error_string.argtypes = [i]
@@ -488,12 +687,42 @@ def _dims_coarse_cg(b, C, free, iters):
             f"pst_coarse_cg_{_SUFFIX[b.dtype]}")
 
 
+def _dims_vcycle_tail(b, tail, nu, omega, coarse_iters):
+    name = "vcycle_tail_cuda"
+    if tail.packed is None:
+        raise ValueError(f"{name}: the tail's levels must lie on a CUDA "
+                         "device")
+    Cp, Fp, Ip, Wp, layout = tail.packed
+    _check(name, b.dtype, b.device, b=b, C=Cp, weights=Wp)
+    _check(name, torch.bool, b.device, (torch.bool,), free=Fp)
+    _check(name, torch.int32, b.device, (torch.int32,), tables=Ip)
+    top = ((tail.lanes,) if tail.Cs[0].dim() == 5 else ()) + tail.shapes[0]
+    if tuple(b.shape) != top:
+        raise ValueError(f"{name}: b {tuple(b.shape)}, the tail's top "
+                         f"level {top}")
+    smem = vcycle_tail_smem(tail.shapes, b.dtype)
+    if len(tail.shapes) > TAIL_MAX_LEVELS or smem > SMEM_MAX or \
+            math.prod(tail.shapes[-1]) > COARSE_CG_MAX_POINTS:
+        raise ValueError(f"{name}: levels {tail.shapes} in {b.dtype} need "
+                         f"{smem} bytes of shared memory (at most "
+                         f"{SMEM_MAX}, {TAIL_MAX_LEVELS} levels, a coarsest "
+                         f"level of {COARSE_CG_MAX_POINTS} points)")
+    for arg, v in (("nu", nu), ("coarse_iters", coarse_iters)):
+        if not isinstance(v, int) or v < 0:
+            raise ValueError(f"{name}: {arg} {v!r}")
+    return ((b, Cp, Fp, Ip, Wp),
+            (ctypes.addressof(layout), tail.lanes, Fp.shape[0], nu,
+             float(omega), coarse_iters),
+            f"pst_vcycle_tail_{_SUFFIX[b.dtype]}")
+
+
 _DIMS = {"stencil_spmv_cuda": _dims_single,
          "batched_stencil_spmv_cuda": _dims_batched,
          "batched_stencil_spmv_lminor_cuda": _dims_lminor,
          "stencil_spmv_bf16c_cuda": _dims_bf16c,
          "plane_fma_cuda": _dims_plane_fma,
-         "coarse_cg_cuda": _dims_coarse_cg}
+         "coarse_cg_cuda": _dims_coarse_cg,
+         "vcycle_tail_cuda": _dims_vcycle_tail}
 
 
 def launch(name, *args, extra_flags=()):
@@ -505,8 +734,9 @@ def launch(name, *args, extra_flags=()):
     plane-FMA probe at most 65535 lanes (kernel 1, its probe and the
     3-row plane-FMA form index in 64 bits, the 1-row form takes S*P*G
     within an int), the coarse CG S*27*G within an int and at most
-    pst_coarse_cg_max_points() (2048) points a lane; the launch raises
-    otherwise."""
+    pst_coarse_cg_max_points() (2048) points a lane, the V-cycle tail at
+    most TAIL_MAX_LEVELS levels within SMEM_MAX bytes of shared memory
+    (vcycle_tail_smem); the launch raises otherwise."""
     tensors, dims, entry = _DIMS[name](*args)
     lib = build(extra_flags)
     if name.startswith("batched") and \
@@ -586,6 +816,17 @@ def coarse_cg_cuda(b, C, free, iters):
     return x
 
 
+def vcycle_tail_cuda(b, tail, nu=2, omega=0.7, coarse_iters=24):
+    """CUDA kernel for vcycle_tail_plain's function, one block a lane: b
+    (X, Y, Z), or (S, X, Y, Z) for a tail of S lanes, contiguous, of the
+    tail's dtype (float32 or float64) and on its device; the tail made
+    from CUDA tensors (make_vcycle_tail), at most TAIL_MAX_LEVELS levels
+    within SMEM_MAX bytes of shared memory (vcycle_tail_smem)."""
+    x = launch("vcycle_tail_cuda", b, tail, nu, omega, coarse_iters)
+    LAUNCHES["vcycle_tail_cuda"] += 1
+    return x
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -635,3 +876,11 @@ def coarse_cg(b, C, free, iters):
     if b.is_cuda:
         return coarse_cg_cuda(b, C, free, iters)
     return coarse_cg_plain(b, C, free, iters)
+
+
+def vcycle_tail(b, tail, nu=2, omega=0.7, coarse_iters=24):
+    """One V-cycle over the levels of `tail`: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    if b.is_cuda:
+        return vcycle_tail_cuda(b, tail, nu, omega, coarse_iters)
+    return vcycle_tail_plain(b, tail, nu, omega, coarse_iters)

@@ -16,6 +16,11 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     iterations are one call of kernels.stencil_kernels.coarse_cg (one
     launch on the card); body-factored lanes run them as fixed_cg on
     the batched apply.
+  * The tail: on the card, the levels from the first one whose stencils,
+    with every coarser level's, fit one SM's shared memory (tail_start)
+    run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
+    repeats the level-by-level route bit for bit.  On the CPU the V-cycles
+    recurse level by level unless a `tail_from` is given.
 
 Three solvers: `solve_stencil_mg_refined` (one operator, the megatet
 leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
@@ -32,8 +37,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (coarse_cg,
-                                                                 fixed_cg)
+from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
+    SMEM_MAX, TAIL_MAX_LEVELS, coarse_cg, fixed_cg, make_vcycle_tail,
+    prolong_axes, restrict_axes, vcycle_tail, vcycle_tail_smem)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
                                                refine_lanes)
@@ -117,35 +123,13 @@ class Transfer:
             self._cache[key] = (pro, res)
         return self._cache[key]
 
-    @staticmethod
-    def _bcast(w, axis):
-        shape = [1, 1, 1]
-        shape[axis] = -1
-        return w.reshape(shape)
-
     def prolong(self, xc):
         """(..., Xc, Yc, Zc) -> (..., X, Y, Z)."""
-        pro, _ = self._tensors(xc.device, xc.dtype)
-        x = xc
-        for a, (s0, s1, wl, wr) in enumerate(pro):
-            dim = x.dim() - 3 + a
-            x = (x.index_select(dim, s0) * self._bcast(wl, a)
-                 + x.index_select(dim, s1) * self._bcast(wr, a))
-        return x
+        return prolong_axes(xc, self._tensors(xc.device, xc.dtype)[0])
 
     def restrict(self, xf):
         """(..., X, Y, Z) -> (..., Xc, Yc, Zc), the transpose of prolong."""
-        _, res = self._tensors(xf.device, xf.dtype)
-        y = xf
-        for a, (idx, wt) in enumerate(res):
-            dim = y.dim() - 3 + a
-            acc = None
-            for k in range(idx.shape[1]):
-                term = (y.index_select(dim, idx[:, k])
-                        * self._bcast(wt[:, k], a))
-                acc = term if acc is None else acc + term
-            y = acc
-        return y
+        return restrict_axes(xf, self._tensors(xf.device, xf.dtype)[1])
 
 
 @dataclasses.dataclass
@@ -181,13 +165,56 @@ def _level_op(level: MGLevel, sigma_table):
     return op, diag, C
 
 
+def tail_start(shapes, dtype) -> int:
+    """The level t of a hierarchy of grids `shapes` (finest first) from
+    which one V-cycle runs as one vcycle_tail launch: the first level
+    from which every coarser level fits one block's shared memory in
+    `dtype` (vcycle_tail_smem within SMEM_MAX, at most TAIL_MAX_LEVELS
+    levels).  0 for a hierarchy that fits whole; len(shapes) where not
+    even the coarsest level fits."""
+    n = len(shapes)
+    for t in range(max(0, n - TAIL_MAX_LEVELS), n):
+        if vcycle_tail_smem(shapes[t:], dtype) <= SMEM_MAX:
+            return t
+    return n
+
+
+def _v_tail(Cs, frees, transfers, tail_from):
+    """(t, tail): the level t from which a V-cycle over levels with
+    combined stencils Cs and masks frees is one vcycle_tail call, and that
+    call's levels (make_vcycle_tail, made here once).  tail_from None
+    takes tail_start's level for stencils on a CUDA device and none on
+    the CPU.  A tail of the coarsest level alone is the coarse CG, so t
+    >= len(Cs) - 1 gives (len(Cs), None): the level-by-level route."""
+    n = len(Cs)
+    if tail_from is None:
+        tail_from = tail_start([tuple(C.shape[-3:]) for C in Cs],
+                               Cs[0].dtype) if Cs[0].is_cuda else n
+    if not 0 <= tail_from <= n:
+        raise ValueError(f"tail_from {tail_from} of {n} levels")
+    if tail_from >= n - 1:
+        return n, None
+    tables = [tr._tensors(Cs[0].device, Cs[0].dtype)
+              for tr in transfers[tail_from:]]
+    return tail_from, make_vcycle_tail(Cs[tail_from:], frees[tail_from:],
+                                       [p for p, _ in tables],
+                                       [r for _, r in tables])
+
+
 def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
-               coarse_iters=24):
+               coarse_iters=24, tail_from=None, tail=None):
     """One V-cycle over explicit level data (finest first), damped-Jacobi
     smoothing.  ops_diags: [(op, diag, C)] per level (_level_op); frees:
     level free masks; transfers: Transfer between consecutive levels.
-    The coarsest level is coarse_cg on its combined stencil C."""
+    The coarsest level is coarse_cg on its combined stencil C.  From
+    level tail_from on, the cycle is one vcycle_tail call on `tail` (its
+    levels; made here from ops_diags when not given): tail_from None is
+    tail_start's level on the card and no tail on the CPU; len(levels)
+    is the level-by-level route."""
     n_levels = len(ops_diags)
+    if tail is None:
+        tail_from, tail = _v_tail([C for _, _, C in ops_diags], frees,
+                                  transfers, tail_from)
 
     def smooth(op, dinv, x, b, n):
         for _ in range(n):
@@ -200,6 +227,8 @@ def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
         return smooth(op, dinv, x, b, n - 1) if n > 1 else x
 
     def cycle(level, b):
+        if level == tail_from:
+            return vcycle_tail(b, tail, nu, omega, coarse_iters)
         op, diag, C = ops_diags[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration CG (a fixed SPD approximation)
@@ -217,14 +246,19 @@ def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
 
 
 def make_v_cycle(hier: MGHierarchy, sigma_table, *, nu=2, omega=0.7,
-                 coarse_iters=24):
-    """SPD preconditioner apply(r) -> z (one Jacobi V-cycle)."""
+                 coarse_iters=24, tail_from=None):
+    """SPD preconditioner apply(r) -> z (one Jacobi V-cycle).  The levels
+    from tail_from on (cycle_impl; default: tail_start's on the card, none
+    on the CPU) are one vcycle_tail call, its levels made here once."""
     ops_diags = [_level_op(lv, sigma_table) for lv in hier.levels]
     frees = [lv.free for lv in hier.levels]
+    tail_from, tail = _v_tail([C for _, _, C in ops_diags], frees,
+                              hier.transfers, tail_from)
 
     def apply(r):
         return cycle_impl(ops_diags, frees, hier.transfers, r, nu=nu,
-                          omega=omega, coarse_iters=coarse_iters)
+                          omega=omega, coarse_iters=coarse_iters,
+                          tail_from=tail_from, tail=tail)
 
     return apply
 
@@ -315,13 +349,29 @@ def _fused_level_pieces(coeff, free, sig):
     return op, 1.0 / diag, freeb, raw, C
 
 
-def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
+def _fused_tail(pieces, hier, tail_from, nu):
+    """_v_tail of a lane-stacked hierarchy: only lanes with their own
+    stencils (C not None) and nu >= 1 (nu = 0 starts the pre-smoothing
+    from zeros, not from omega * dinv * b) take a tail; body-factored
+    lanes keep fixed_cg on the batched apply."""
+    if nu < 1 or any(p[4] is None for p in pieces):
+        return len(pieces), None
+    return _v_tail([p[4] for p in pieces], [p[2] for p in pieces],
+                   hier.transfers, tail_from)
+
+
+def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
+                 tail_from=None, tail=None):
     """One lane-stacked V-cycle (the recursion of cycle_impl with
     lane-wise reductions).  pieces: _fused_level_pieces per level;
     b (L, X, Y, Z) -> z (L, X, Y, Z).  The coarsest level is coarse_cg
     where the lanes have their own stencils, else fixed_cg on the
-    body-factored apply."""
+    body-factored apply; lanes with their own stencils run the levels
+    from tail_from on as one vcycle_tail call (as cycle_impl;
+    _fused_tail)."""
     n_levels = len(hier.levels)
+    if tail is None:
+        tail_from, tail = _fused_tail(pieces, hier, tail_from, nu)
 
     def smooth(op, dinv, x, bb, n):
         for _ in range(n):
@@ -329,6 +379,8 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24):
         return x
 
     def cycle(level, b):
+        if level == tail_from:
+            return vcycle_tail(b, tail, nu, omega, coarse_iters)
         op, dinv, freeb, _, C = pieces[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration lane-aware CG
@@ -400,11 +452,13 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     op32 = _fused_level_pieces(sc32.coeff, sc32.free, sig32)[0]
     pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32)
               for lv in hier32.levels]
+    tail_from, tail = _fused_tail(pieces, hier32, None, nu)
 
     def M32(r):
         rm = torch.where(freeb, r, 0.0)
         z = _fused_cycle(pieces, hier32, rm, nu=nu, omega=omega,
-                         coarse_iters=coarse_iters)
+                         coarse_iters=coarse_iters, tail_from=tail_from,
+                         tail=tail)
         return torch.where(freeb, z, r)
 
     def inner(r32, tol_k):

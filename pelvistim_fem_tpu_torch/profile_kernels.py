@@ -1,6 +1,8 @@
-"""Tile variants of the two batched stencil kernels, timed on a CUDA card.
+"""Tile variants of the two batched stencil kernels, and block sizes of
+the V-cycle tail kernel, timed on a CUDA card.
 
-    python -m pelvistim_fem_tpu_torch.profile_kernels
+    python -m pelvistim_fem_tpu_torch.profile_kernels          # both
+    python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tail
 
 Builds the kernel library once per variant of the tile constants of
 csrc/stencil.cu (-D flags; all builds at once, each in _build/ under its
@@ -13,10 +15,17 @@ holds the kernel against its plain twin and reads its device time with
 spills of each variant's instantiations on those shapes, then a table of
 times, each with its share of the kernel's bound.  The production
 wrappers use the default build ("default" below).
+
+The tail kernel (`vcycle_tail_cuda`) is built at each of TAIL_THREADS
+threads a block (-DPST_TAIL_THREADS) and timed the same way on the paths'
+tails, SPD stencils on their level grids (step04's app, the megatet,
+step02's 8 lanes), f32 and f64, each build first held against the twin
+(measure.check_vcycle_tail).
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,6 +36,15 @@ SWEEP_GRID, MEGATET_GRID = (89, 41, 19), (112, 68, 41)
 SHAPES = [(25, 5, SWEEP_GRID), (15, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
 KERNELS = ["batched_stencil_spmv_cuda", "batched_stencil_spmv_lminor_cuda"]
 CONSTANTS = ("POINTS", "LANES", "THREADS", "MINB")
+# the tail kernel's block sizes, and the paths' tails (S lanes, level
+# grids) in f32 and in f64 (from the first level that fits in f64)
+TAIL_THREADS = (256, 512)
+TAILS = {"float32": [(1, ((15, 9, 6), (8, 5, 4), (5, 3, 3))),
+                     (1, ((15, 10, 6), (8, 6, 4), (5, 4, 3))),
+                     (8, ((18, 8, 3), (10, 5, 2)))],
+         "float64": [(1, ((8, 5, 4), (5, 3, 3))),
+                     (1, ((8, 6, 4), (5, 4, 3))),
+                     (8, ((18, 8, 3), (10, 5, 2)))]}
 
 
 def _flags(**cells):
@@ -117,7 +135,48 @@ def print_usage(variants):
                   f"{u['spill_bytes']:5d} B spilled")
 
 
-def main():
+def tail_flags(threads):
+    return (f"-DPST_TAIL_THREADS={threads}",) if threads != 256 else ()
+
+
+def time_tail(gpu):
+    """The tail kernel at each of TAIL_THREADS on TAILS: registers and
+    spills of each build, then device ms against the bound."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    for t in TAIL_THREADS:
+        for k, u in sorted(sk.ptxas_usage(tail_flags(t)).items()):
+            if k.startswith("vcycle_tail"):
+                print(f"  {t:5d} threads {k:28s} {u['registers']:4d} regs "
+                      f"{u['spill_bytes']:5d} B spilled")
+    print(f"tail kernel device ms by threads a block "
+          f"{TAIL_THREADS}, inputs from HBM; {gpu}")
+    rng = np.random.default_rng(1)
+    for dn, tails in TAILS.items():
+        for S, shapes in tails:
+            shape = (2, 24, S, shapes)
+            args = measure.kernel_inputs("vcycle_tail_cuda", shape,
+                                         getattr(torch, dn), "cuda", rng)
+            copies = measure.input_copies(args)
+            times = []
+            for t in TAIL_THREADS:
+                def kernel(*a, _fl=tail_flags(t)):
+                    return sk.launch("vcycle_tail_cuda", *a, extra_flags=_fl)
+                measure.check_vcycle_tail(f"{t} threads {shape}",
+                                          kernel(*args), args)
+                times.append(measure.kernel_ms(kernel, copies))
+            b_ms = measure.bound("vcycle_tail_cuda", shape, dn)[0]
+            print("  " + " ".join(f"{ms:8.4f}" for ms in times)
+                  + f"  {dn} {S} x {shapes} bound {b_ms:.6f}")
+            del copies
+            torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tail", action="store_true",
+                    help="only the tail kernel's block sizes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
@@ -126,11 +185,16 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(gpu)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        for f in [pool.submit(sk.build, fl) for fl in VARIANTS.values()]:
+    builds = [tail_flags(t) for t in TAIL_THREADS]
+    if not args.tail:
+        builds += list(VARIANTS.values())
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(sk.build, fl) for fl in builds]:
             f.result()
-    print_usage(VARIANTS)
-    print_table(time_variants(VARIANTS), gpu)
+    if not args.tail:
+        print_usage(VARIANTS)
+        print_table(time_variants(VARIANTS), gpu)
+    time_tail(gpu)
     return 0
 
 

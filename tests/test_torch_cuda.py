@@ -111,15 +111,17 @@ def test_kernels_spill_no_registers(dev):
     kernel, the plane-FMA probe's 3-row form and its 1-row form at P = 1,
     27 and any, with and without 16-byte loads, and the coarse CG at
     1-8 points a thread with its coefficients in shared or device
-    memory) spills to local memory."""
+    memory, and the V-cycle tail in both dtypes) spills to local
+    memory."""
     usage = sk.ptxas_usage()
-    assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2, \
+    assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2, \
         sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
             "coarse_cg_kernel<float,1,1>",
-            "coarse_cg_kernel<double,8,0>"} <= set(usage)
+            "coarse_cg_kernel<double,8,0>", "vcycle_tail_kernel<float>",
+            "vcycle_tail_kernel<double>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -449,3 +451,122 @@ def test_coarse_cg_wrapper_counts_and_refuses(dev):
                                      device=dev), 24)
     assert sk.LAUNCHES["coarse_cg_cuda"] == 1
 
+
+# The V-cycle tail: the paths' tails (step04's app hierarchy, the
+# megatet's, step02's 8 lanes), f64 from the first level that fits, and
+# small hierarchies that fit whole, 3-D and with 3 lanes.
+TAILS = {"float32": [(1, [(15, 9, 6), (8, 5, 4), (5, 3, 3)]),
+                     (1, [(15, 10, 6), (8, 6, 4), (5, 4, 3)]),
+                     (8, [(18, 8, 3), (10, 5, 2)]),
+                     (1, [(9, 7, 5), (5, 4, 3), (3, 3, 2)]),
+                     (3, [(7, 4, 6), (4, 3, 4), (3, 2, 3)])],
+         "float64": [(1, [(8, 5, 4), (5, 3, 3)]),
+                     (1, [(8, 6, 4), (5, 4, 3)]),
+                     (8, [(18, 8, 3), (10, 5, 2)]),
+                     (1, [(9, 7, 5), (5, 4, 3), (3, 3, 2)])]}
+
+
+@pytest.mark.parametrize("dtype,case", [(d, c) for d, cs in TAILS.items()
+                                        for c in cs])
+def test_vcycle_tail_kernel_matches_twin(dev, dtype, case):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    S, shapes = case
+    args = measure.kernel_inputs("vcycle_tail_cuda", (2, 24, S, shapes),
+                                 getattr(torch, dtype), dev,
+                                 np.random.default_rng(S + len(shapes)))
+    measure.check_vcycle_tail(f"vcycle_tail {case}",
+                              sk.vcycle_tail_cuda(*args), args)
+
+
+def test_vcycle_tail_equals_the_level_route(dev):
+    """One V-cycle through the tail is bit for bit the level-by-level
+    route (kernel 1, PyTorch's elementwise ops, coarse_cg_cuda) from every
+    tail level, on the coarse step04 hierarchy (f32 and f64) and on two
+    lanes with their own stencils and masks (_fused_cycle)."""
+    from pelvistim_fem_tpu_torch.models.pressure import (build_pressure_spec,
+                                                         sigma_tables)
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import \
+        assemble_lattice
+    spec, _ = build_pressure_spec(coarse=True)
+    _, hier = assemble_lattice(spec, torch.float64, device=dev)
+    tabs = torch.as_tensor(sigma_tables(spec, [5e-5, 0.5]), device=dev)
+    n = len(hier.levels)
+    rng = np.random.default_rng(5)
+    free = hier.levels[0].free
+    for dt in (torch.float32, torch.float64):
+        h = hier.astype(dt)
+        b = torch.where(free, _rand(rng, tuple(free.shape), dt, dev), 0.0)
+        want = tmg.make_v_cycle(h, tabs[0].to(dt), tail_from=n)(b)
+        t0 = tmg.tail_start([tuple(lv.free.shape) for lv in h.levels], dt)
+        assert t0 < n - 1
+        sk.reset_launches()
+        assert torch.equal(tmg.make_v_cycle(h, tabs[0].to(dt))(b), want)
+        assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+        assert sk.LAUNCHES["coarse_cg_cuda"] == 0
+        for t in range(t0, n - 1):
+            assert torch.equal(tmg.make_v_cycle(h, tabs[0].to(dt),
+                                                tail_from=t)(b), want), t
+    h = hier.astype(torch.float32)
+    stacked = tmg.MGHierarchy(
+        levels=tuple(tmg.MGLevel(
+            coeff=torch.stack([lv.coeff, 1.5 * lv.coeff]),
+            free=torch.stack([lv.free, lv.free & torch.as_tensor(
+                rng.random(tuple(lv.free.shape)) < 0.9, device=dev)]))
+            for lv in h.levels),
+        transfers=h.transfers)
+    pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, tabs.float())
+              for lv in stacked.levels]
+    B = torch.where(stacked.levels[0].free,
+                    _rand(rng, (2,) + tuple(free.shape), torch.float32,
+                          dev), 0.0)
+    want = tmg._fused_cycle(pieces, stacked, B, tail_from=n)
+    sk.reset_launches()
+    assert torch.equal(tmg._fused_cycle(pieces, stacked, B), want)
+    assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+    assert sk.LAUNCHES["coarse_cg_cuda"] == 0
+
+
+def test_vcycle_tail_wrapper_counts_and_refuses(dev):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    shapes = [(9, 7, 5), (5, 4, 3), (3, 3, 2)]
+    b, tail, nu, omega, iters = measure.kernel_inputs(
+        "vcycle_tail_cuda", (2, 24, 1, shapes), torch.float32, dev,
+        np.random.default_rng(6))
+    sk.reset_launches()
+    sk.vcycle_tail(b, tail, nu, omega, iters)
+    assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.vcycle_tail_cuda(b.cpu(), tail, nu, omega, iters)
+    with pytest.raises(TypeError):
+        sk.vcycle_tail_cuda(b.double(), tail, nu, omega, iters)
+    with pytest.raises(ValueError):      # not the top level's grid
+        sk.vcycle_tail_cuda(b[:8].contiguous(), tail, nu, omega, iters)
+    with pytest.raises(ValueError):
+        sk.vcycle_tail_cuda(b, tail, -1, omega, iters)
+    big = measure.kernel_inputs("vcycle_tail_cuda",
+                                (2, 24, 1, [(17, 16, 16), (9, 9, 9)]),
+                                torch.float32, dev, np.random.default_rng(7))
+    assert sk.vcycle_tail_smem(big[1].shapes, torch.float32) > sk.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.vcycle_tail_cuda(*big)
+    assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+
+
+def test_vcycle_tail_smem_matches_library(dev):
+    """The Python mirror of the kernel's shared-memory formula equals
+    pst_vcycle_tail_smem, and the library's limits equal the module's."""
+    import ctypes
+    lib = sk.build()
+    assert lib.pst_max_smem() == sk.SMEM_MAX
+    assert lib.pst_tail_max_levels() == sk.TAIL_MAX_LEVELS
+    assert lib.pst_coarse_cg_max_points() == sk.COARSE_CG_MAX_POINTS
+    for shapes in ([(15, 9, 6), (8, 5, 4), (5, 3, 3)], [(5, 3, 3)],
+                   [(28, 16, 10), (15, 9, 6), (8, 5, 4), (5, 3, 3)],
+                   [(18, 8, 3), (10, 5, 2)]):
+        layout = [len(shapes)] + [d for s in shapes for d in s]
+        arr = (ctypes.c_int * len(layout))(*layout)
+        for dt in (torch.float32, torch.float64):
+            es = torch.finfo(dt).bits // 8
+            assert lib.pst_vcycle_tail_smem(arr, es) == \
+                sk.vcycle_tail_smem(shapes, dt), (shapes, dt)

@@ -182,7 +182,8 @@ def test_cpu_tensors_take_the_twin():
                            "batched_stencil_spmv_lminor_cuda": 0,
                            "stencil_spmv_bf16c_cuda": 0,
                            "plane_fma_cuda": 0,
-                           "coarse_cg_cuda": 0}
+                           "coarse_cg_cuda": 0,
+                           "vcycle_tail_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
