@@ -26,7 +26,12 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 3) coarsest level and, on SPD stencils, at the megatet's
                 and step02's coarsest shapes and past shared memory
                 (16, 11, 11), its plain loop also timed as one CUDA
-                graph (the launches it replaces); kernel
+                graph (the launches it replaces); the lanes' combine
+                (combine_lanes) within one ulp of its twin at the sweep's
+                and step04's tail levels, one by one and packed, and on
+                random inputs, kernel 1 on its output torch.equal to
+                kernel 2 on the same coefficients and sigma, timed beside
+                torch.matmul of the same sum; kernel
                 device times (a CUDA graph of 20 launches, replayed
                 between CUDA events) and call and twin times (CUDA
                 events), medians of 20, each launch on one of enough
@@ -34,9 +39,12 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 the 50 MB L2; the lane-major and lane-minor twins
                 against each other through a transpose; and a small
                 sweep solved on the card and on the CPU
-  3b. tail      the V-cycle tail kernel on the three hierarchies whose
+  3b. tail      the V-cycle tail kernel on the five hierarchies whose
                 V-cycles take it (the step04 app's (55, 31, 19) lattice,
-                the megatet's, step02's padded 8-lane group): one V-cycle
+                the megatet's, step02's padded 8-lane group, and two
+                body-factored ones whose tail levels are combined a lane
+                by combine_lanes: the sweep's first 25-lane chunk and
+                the step04 app's 15 linear lanes): one V-cycle
                 through the tail torch.equal to the level-by-level route
                 (kernel 1, PyTorch's ops, the coarse CG; tail_from =
                 len(levels)), in f32 and f64; the kernel against its twin
@@ -100,14 +108,17 @@ The apps run through their entry points (run(parse_args(argv))) with
 kept and shown only if they fail.  Launch counters are set to 0 before
 each of the paths 4-14 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
-megatet, step02 and step04 the V-cycle tail), and every kernel but the
-coarse CG must have run; the coarse CG must not have run on any path,
-nor kernel 1 at any level of a tail (every such level goes through the
-tail kernel).  Every (kernel, dtype, shapes) the paths launched is
-counted (`launches_by_shape` in the kernels line), and each that phase 3
-did not hold is then held against its twin on random inputs of those
-shapes; the tail on the first inputs it was given at each shape on the
-paths, in their dtype and, where the tail fits, in f64.
+sweep, megatet, jacobi, step02 and step04 the V-cycle tail; the sweep,
+jacobi and step04 the lanes' combine), and every kernel but the coarse
+CG must have run; the coarse CG must not have run on any path, nor
+kernel 1 at any level of a tail, nor kernel 2 with more than one body
+(a V-cycle's apply, not the assembly's Galerkin probes) at any grid of
+a tail (every such level goes through the tail kernel).  Every (kernel,
+dtype, shapes) the paths launched is counted (`launches_by_shape` in the
+kernels line), and each that phase 3 did not hold is then held against
+its twin on random inputs of those shapes; the tail on the first inputs
+it was given at each shape on the paths, in their dtype and, where the
+tail fits, in f64.
 Every phase checks its results and raises on failure; the exit code is
 then non-zero and no result line is printed.  The second-to-last line
 is a JSON summary of the kernels (times, bounds, launches); the last
@@ -138,8 +149,9 @@ MEGATET_ITERS = 50
 MEGATET_TETS, MEGATET_GRID = 1_747_398, (112, 68, 41)
 SWEEP_NODES, SWEEP_GRID = 66_228, (89, 41, 19)
 SWEEP_TETS = 361_920
-# the coarsest level of the sweep's hierarchy, where kernel 2 launches most
-SWEEP_COARSEST = (7, 4, 3)
+# the coarser levels of the sweep's hierarchy: kernel 2 runs the V-cycle
+# at the first two, the tail kernel at the last two (timed for the record)
+SWEEP_LEVELS = [(45, 21, 10), (23, 11, 6), (12, 6, 4), (7, 4, 3)]
 # The reference's extraction of the same 100-lane sweep (BENCH_r05).
 MAX_FLUX_ERR, MAX_FLUX_ERR_CONSISTENT = 0.00564, 1.86e-7
 TOL = 1e-8
@@ -326,6 +338,7 @@ REPLACES = {
     "plane_fma_cuda": "dev/spmv_kernels_ab.py:107, dev/roofline_probe.py:90",
     "coarse_cg_cuda": f"{MULTIGRID}:428, {MULTIGRID}:799",
     "vcycle_tail_cuda": f"{MULTIGRID}:425",
+    "combine_lanes_cuda": f"{PALLAS}:410",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -345,7 +358,18 @@ LIBRARY_NOTE = {
                          "plain_graph_ms is the level-by-level route it "
                          "replaces (kernel 1, PyTorch's ops, the coarse "
                          "CG kernel) as one CUDA graph replay"),
+    "combine_lanes_cuda": None,
 }
+# the lanes' combine: the sweep's tail levels (25 lanes, 5 bodies) packed
+# (the main row) and one by one, step04's linear tail (15 lanes) packed,
+# and random edges (1 body, 8 bodies with 40 lanes); the single-level ones
+# also hold kernel 1 on the result against kernel 2
+SWEEP_TAIL = ((12, 6, 4), (7, 4, 3))
+STEP04_TAIL = ((15, 9, 6), (8, 5, 4), (5, 3, 3))
+COMBINES = [(25, 5, SWEEP_TAIL), (25, 5, SWEEP_TAIL[:1]),
+            (25, 5, SWEEP_TAIL[1:]), (15, 5, STEP04_TAIL),
+            (15, 5, STEP04_TAIL[:1]), (3, 1, ((9, 7, 5),)),
+            (40, 8, ((5, 4, 3),))]
 # Why an entry's launches on the paths are 0.
 LAUNCHES_NOTE = {
     "coarse_cg_cuda": ("on no path: every V-cycle with its own stencils "
@@ -413,6 +437,23 @@ def phase_parity(dev):
 
     covered = set()
 
+    def combine_identity(dn, shape, args):
+        """stencil_spmv_cuda on combine_lanes_cuda's C equals
+        batched_stencil_spmv_cuda on (coeff, sig): torch.equal."""
+        coeff, sig = args
+        L, B, (grid,) = shape
+        X = rand((L,) + tuple(grid), getattr(torch, dn))
+        C = sk.combine_lanes_cuda(coeff, sig).reshape((L, 27) + tuple(grid))
+        cb = coeff.reshape((B, 27) + tuple(grid))
+        covered.add(signature("stencil_spmv_cuda", (X, C)))
+        covered.add(signature("batched_stencil_spmv_cuda", (X, cb, sig)))
+        if not torch.equal(sk.stencil_spmv_cuda(X, C),
+                           sk.batched_stencil_spmv_cuda(X, cb, sig)):
+            raise AssertionError(f"combine {shape} {dn}: kernel 1 on the "
+                                 "combined stencils is not kernel 2")
+        log(f"parity combine_lanes_cuda {dn} {shape}: kernel 1 on C "
+            "torch.equal to kernel 2 on (coeff, sig)")
+
     def probe_row_edge(dn, P, grid):
         """The 1-row probe against its twin, then on copies of its inputs
         one element off 16-byte alignment (the scalar body): equal."""
@@ -458,6 +499,11 @@ def phase_parity(dev):
         if name == "coarse_cg_cuda":
             err = measure.check_coarse_cg(f"{name} {shape} {dn}", y, args)
             scale = f" (max|x| {float(y.abs().max()):.3e})"
+        elif name == "combine_lanes_cuda":
+            ref = twin(*args)
+            ulps = measure.check_ulps(f"{name} {shape} {dn}", y, ref, 1)
+            err = float((y - ref).abs().max())
+            scale = f" ({ulps:.2f} ulp at most)"
         else:
             ref = twin(*args)
             torch.cuda.synchronize()
@@ -495,8 +541,8 @@ def phase_parity(dev):
     edges = [(3, 5, (8, 7, 6)), (5, 2, (14, 9, 8)), (1, 8, (9, 7, 5)),
              (33, 1, (9, 7, 5)), (40, 3, (9, 7, 6))]
     batched = edges + [(LANES_PER_CHUNK, 5, SWEEP_GRID),
-                       (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID),
-                       (LANES_PER_CHUNK, 5, SWEEP_COARSEST)]
+                       (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
+    batched += [(LANES_PER_CHUNK, 5, grid) for grid in SWEEP_LEVELS]
     lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
     timed_lanes = [STEP02_LANES, STEP03_LANES, (1,) + MEGATET_GRID]
     lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
@@ -531,6 +577,16 @@ def phase_parity(dev):
         if dn == "float32":             # bf16 coefficients, f32 x and sums
             for grid in PROBE_TIMED + PROBE_EDGES:
                 run("stencil_spmv_bf16c_cuda", dn, grid, grid in PROBE_TIMED)
+        # the lanes' combine, then kernel 1 on its result against kernel 2
+        for L, B, grids in COMBINES:
+            shape = (L, B, grids)
+            args = measure.kernel_inputs("combine_lanes_cuda", shape,
+                                         getattr(torch, dn), dev, rng)
+            run("combine_lanes_cuda", dn, shape, len(grids) > 1,
+                library=lambda coeff, sig: torch.matmul(sig, coeff),
+                args=args)
+            if len(grids) == 1:
+                combine_identity(dn, shape, args)
     for dn in ("float32", "float64"):
         for grid in PROBE_TIMED:
             k1 = results[("stencil_spmv_cuda", dn, grid)][1]
@@ -578,29 +634,34 @@ def tail_as(tail, dtype):
 
 
 def tail_hierarchies(dev):
-    """The hierarchies of the three paths whose V-cycles run a tail, each
-    as (hierarchy, sigma table, lanes): the step04 app's own (55, 31, 19)
+    """The hierarchies of the paths whose V-cycles run a tail, each as
+    (hierarchy, sigma tables, kind): the step04 app's own (55, 31, 19)
     lattice (the table of its first contact level) and the megatet's
-    (112, 68, 41), both assembled in f64, one operator each; step02's 8
-    cases padded into one (8, 67, 29, 8) group with a hierarchy a lane
-    (its tables), as the app builds them."""
+    (112, 68, 41), both assembled in f64, one operator each ("one");
+    step02's 8 cases padded into one (8, 67, 29, 8) group with a
+    hierarchy a lane (its tables), as the app builds them ("stacks");
+    then the body-factored sweeps ("bodies"): the sweep's (89, 41, 19)
+    lattice with its first chunk's 25 tables, and the step04 app's
+    lattice with its 15 contact levels' tables."""
     import torch
     from pelvistim_fem_tpu_torch.apps import run_step02
     from pelvistim_fem_tpu_torch.device import resolve_device
     from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
     from pelvistim_fem_tpu_torch.models.pressure import (
-        build_pressure_spec, sigma_tables_for_sweep)
+        SWEEP_LANES, SWEEP_LANES_PER_CHUNK, build_pressure_spec,
+        sigma_tables_for_sweep, sweep_spec)
     from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
     from pelvistim_fem_tpu_torch.parallel.geometry_sweep import (
         build_padded_group, build_padded_group_hierarchy)
     from pelvistim_fem_tpu_torch.utils.config import (default_params,
                                                       get_placement)
     spec, p = build_pressure_spec()
-    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
-    out = {"step04": (hier, sigma_tables_for_sweep(scase, p)[0], False)}
+    scase, hier04 = assemble_lattice(spec, torch.float64, device=dev)
+    tables04 = sigma_tables_for_sweep(scase, p)
+    out = {"step04": (hier04, tables04[0], "one")}
     spec, _ = megatet_spec()
     scase, hier = assemble_lattice(spec, torch.float64, device=dev)
-    out["megatet"] = (hier, scase.sigma_table, False)
+    out["megatet"] = (hier, scase.sigma_table, "one")
     p2 = default_params("step02_electrodes")
     pl = get_placement(p2)
     device = resolve_device(dev)
@@ -613,7 +674,12 @@ def tail_hierarchies(dev):
     if tuple(stacked.free.shape) != STEP02_ENVELOPE:
         raise AssertionError(f"step02 group {tuple(stacked.free.shape)}")
     out["step02"] = (build_padded_group_hierarchy(stacked),
-                     stacked.sigma_table, True)
+                     stacked.sigma_table, "stacks")
+    spec, _, tables = sweep_spec(SWEEP_LANES)
+    _, hier = assemble_lattice(spec, torch.float64, device=dev)
+    out["sweep"] = (hier, torch.as_tensor(
+        tables[:SWEEP_LANES_PER_CHUNK], device=dev), "bodies")
+    out["step04-linear"] = (hier04, tables04, "bodies")
     return out
 
 
@@ -644,20 +710,25 @@ def phase_tail(dev, results):
         return sk.vcycle_tail_plain(b, tail, nu, omega, iters)
 
     starts = {}
-    for name, (hier, sig, lanes) in tail_hierarchies(dev).items():
+    for name, (hier, sig, kind) in tail_hierarchies(dev).items():
         for dn in ("float32", "float64"):
             dtype = getattr(torch, dn)
             h, sg = hier.astype(dtype), sig.to(dtype)
             n = len(h.levels)
             t = tmg.tail_start([tuple(lv.free.shape[-3:])
                                 for lv in h.levels], dtype)
+            lanes = kind != "one"
             if lanes:
-                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
-                          for lv in h.levels]
+                own, planes = [None] * n, None
+                if kind == "bodies":    # the tail levels combined a lane
+                    planes, own[t:] = tmg.combined_tail_levels(h, sg, t)
+                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg, C)
+                          for lv, C in zip(h.levels, own)]
                 frees = [pc[2] for pc in pieces]
-                _, tail = tmg._fused_tail(pieces, h, t, 2)
-                b0 = rhs(frees[0].expand(h.levels[0].coeff.shape[:1]
-                                         + frees[0].shape[1:]), dtype)
+                _, tail = tmg._fused_tail(pieces, h, t, 2, planes)
+                L = sg.shape[0] if kind == "bodies" else \
+                    h.levels[0].coeff.shape[0]
+                b0 = rhs(frees[0].expand((L,) + frees[0].shape[1:]), dtype)
                 z = tmg._fused_cycle(pieces, h, b0)
                 want = tmg._fused_cycle(pieces, h, b0, tail_from=n)
                 sub = tmg.MGHierarchy(levels=h.levels[t:],
@@ -666,6 +737,12 @@ def phase_tail(dev, results):
                 def route(b, *_, pieces=pieces, sub=sub, k=n - t):
                     return tmg._fused_cycle(pieces[n - k:], sub, b,
                                             tail_from=k)
+                if kind == "bodies":    # the route the tail replaced
+                    bf = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
+                          for lv in h.levels[t:]]
+
+                    def replaced(b, *_, bf=bf, sub=sub, k=n - t):
+                        return tmg._fused_cycle(bf, sub, b, tail_from=k)
             else:
                 ops = [tmg._level_op(lv, sg) for lv in h.levels]
                 frees = [lv.free for lv in h.levels]
@@ -702,6 +779,10 @@ def phase_tail(dev, results):
             call = measure.cuda_ms(lambda: kernel(*next(turn)))
             pms = measure.cuda_ms(lambda: twin(*next(turn)))
             graph = measure.kernel_ms(route, copies)
+            was = "" if kind != "bodies" else (
+                ", the body-factored route it replaces (kernel 2, fixed_cg) "
+                f"as one CUDA graph {measure.kernel_ms(replaced, copies):.4f}"
+                " ms")
             row = (err, ms, pms, shape, call, None, graph)
             results.setdefault(("vcycle_tail_cuda", dn), row)
             results[("vcycle_tail_cuda", dn, shape)] = row
@@ -711,7 +792,7 @@ def phase_tail(dev, results):
                 f"level {t}; max_abs_err {err:.3e} (max|x| "
                 f"{float(y.abs().max()):.3e}) kernel {ms:.4f} ms (one call "
                 f"with its wrapper {call:.4f} ms) plain {pms:.4f} ms, the "
-                f"level route as one CUDA graph {graph:.4f} ms")
+                f"level route as one CUDA graph {graph:.4f} ms{was}")
     grid = [(9, 7, 5), (5, 4, 3), (3, 3, 2)]
     for dn in ("float32", "float64"):
         for S in (1, 3):
@@ -742,8 +823,8 @@ def shape_key(name, dn, shapes):
     """A launch signature as "<dtype> (L, B, (X, Y, Z))", "<dtype> (X, Y,
     Z)" for kernel 1 and its bf16 probe, "<dtype> (P, xrows, (X, Y, Z))"
     for the plane-FMA probe, "<dtype> (iters, (X, Y, Z))" for the coarse
-    CG, "<dtype> (nu, iters, S, level grids)" for the tail (the parity
-    lines' shapes)."""
+    CG, "<dtype> (nu, iters, S, level grids)" for the tail, "<dtype> (L,
+    B, elements a body)" for the lanes' combine."""
     if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         return f"{dn} {shapes[0]}"
     if name == "plane_fma_cuda":
@@ -752,6 +833,9 @@ def shape_key(name, dn, shapes):
         return f"{dn} {(shapes[3], shapes[0])}"
     if name == "vcycle_tail_cuda":
         return f"{dn} {tail_shape(shapes)}"
+    if name == "combine_lanes_cuda":
+        L, B, N = shapes[1][0], shapes[0][0], int(np.prod(shapes[0][1:]))
+        return f"{dn} {(L, B, N)}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
     return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
@@ -815,8 +899,13 @@ def phase_path_parity(dev, seen, covered, first):
             args[1] = args[1].to(torch.bfloat16)
         twin = getattr(sk, name.replace("_cuda", "_plain"))
         y = getattr(sk, name)(*args)
-        err = measure.check_close(f"path {name} {dn} {shapes}", y,
-                                  twin(*args), dtype)
+        if name == "combine_lanes_cuda":
+            ref = twin(*args)
+            measure.check_ulps(f"path {name} {dn} {shapes}", y, ref, 1)
+            err = float((y - ref).abs().max())
+        else:
+            err = measure.check_close(f"path {name} {dn} {shapes}", y,
+                                      twin(*args), dtype)
         log(f"parity path {name} {dn} {shapes}: max_abs_err {err:.3e}")
     log(f"parity path shapes: the paths launched {len(seen)} (kernel, "
         f"dtype, shapes), {len(todo)} not held in phase 3, all within "
@@ -1573,12 +1662,14 @@ def main():
         s = phase_sweep(dev, gpu)
         return s, phase_sweep_metrics(dev, gpu, s)
 
-    sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda"],
-                          sweep_leg)
+    sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda",
+                                    "vcycle_tail_cuda",
+                                    "combine_lanes_cuda"], sweep_leg)
     mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda"],
                 phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
-                             "batched_stencil_spmv_cuda"],
+                             "batched_stencil_spmv_cuda", "vcycle_tail_cuda",
+                             "combine_lanes_cuda"],
                   phase_jacobi, dev, gpu, sweep, metrics["case"])
     single = path("single", ["stencil_spmv_cuda"], phase_single, dev, gpu,
                   sweep, jacobi)
@@ -1597,7 +1688,7 @@ def main():
                       dev, gpu, outdir, lanes=True)
         step04 = path("step04", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda"],
+                                 "vcycle_tail_cuda", "combine_lanes_cuda"],
                       phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -1619,19 +1710,33 @@ def main():
                                  f"{sum(by_shape[name].values())}, not {n}")
         log(f"launches by shape {name}: {by_shape[name]}")
     # every level of a tail goes through the tail kernel: never kernel 1,
-    # and the coarse CG on no path
+    # never kernel 2 in a V-cycle (more than one body; its one-body
+    # launches at those grids are the assembly's Galerkin probes), and the
+    # coarse CG on no path
     tails = {(dn, shapes[0][:-3] + s) for name, dn, shapes in seen
              if name == "vcycle_tail_cuda" for s in shapes[1][1]}
+    grids = {key[1][-3:] for key in tails}
     k1 = {(dn, shapes[0]): n for (name, dn, shapes), n in seen.items()
           if name == "stencil_spmv_cuda" and (dn, shapes[0]) in tails}
-    if k1 or launches["coarse_cg_cuda"]:
+    k2 = {shape_key(name, dn, shapes): n
+          for (name, dn, shapes), n in seen.items()
+          if name == "batched_stencil_spmv_cuda" and shapes[1][0] > 1
+          and shapes[0][-3:] in grids}
+    if k1 or k2 or launches["coarse_cg_cuda"]:
         raise AssertionError(f"stencil_spmv_cuda launched at tail levels "
-                             f"{k1}; coarse_cg_cuda "
+                             f"{k1}; batched_stencil_spmv_cuda at tail "
+                             f"grids {k2}; coarse_cg_cuda "
                              f"{launches['coarse_cg_cuda']} times on the "
                              "paths")
+    galerkin = {shape_key(name, dn, shapes): n
+                for (name, dn, shapes), n in seen.items()
+                if name == "batched_stencil_spmv_cuda"
+                and shapes[0][-3:] in grids}
     log(f"tails: vcycle_tail_cuda at {sorted(tails)} (from level "
-        f"{starts}), stencil_spmv_cuda there 0 times, coarse_cg_cuda 0 "
-        "times on the paths")
+        f"{starts}), stencil_spmv_cuda there 0 times, "
+        "batched_stencil_spmv_cuda with more than one body at their grids "
+        f"0 times (one body, the Galerkin probes: {galerkin}), "
+        "coarse_cg_cuda 0 times on the paths")
 
     kernels = []
     for name, dn, alt in (("stencil_spmv_cuda", "float32", "float64"),
@@ -1642,7 +1747,8 @@ def main():
                           ("stencil_spmv_bf16c_cuda", "float32", None),
                           ("plane_fma_cuda", "float32", "float64"),
                           ("coarse_cg_cuda", "float32", "float64"),
-                          ("vcycle_tail_cuda", "float32", "float64")):
+                          ("vcycle_tail_cuda", "float32", "float64"),
+                          ("combine_lanes_cuda", "float32", "float64")):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
         entry = dict(

@@ -26,6 +26,11 @@
 //                              coarsest (multigrid.py:425-460: kernel 1 on
 //                              levels below FLAT_MIN_NODES is XLA there,
 //                              fused with the smoothing and transfers)
+// and the lanes' stencils that tail takes where they share body-factored
+// coefficients:
+//   combine_lanes           <- the on-the-fly combine sum_b sig[l, b] C_b of
+//                              batched_stencil_spmv_flat, made once a solve
+//                              for a tail's levels
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
@@ -36,6 +41,7 @@
 //                                        [coarse_cg]
 //   b (S, G_t), packed planes (S, 27 * sum G_l), packed free (S or 1,
 //   sum G_l), transfer tables                    [vcycle_tail]
+//   coeff (B, N), sig (L, B) -> C (L, N)         [combine_lanes]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
 // All are bound by device-memory bandwidth: per grid point the single
@@ -796,11 +802,21 @@ coarse_cg_kernel(const T* __restrict__ b, const T* __restrict__ C,
 // plus the coarse CG's three barriers an iteration.
 constexpr int kTailMaxLevels = 8;
 
-#ifndef PST_TAIL_THREADS
-#define PST_TAIL_THREADS 256
+// Threads of a tail block: 512 in float32, 256 in float64
+// (profile_kernels --tail: 512 threads take 1-3% less time on the float32
+// tails of four of the five paths and 1-6% more on the float64 ones);
+// PST_TAIL_THREADS sets both.
+#ifdef PST_TAIL_THREADS
+template <typename T>
+constexpr int kTailThreads = PST_TAIL_THREADS;
+#else
+template <typename T>
+constexpr int kTailThreads = sizeof(T) == 4 ? 512 : 256;
 #endif
-static_assert(PST_TAIL_THREADS % 32 == 0 &&
-                  PST_TAIL_THREADS >= kCgMaxWarps * 32,
+static_assert(kTailThreads<float> % 32 == 0 &&
+                  kTailThreads<float> >= kCgMaxWarps * 32 &&
+                  kTailThreads<double> % 32 == 0 &&
+                  kTailThreads<double> >= kCgMaxWarps * 32,
               "the tail's block must hold the coarse CG's threads");
 
 struct TailLevel {
@@ -957,7 +973,7 @@ __device__ void jacobi_sweep(const TailView<T>& v, const T* xin, T* xout) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PST_TAIL_THREADS, 1)
+__global__ void __launch_bounds__(kTailThreads<T>, 1)
 vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
                    const unsigned char* __restrict__ Fp,
                    const int* __restrict__ itab, const T* __restrict__ wtab,
@@ -1081,6 +1097,40 @@ vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
     }
   }
   for (int q = tid; q < G0; q += nt) x[q] = xs[q];
+}
+
+// ── the lanes' combined stencils ─────────────────────────────────────────
+//
+// C[l, i] = sum_b sig[l, b] coeff[b, i] over the N elements of a body's
+// coefficients: the lanes' own stencils of body-factored levels, made once
+// a solve for every level of a V-cycle tail at once (the levels' planes one
+// after another, the layout vcycle_tail_kernel reads).  The sum is
+// batched_stencil_spmv_kernel's co in its order, co = s_0 c_0 (one
+// rounding), then co = fma(s_b, c_b, co) for b = 1..B-1, so that kernel 1
+// or the tail applying C repeats kernel 2's applies bit for bit (both
+// accumulate fma(C_o, x_o, acc) over o in kernel 2's order).  Elementwise
+// and bound by device memory (B reads a coefficient element, one write a
+// lane and element): a thread holds one element's B coefficients in
+// registers and writes it for the lanes blockIdx.y, + gridDim.y, ...;
+// consecutive threads take consecutive elements, so every read and write
+// is coalesced, and the lanes' reads of one element's coefficients after
+// the first come from L2.
+template <typename T, int B>
+__global__ void __launch_bounds__(kBlock)
+combine_lanes_kernel(const T* __restrict__ coeff, const T* __restrict__ sig,
+                     T* __restrict__ C, int L, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  T c[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) c[b] = coeff[b * N + i];
+  for (int l = blockIdx.y; l < L; l += gridDim.y) {
+    const T* s = sig + l * B;
+    T co = mul_rn(s[0], c[0]);
+#pragma unroll
+    for (int b = 1; b < B; ++b) co = fma(s[b], c[b], co);
+    C[l * N + i] = co;
+  }
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory on the current
@@ -1429,11 +1479,43 @@ int launch_vcycle_tail(const void* b, const void* Cp, const void* Fp,
   static std::atomic<unsigned> opted{0};
   const cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<S, PST_TAIL_THREADS, (int)smem, (cudaStream_t)stream>>>(
+  kernel<<<S, kTailThreads<T>, (int)smem, (cudaStream_t)stream>>>(
       (const T*)b, (const T*)Cp, (const unsigned char*)Fp, (const int*)itab,
       (const T*)wtab, (T*)x, m, free_lanes == 1 ? 0 : m.points, nu, (T)omega,
       iters);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int B>
+int launch_combine_lanes_b(const void* coeff, const void* sig, void* C, int L,
+                           int N, cudaStream_t stream) {
+  const dim3 grid((N + kBlock - 1) / kBlock, std::min(L, 65535));
+  combine_lanes_kernel<T, B><<<grid, kBlock, 0, stream>>>(
+      (const T*)coeff, (const T*)sig, (T*)C, L, N);
+  return (int)cudaGetLastError();
+}
+
+// L lanes of B bodies (1..kMaxBodies) over N elements; L * N and B * N
+// within an int.
+template <typename T>
+int launch_combine_lanes(const void* coeff, const void* sig, void* C, int L,
+                         int B, int N, void* stream) {
+  if (B < 1 || B > kMaxBodies || L < 0 || N < 0 ||
+      (long long)L * N > INT_MAX || (long long)B * N > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (L == 0 || N == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (B) {
+    case 1: return launch_combine_lanes_b<T, 1>(coeff, sig, C, L, N, st);
+    case 2: return launch_combine_lanes_b<T, 2>(coeff, sig, C, L, N, st);
+    case 3: return launch_combine_lanes_b<T, 3>(coeff, sig, C, L, N, st);
+    case 4: return launch_combine_lanes_b<T, 4>(coeff, sig, C, L, N, st);
+    case 5: return launch_combine_lanes_b<T, 5>(coeff, sig, C, L, N, st);
+    case 6: return launch_combine_lanes_b<T, 6>(coeff, sig, C, L, N, st);
+    case 7: return launch_combine_lanes_b<T, 7>(coeff, sig, C, L, N, st);
+    default: return launch_combine_lanes_b<T, 8>(coeff, sig, C, L, N, st);
+  }
 }
 
 }  // namespace
@@ -1530,6 +1612,16 @@ int pst_vcycle_tail_f64(const void* b, const void* Cp, const void* Fp,
                         double omega, int iters, void* stream) {
   return launch_vcycle_tail<double>(b, Cp, Fp, itab, wtab, x, meta, S,
                                     free_lanes, nu, omega, iters, stream);
+}
+
+int pst_combine_lanes_f32(const void* coeff, const void* sig, void* C, int L,
+                          int B, int N, void* stream) {
+  return launch_combine_lanes<float>(coeff, sig, C, L, B, N, stream);
+}
+
+int pst_combine_lanes_f64(const void* coeff, const void* sig, void* C, int L,
+                          int B, int N, void* stream) {
+  return launch_combine_lanes<double>(coeff, sig, C, L, B, N, stream);
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

@@ -107,8 +107,16 @@ def work(name, shape, dtype):
     level but the coarsest 2 nu applies (a single one, the residual, at nu
     = 0) of 27 multiply-adds a point, their sweeps' 3 operations and the
     first sweep's and the residual's 1, then the coarse CG's; the
-    transfers' few operations a point are left out)."""
+    transfers' few operations a point are left out), (L, B, shapes) for
+    combine_lanes_cuda (L lanes of B bodies over the 27 planes of the
+    levels of grids `shapes`, packed: each body's coefficients and sigma
+    read once, each lane's stencils written once; 2B - 1 operations an
+    element and lane)."""
     es = 4 if dtype == "float32" else 8
+    if name == "combine_lanes_cuda":
+        L, B, shapes = shape
+        N = 27 * sum(int(np.prod(s)) for s in shapes)
+        return (B * N + L * B + L * N) * es, L * N * (2 * B - 1)
     if name == "vcycle_tail_cuda":
         nu, iters, S, shapes = shape
         pts = [int(np.prod(s)) for s in shapes]
@@ -163,6 +171,22 @@ def check_close(name, y, ref, dtype):
                              f"abs err {float(err.max()):.3e} "
                              f"(scale {scale:.3e})")
     return float(err.max())
+
+
+def check_ulps(name, y, ref, ulps=1):
+    """|y - ref| within `ulps` units in the last place (the larger spacing
+    of the two values' magnitudes in their dtype) at every entry, and y
+    finite; returns the largest difference in units of that spacing."""
+    inf = torch.tensor(float("inf"), dtype=y.dtype, device=y.device)
+    spacing = torch.maximum(torch.nextafter(y.abs(), inf) - y.abs(),
+                            torch.nextafter(ref.abs(), inf) - ref.abs())
+    units = (y - ref).abs() / spacing
+    worst = float(units.max()) if units.numel() else 0.0
+    if not bool(torch.isfinite(y).all()) or not worst <= ulps:
+        raise AssertionError(f"{name}: {int((units > ulps).sum())} entries "
+                             f"more than {ulps} ulp off, the worst by "
+                             f"{worst:.2f}")
+    return worst
 
 
 def spd_stencil(grid, rng):
@@ -247,7 +271,9 @@ def kernel_inputs(name, shape, dtype, device, rng):
     positive, as solved; coarse_cg_cuda an SPD stencil a lane
     (spd_stencil), a mask free on 85% of the points, one a lane, and b
     on every point (so that the masked-out points' identity rows run
-    too); vcycle_tail_cuda tail_inputs."""
+    too); vcycle_tail_cuda tail_inputs; combine_lanes_cuda coeff (B, 27
+    * points) of the levels `shapes` packed, and positive sigma (L, B).
+    """
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
@@ -263,6 +289,11 @@ def kernel_inputs(name, shape, dtype, device, rng):
         return rand(grid), rand(grid[:-3] + (P,) + grid[-3:]), xrows
     if name == "vcycle_tail_cuda":
         return tail_inputs(shape, dtype, device, rng)
+    if name == "combine_lanes_cuda":
+        L, B, shapes = shape
+        N = 27 * sum(int(np.prod(s)) for s in shapes)
+        return rand((B, N)), torch.as_tensor(rng.random((L, B)), dtype=dtype,
+                                             device=device)
     if name == "coarse_cg_cuda":
         iters, grid = shape
         grid = tuple(grid)

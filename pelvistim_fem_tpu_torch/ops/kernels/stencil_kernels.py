@@ -52,7 +52,8 @@ and the multigrid coarsest level in one launch:
       twin: coarse_cg_plain            (the loop fixed_cg, with
                                        stencil_spmv_plain as its apply)
 
-and a V-cycle's small levels in one launch:
+and a V-cycle's small levels in one launch, with the lanes' stencils it
+takes where the lanes share body-factored coefficients:
 
   vcycle_tail(b, tail, nu, omega, coarse_iters)
                                        one V-cycle (damped-Jacobi sweeps,
@@ -67,6 +68,17 @@ and a V-cycle's small levels in one launch:
       twin: vcycle_tail_plain          (that recursion on stencil_spmv_plain,
                                        prolong_axes, restrict_axes and
                                        coarse_cg_plain)
+  combine_lanes(coeff, sig)            C[l] = sum_b sig[l, b] coeff[b] in
+                                       batched_stencil_spmv's order (s_0
+                                       c_0, then fma(s_b, c_b, .)), so that
+                                       stencil_spmv on C repeats
+                                       batched_stencil_spmv bit for bit
+      CUDA: combine_lanes_cuda         replaces the on-the-fly combine of
+                                       batched_stencil_spmv_flat at the
+                                       levels of a V-cycle tail (made once
+                                       a solve, in the tail's packed layout)
+      twin: combine_lanes_plain        (to within one unit in the last
+                                       place: PyTorch has no fma)
 
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
@@ -108,7 +120,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0,
             "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
-            "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0}
+            "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0,
+            "combine_lanes_cuda": 0}
 
 # The tail kernel's limits (kTailMaxLevels, kMaxSmem and the coarse CG's
 # most points a lane in csrc/stencil.cu; pst_tail_max_levels,
@@ -290,11 +303,14 @@ class VcycleTail:
             self, packed=tuple(t.clone() for t in tensors) + (layout,))
 
 
-def make_vcycle_tail(Cs, frees, pro, res) -> VcycleTail:
+def make_vcycle_tail(Cs, frees, pro, res, planes=None) -> VcycleTail:
     """A VcycleTail of the levels with stencils Cs and masks frees (the top
     level first) and the len(Cs) - 1 transfers' tables `pro` and `res`
     between them; where the stencils lie on a CUDA device, the kernel's
-    arguments are packed here, once.  Raises on tables that do not join
+    arguments are packed here, once.  `planes`, where given, is the
+    stencils already packed (S, 27 * points), every level's planes one
+    after another (as combine_lanes writes them for body-factored
+    levels), and is taken as it is.  Raises on tables that do not join
     the levels."""
     Cs, frees = tuple(Cs), tuple(frees)
     pro, res = tuple(map(tuple, pro)), tuple(map(tuple, res))
@@ -313,19 +329,25 @@ def make_vcycle_tail(Cs, frees, pro, res) -> VcycleTail:
                                  f"{shapes[l + 1]}")
     tail = VcycleTail(Cs, frees, pro, res, shapes)
     if Cs[0].is_cuda:
-        tail = dataclasses.replace(tail, packed=_pack_tail(tail))
+        tail = dataclasses.replace(tail, packed=_pack_tail(tail, planes))
     return tail
 
 
-def _pack_tail(tail):
-    """The kernel's arguments of `tail` (see VcycleTail.packed)."""
+def _pack_tail(tail, planes=None):
+    """The kernel's arguments of `tail` (see VcycleTail.packed); the
+    planes `planes` where given."""
     S = tail.lanes
+    points = sum(math.prod(s) for s in tail.shapes)
+    if planes is not None and tuple(planes.shape) != (S, 27 * points):
+        raise ValueError(f"make_vcycle_tail: planes {tuple(planes.shape)} "
+                         f"for {S} lanes of {points} points")
     lanes = [f.shape[0] if f.dim() == 4 else 1 for f in tail.frees]
     if any(k not in (1, S) for k in lanes):
         raise ValueError(f"make_vcycle_tail: masks of {lanes} lanes for "
                          f"{S} lanes")
     FL = S if any(k != 1 for k in lanes) else 1
-    Cp = torch.cat([C.reshape(S, -1) for C in tail.Cs], dim=1)
+    Cp = torch.cat([C.reshape(S, -1) for C in tail.Cs], dim=1) \
+        if planes is None else planes
     Fp = torch.cat([f.reshape(k, -1).expand(FL, -1)
                     for f, k in zip(tail.frees, lanes)], dim=1)
     ints, wts, ks = [], [], []
@@ -426,6 +448,45 @@ def batched_stencil_spmv_lminor_plain(Xm, coeff, sig):
     return Ym
 
 
+def _two_product(a, b):
+    """(p, e): p = a * b rounded, p + e = a * b exactly (float64; Dekker's
+    split of each factor into 26-bit halves)."""
+    def split(v):
+        c = 134217729.0 * v
+        hi = c - (c - v)
+        return hi, v - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma_plain(a, b, c):
+    """a * b + c rounded once, to within one unit in the last place:
+    float32 through float64 (the product is exact there, the sum rounds
+    twice), float64 by an error-free product and sum (Knuth's two-sum)
+    whose two error terms are added last."""
+    if a.dtype == torch.float32:
+        return (a.double() * b.double() + c.double()).float()
+    p, e = _two_product(a, b)
+    s = p + c
+    v = s - p
+    t = (p - (s - v)) + (c - v)
+    return s + (t + e)
+
+
+def combine_lanes_plain(coeff, sig):
+    """C (L, ...) with C[l] = sum_b sig[l, b] coeff[b] for coeff (B, ...)
+    and sig (L, B), in batched_stencil_spmv_kernel's order: s_0 c_0, then
+    fma(s_b, c_b, .) for b = 1..B-1 (_fma_plain: each within one unit in
+    the last place of the kernel's)."""
+    s = sig.reshape(tuple(sig.shape) + (1,) * (coeff.dim() - 1))
+    C = s[:, 0] * coeff[0]
+    for b in range(1, coeff.shape[0]):
+        C = _fma_plain(s[:, b], coeff[b], C)
+    return C
+
+
 # ── build and bind ─────────────────────────────────────────────────────
 
 
@@ -496,6 +557,10 @@ def build(extra_flags=()) -> ctypes.CDLL:
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"pst_vcycle_tail_{dt}")
             fn.argtypes = [ptr] * 7 + [i, i, i, ctypes.c_double, i, ptr]
+            fn.restype = i
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_combine_lanes_{dt}")
+            fn.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
             fn.restype = i
         lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
         lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
@@ -716,13 +781,25 @@ def _dims_vcycle_tail(b, tail, nu, omega, coarse_iters):
             f"pst_vcycle_tail_{_SUFFIX[b.dtype]}")
 
 
+def _dims_combine_lanes(coeff, sig):
+    name = "combine_lanes_cuda"
+    _check(name, coeff.dtype, coeff.device, coeff=coeff, sig=sig)
+    if coeff.dim() < 2 or sig.dim() != 2 or sig.shape[1] != coeff.shape[0]:
+        raise ValueError(f"{name}: shapes coeff {tuple(coeff.shape)}, sig "
+                         f"{tuple(sig.shape)}")
+    return ((coeff, sig), (sig.shape[0], coeff.shape[0],
+                           coeff[0].numel()),
+            f"pst_combine_lanes_{_SUFFIX[coeff.dtype]}")
+
+
 _DIMS = {"stencil_spmv_cuda": _dims_single,
          "batched_stencil_spmv_cuda": _dims_batched,
          "batched_stencil_spmv_lminor_cuda": _dims_lminor,
          "stencil_spmv_bf16c_cuda": _dims_bf16c,
          "plane_fma_cuda": _dims_plane_fma,
          "coarse_cg_cuda": _dims_coarse_cg,
-         "vcycle_tail_cuda": _dims_vcycle_tail}
+         "vcycle_tail_cuda": _dims_vcycle_tail,
+         "combine_lanes_cuda": _dims_combine_lanes}
 
 
 def launch(name, *args, extra_flags=()):
@@ -736,10 +813,11 @@ def launch(name, *args, extra_flags=()):
     within an int), the coarse CG S*27*G within an int and at most
     pst_coarse_cg_max_points() (2048) points a lane, the V-cycle tail at
     most TAIL_MAX_LEVELS levels within SMEM_MAX bytes of shared memory
-    (vcycle_tail_smem); the launch raises otherwise."""
+    (vcycle_tail_smem), the lanes' combine 1..8 bodies and L times the
+    elements of a body within an int; the launch raises otherwise."""
     tensors, dims, entry = _DIMS[name](*args)
     lib = build(extra_flags)
-    if name.startswith("batched") and \
+    if (name.startswith("batched") or name == "combine_lanes_cuda") and \
             not 1 <= dims[1] <= lib.pst_max_bodies():
         raise ValueError(f"{name}: {dims[1]} bodies, the kernel takes "
                          f"1..{lib.pst_max_bodies()}")
@@ -747,7 +825,11 @@ def launch(name, *args, extra_flags=()):
             dims[3] * dims[4] * dims[5] > lib.pst_coarse_cg_max_points():
         raise ValueError(f"{name}: grid {dims[3:]}, the kernel takes at "
                          f"most {lib.pst_coarse_cg_max_points()} points")
-    out = torch.empty_like(tensors[0])
+    if name == "combine_lanes_cuda":     # (L, ...) from coeff (B, ...)
+        coeff, sig = tensors
+        out = coeff.new_empty((sig.shape[0],) + tuple(coeff.shape[1:]))
+    else:
+        out = torch.empty_like(tensors[0])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
@@ -827,6 +909,15 @@ def vcycle_tail_cuda(b, tail, nu=2, omega=0.7, coarse_iters=24):
     return x
 
 
+def combine_lanes_cuda(coeff, sig):
+    """CUDA kernel for combine_lanes_plain's function, in its order with
+    true fmas: coeff (B, ...) and sig (L, B), contiguous float32 or
+    float64 on one CUDA device; returns (L, ...)."""
+    C = launch("combine_lanes_cuda", coeff, sig)
+    LAUNCHES["combine_lanes_cuda"] += 1
+    return C
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -884,3 +975,11 @@ def vcycle_tail(b, tail, nu=2, omega=0.7, coarse_iters=24):
     if b.is_cuda:
         return vcycle_tail_cuda(b, tail, nu, omega, coarse_iters)
     return vcycle_tail_plain(b, tail, nu, omega, coarse_iters)
+
+
+def combine_lanes(coeff, sig):
+    """The lanes' combined stencils C[l] = sum_b sig[l, b] coeff[b]: the
+    CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    if coeff.is_cuda:
+        return combine_lanes_cuda(coeff, sig)
+    return combine_lanes_plain(coeff, sig)

@@ -14,13 +14,18 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     is a fixed SPD operator usable inside CG.  Where the level has its
     own combined stencil (one operator, or one per lane), those
     iterations are one call of kernels.stencil_kernels.coarse_cg (one
-    launch on the card); body-factored lanes run them as fixed_cg on
-    the batched apply.
+    launch on the card); body-factored lanes whose levels were not
+    combined (the CPU's default) run them as fixed_cg on the batched
+    apply.
   * The tail: on the card, the levels from the first one whose stencils,
     with every coarser level's, fit one SM's shared memory (tail_start)
     run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
-    repeats the level-by-level route bit for bit.  On the CPU the V-cycles
-    recurse level by level unless a `tail_from` is given.
+    repeats the level-by-level route bit for bit.  Body-factored lanes
+    get their own stencils at those levels first, once a solve, from one
+    kernels.stencil_kernels.combine_lanes launch in the batched apply's
+    order (combined_tail_levels).  On the CPU the V-cycles recurse level
+    by level, body-factored levels uncombined, unless a `tail_from` is
+    given.
 
 Three solvers: `solve_stencil_mg_refined` (one operator, the megatet
 leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
@@ -38,8 +43,9 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    SMEM_MAX, TAIL_MAX_LEVELS, coarse_cg, fixed_cg, make_vcycle_tail,
-    prolong_axes, restrict_axes, vcycle_tail, vcycle_tail_smem)
+    SMEM_MAX, TAIL_MAX_LEVELS, coarse_cg, combine_lanes, fixed_cg,
+    make_vcycle_tail, prolong_axes, restrict_axes, vcycle_tail,
+    vcycle_tail_smem)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
                                                refine_lanes)
@@ -47,7 +53,7 @@ from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
                                                  _operator,
                                                  batched_stencil_spmv,
                                                  combine_coeffs,
-                                                 combine_lanes,
+                                                 combine_stacks,
                                                  stencil_spmv)
 
 
@@ -179,13 +185,15 @@ def tail_start(shapes, dtype) -> int:
     return n
 
 
-def _v_tail(Cs, frees, transfers, tail_from):
+def _v_tail(Cs, frees, transfers, tail_from, planes=None):
     """(t, tail): the level t from which a V-cycle over levels with
     combined stencils Cs and masks frees is one vcycle_tail call, and that
-    call's levels (make_vcycle_tail, made here once).  tail_from None
-    takes tail_start's level for stencils on a CUDA device and none on
-    the CPU.  A tail of the coarsest level alone is the coarse CG, so t
-    >= len(Cs) - 1 gives (len(Cs), None): the level-by-level route."""
+    call's levels (make_vcycle_tail, made here once; `planes` their
+    stencils packed, where given).  tail_from None takes tail_start's
+    level for stencils on a CUDA device and none on the CPU; Cs may be
+    None above an explicit tail_from.  A tail of the coarsest level alone
+    is the coarse CG, so t >= len(Cs) - 1 gives (len(Cs), None): the
+    level-by-level route."""
     n = len(Cs)
     if tail_from is None:
         tail_from = tail_start([tuple(C.shape[-3:]) for C in Cs],
@@ -194,11 +202,11 @@ def _v_tail(Cs, frees, transfers, tail_from):
         raise ValueError(f"tail_from {tail_from} of {n} levels")
     if tail_from >= n - 1:
         return n, None
-    tables = [tr._tensors(Cs[0].device, Cs[0].dtype)
+    tables = [tr._tensors(Cs[-1].device, Cs[-1].dtype)
               for tr in transfers[tail_from:]]
     return tail_from, make_vcycle_tail(Cs[tail_from:], frees[tail_from:],
                                        [p for p, _ in tables],
-                                       [r for _, r in tables])
+                                       [r for _, r in tables], planes)
 
 
 def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
@@ -305,14 +313,15 @@ def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
 #
 # Every level runs on lane-stacked (L, X, Y, Z) arrays with the
 # body-factored batched SpMV: peak memory O(L*G + B*27*G), no per-lane
-# combined coefficients.
+# combined coefficients above the tail.  The tail's levels (a few hundred
+# points) get the lanes' own stencils, combined once a solve.
 
 
 def _lanes(v):
     return v[:, None, None, None]
 
 
-def _fused_level_pieces(coeff, free, sig):
+def _fused_level_pieces(coeff, free, sig, C=None):
     """(op, dinv, freeb, raw, C) for one lane-stacked level; raw is the
     unprojected apply.  sig (L, T) full sigma tables (body b at slot
     b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
@@ -320,10 +329,13 @@ def _fused_level_pieces(coeff, free, sig):
     and C is None; or each lane has its own stack, coeff (L, B, 27, X, Y,
     Z) with free (L, X, Y, Z) (a geometry batch): each lane's sigma is
     combined into its own stencil C (L, 27, X, Y, Z), applied by the 4-D
-    stencil_spmv."""
-    C = None
-    if coeff.dim() == 6:
-        C = combine_lanes(coeff, sig.to(coeff.dtype)).contiguous()
+    stencil_spmv; or C (L, 27, X, Y, Z) is given, the lanes' own stencils
+    of a body-factored level (combined_tail_levels), applied likewise,
+    with free (X, Y, Z) shared.  Where the lanes have their own stencils,
+    the Jacobi diagonal is their C_13."""
+    if C is None and coeff.dim() == 6:
+        C = combine_stacks(coeff, sig.to(coeff.dtype)).contiguous()
+    if C is not None:
         diag_l = C[:, DIAG_OFFSET]
 
         def raw(Xs):
@@ -349,15 +361,52 @@ def _fused_level_pieces(coeff, free, sig):
     return op, 1.0 / diag, freeb, raw, C
 
 
-def _fused_tail(pieces, hier, tail_from, nu):
-    """_v_tail of a lane-stacked hierarchy: only lanes with their own
-    stencils (C not None) and nu >= 1 (nu = 0 starts the pre-smoothing
-    from zeros, not from omega * dinv * b) take a tail; body-factored
-    lanes keep fixed_cg on the batched apply."""
-    if nu < 1 or any(p[4] is None for p in pieces):
-        return len(pieces), None
-    return _v_tail([p[4] for p in pieces], [p[2] for p in pieces],
-                   hier.transfers, tail_from)
+def combined_tail_levels(hier, sig, t):
+    """The lanes' own stencils at the body-factored levels t.. of `hier`
+    (coeff (B, 27, X, Y, Z) a level), made by one combine_lanes call on
+    those levels' coefficients packed one level after another, in the
+    batched apply's order: stencil_spmv on them repeats
+    batched_stencil_spmv bit for bit.  sig (L, T) full sigma tables (body
+    b at slot b+1).  Returns (planes (L, 27 * points), the layout
+    vcycle_tail reads, and [C (L, 27, X, Y, Z)] a level, contiguous
+    copies of its views)."""
+    levels = hier.levels[t:]
+    B = levels[0].coeff.shape[0]
+    coeff = torch.cat([lv.coeff.reshape(B, -1) for lv in levels], dim=1)
+    planes = combine_lanes(coeff, sig[:, 1:1 + B].to(coeff.dtype)
+                           .contiguous())
+    Cs, off = [], 0
+    for lv in levels:
+        n = lv.coeff[0].numel()
+        Cs.append(planes[:, off:off + n].reshape(
+            (-1,) + tuple(lv.coeff.shape[1:])).contiguous())
+        off += n
+    return planes, Cs
+
+
+def _fused_tail(pieces, hier, tail_from, nu, planes=None):
+    """_v_tail of a lane-stacked hierarchy: the levels from which every
+    level has the lanes' own stencils (C not None) may take a tail, with
+    nu >= 1 (nu = 0 starts the pre-smoothing from zeros, not from omega *
+    dinv * b); tail_from None: tail_start's level on the card (not above
+    those levels), none on the CPU.  Body-factored levels keep fixed_cg
+    on the batched apply.  `planes`: the tail's stencils packed
+    (combined_tail_levels), where made."""
+    n = own = len(pieces)
+    while own and pieces[own - 1][4] is not None:
+        own -= 1
+    if nu < 1 or own == n:
+        return n, None
+    Cs = [p[4] for p in pieces]
+    if tail_from is None:
+        tail_from = max(own, tail_start(
+            [tuple(p[2].shape[-3:]) for p in pieces], Cs[-1].dtype)
+            if Cs[-1].is_cuda else n)
+    elif tail_from < own:
+        raise ValueError(f"tail_from {tail_from}: the levels above {own} "
+                         "have no stencils of their own")
+    return _v_tail(Cs, [p[2] for p in pieces], hier.transfers, tail_from,
+                   planes)
 
 
 def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
@@ -365,10 +414,10 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
     """One lane-stacked V-cycle (the recursion of cycle_impl with
     lane-wise reductions).  pieces: _fused_level_pieces per level;
     b (L, X, Y, Z) -> z (L, X, Y, Z).  The coarsest level is coarse_cg
-    where the lanes have their own stencils, else fixed_cg on the
-    body-factored apply; lanes with their own stencils run the levels
-    from tail_from on as one vcycle_tail call (as cycle_impl;
-    _fused_tail)."""
+    where the lanes have their own stencils (their own stacks, or levels
+    combined by combined_tail_levels), else fixed_cg on the body-factored
+    apply; levels where the lanes have their own stencils run from
+    tail_from on as one vcycle_tail call (as cycle_impl; _fused_tail)."""
     n_levels = len(hier.levels)
     if tail is None:
         tail_from, tail = _fused_tail(pieces, hier, tail_from, nu)
@@ -431,7 +480,8 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
                                    sigma_tables, x_init=None, *, tol=1e-8,
                                    inner_tol=3e-4, maxiter=2_000, nu=2,
                                    omega=0.7, coarse_iters=24,
-                                   max_refinements=8) -> SolveResult:
+                                   max_refinements=8,
+                                   tail_from=None) -> SolveResult:
     """Material sweep at TRUE f64-certified `tol`: f32 lane-stacked fused
     MG-CG inner sweeps + f64 fused residual correction, lanes frozen on
     convergence.
@@ -440,8 +490,12 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     (Dirichlet slots must carry their lifted values).  scase/hier may be
     any float dtype: the f64 master and f32 inner operators are both
     derived here.  scase and every level of hier may carry a leading lane
-    axis (a geometry batch, batched_group_solve_mg_refined).  phi is
-    returned (L, N) in mesh node ordering."""
+    axis (a geometry batch, batched_group_solve_mg_refined).  The V-cycle
+    levels from tail_from on are one vcycle_tail call (tail_from None:
+    tail_start's level on the card, none on the CPU; len(levels): none);
+    body-factored levels from there get the lanes' own stencils first,
+    once here (combined_tail_levels).  phi is returned (L, N) in mesh
+    node ordering."""
     sc64, sc32 = scase.astype(torch.float64), scase.astype(torch.float32)
     hier32 = hier.astype(torch.float32)
     sig64 = sigma_tables.to(torch.float64)
@@ -450,9 +504,19 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
 
     op64, b64, x0, freeb = _fused_bc_pieces(sc64, sig64)
     op32 = _fused_level_pieces(sc32.coeff, sc32.free, sig32)[0]
-    pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32)
-              for lv in hier32.levels]
-    tail_from, tail = _fused_tail(pieces, hier32, None, nu)
+    levels = hier32.levels
+    n = len(levels)
+    if tail_from is None:
+        tail_from = tail_start([tuple(lv.free.shape[-3:]) for lv in levels],
+                               torch.float32) \
+            if levels[0].coeff.is_cuda else n
+    planes, own = None, [None] * n
+    if levels[0].coeff.dim() == 5 and tail_from < n:
+        planes, own[tail_from:] = combined_tail_levels(hier32, sig32,
+                                                       tail_from)
+    pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32, C)
+              for lv, C in zip(levels, own)]
+    tail_from, tail = _fused_tail(pieces, hier32, tail_from, nu, planes)
 
     def M32(r):
         rm = torch.where(freeb, r, 0.0)

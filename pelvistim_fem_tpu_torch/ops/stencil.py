@@ -177,7 +177,7 @@ def combine_coeffs(coeff, sigma_table):
     return C
 
 
-def combine_lanes(coeff, sigma_tables):
+def combine_stacks(coeff, sigma_tables):
     """Per-lane combine_coeffs: coeff (S, B, 27, X, Y, Z), sigma_tables
     (S, T) -> (S, 27, X, Y, Z), lane s = combine_coeffs(coeff[s],
     sigma_tables[s])."""
@@ -214,7 +214,7 @@ def _operator(scase: StencilCase, sigma_table, coeff=None):
     (X, Y, Z) shared by the lanes or (S, X, Y, Z) each its own: every
     apply is then one launch of the 4-D stencil_spmv."""
     coeff = scase.coeff if coeff is None else coeff
-    combine = combine_lanes if coeff.dim() == 6 else combine_coeffs
+    combine = combine_stacks if coeff.dim() == 6 else combine_coeffs
     C = combine(coeff, sigma_table).contiguous()
     shape = C.shape[:-4] + C.shape[-3:]
     free, dirichlet, b_neumann = (a.expand(shape) for a in (

@@ -17,9 +17,11 @@ times, each with its share of the kernel's bound.  The production
 wrappers use the default build ("default" below).
 
 The tail kernel (`vcycle_tail_cuda`) is built at each of TAIL_THREADS
-threads a block (-DPST_TAIL_THREADS) and timed the same way on the paths'
-tails, SPD stencils on their level grids (step04's app, the megatet,
-step02's 8 lanes), f32 and f64, each build first held against the twin
+threads a block in both dtypes (-DPST_TAIL_THREADS; the default build
+takes 512 in float32 and 256 in float64) and timed the same way on the
+paths' tails, SPD stencils on their level grids (step04's app, the megatet,
+step02's 8 lanes, the sweep's 25 lanes, step04's 15 linear lanes), f32
+and f64, each build first held against the twin
 (measure.check_vcycle_tail).
 """
 
@@ -37,14 +39,20 @@ SHAPES = [(25, 5, SWEEP_GRID), (15, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
 KERNELS = ["batched_stencil_spmv_cuda", "batched_stencil_spmv_lminor_cuda"]
 CONSTANTS = ("POINTS", "LANES", "THREADS", "MINB")
 # the tail kernel's block sizes, and the paths' tails (S lanes, level
-# grids) in f32 and in f64 (from the first level that fits in f64)
+# grids) in f32 and in f64 (from the first level that fits in f64): the
+# step04 app's nonlinear chain, the megatet, step02's 8 lanes, the sweep's
+# 25-lane chunk and the step04 app's 15 linear lanes
 TAIL_THREADS = (256, 512)
 TAILS = {"float32": [(1, ((15, 9, 6), (8, 5, 4), (5, 3, 3))),
                      (1, ((15, 10, 6), (8, 6, 4), (5, 4, 3))),
-                     (8, ((18, 8, 3), (10, 5, 2)))],
+                     (8, ((18, 8, 3), (10, 5, 2))),
+                     (25, ((12, 6, 4), (7, 4, 3))),
+                     (15, ((15, 9, 6), (8, 5, 4), (5, 3, 3)))],
          "float64": [(1, ((8, 5, 4), (5, 3, 3))),
                      (1, ((8, 6, 4), (5, 4, 3))),
-                     (8, ((18, 8, 3), (10, 5, 2)))]}
+                     (8, ((18, 8, 3), (10, 5, 2))),
+                     (25, ((12, 6, 4), (7, 4, 3))),
+                     (15, ((8, 5, 4), (5, 3, 3)))]}
 
 
 def _flags(**cells):
@@ -136,7 +144,7 @@ def print_usage(variants):
 
 
 def tail_flags(threads):
-    return (f"-DPST_TAIL_THREADS={threads}",) if threads != 256 else ()
+    return (f"-DPST_TAIL_THREADS={threads}",)
 
 
 def time_tail(gpu):

@@ -111,17 +111,18 @@ def test_kernels_spill_no_registers(dev):
     kernel, the plane-FMA probe's 3-row form and its 1-row form at P = 1,
     27 and any, with and without 16-byte loads, and the coarse CG at
     1-8 points a thread with its coefficients in shared or device
-    memory, and the V-cycle tail in both dtypes) spills to local
-    memory."""
+    memory, the V-cycle tail in both dtypes, and the lanes' combine at
+    every dtype and body count) spills to local memory."""
     usage = sk.ptxas_usage()
-    assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2, \
-        sorted(usage)
+    assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
+        + 2 * 8, sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
             "coarse_cg_kernel<float,1,1>",
             "coarse_cg_kernel<double,8,0>", "vcycle_tail_kernel<float>",
-            "vcycle_tail_kernel<double>"} <= set(usage)
+            "vcycle_tail_kernel<double>", "combine_lanes_kernel<float,5>",
+            "combine_lanes_kernel<double,8>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 

@@ -177,13 +177,16 @@ def test_cpu_tensors_take_the_twin():
     free = torch.ones((4, 3, 3), dtype=torch.bool)
     assert torch.equal(sk.coarse_cg(x, C, free, 2),
                        sk.coarse_cg_plain(x, C, free, 2))
+    assert torch.equal(sk.combine_lanes(coeff, sig),
+                       sk.combine_lanes_plain(coeff, sig))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_lminor_cuda": 0,
                            "stencil_spmv_bf16c_cuda": 0,
                            "plane_fma_cuda": 0,
                            "coarse_cg_cuda": 0,
-                           "vcycle_tail_cuda": 0}
+                           "vcycle_tail_cuda": 0,
+                           "combine_lanes_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
@@ -194,6 +197,8 @@ def test_cpu_tensors_take_the_twin():
         sk.batched_stencil_spmv_cuda(Xs, coeff, sig)
     with pytest.raises(ValueError, match="must lie on"):
         sk.coarse_cg_cuda(x, C, free, 2)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.combine_lanes_cuda(coeff, sig)
 
 
 PTXAS_REPORT = """\
