@@ -52,6 +52,16 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 hierarchy that fits whole, f32 and f64; timed as the
                 kernels are, beside its twin and the level route it
                 replaces as one CUDA graph
+  3c. levels    the level kernels (level_apply in its four modes,
+                restrict, prolong_add) at every level above the tail of
+                the step04 app's, the megatet's and step02's hierarchies,
+                f32 and f64: each within tolerance of its twin and
+                torch.equal to the card's route (kernel 1 and PyTorch's
+                ops); at the levels above the f32 tail timed cold and warm
+                (the same inputs every launch, as the path finds them in
+                L2) beside the twin and the route as one CUDA graph; one
+                V-cycle through them torch.equal to the route, 6 launches
+                a level
   4. sweep      step04 contact sweep: rim-banded (89, 41, 19) lattice,
                 100 log-spaced contact conductivities, certified to a
                 1e-8 true f64 residual in chunks of 25 lanes; then the
@@ -109,7 +119,9 @@ kept and shown only if they fail.  Launch counters are set to 0 before
 each of the paths 4-14 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
 sweep, megatet, jacobi, step02 and step04 the V-cycle tail; the sweep,
-jacobi and step04 the lanes' combine), and every kernel but the coarse
+jacobi and step04 the lanes' combine; the megatet, step02 and step04 the
+level kernels, 6 launches a V-cycle at each level above a tail and
+kernel 1 there never in that dtype), and every kernel but the coarse
 CG must have run; the coarse CG must not have run on any path, nor
 kernel 1 at any level of a tail, nor kernel 2 with more than one body
 (a V-cycle's apply, not the assembly's Galerkin probes) at any grid of
@@ -339,6 +351,9 @@ REPLACES = {
     "coarse_cg_cuda": f"{MULTIGRID}:428, {MULTIGRID}:799",
     "vcycle_tail_cuda": f"{MULTIGRID}:425",
     "combine_lanes_cuda": f"{PALLAS}:410",
+    "level_apply_cuda": f"{PALLAS}:326, {MULTIGRID}:425",
+    "restrict_cuda": f"{MULTIGRID}:425",
+    "prolong_add_cuda": f"{MULTIGRID}:425",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -359,7 +374,28 @@ LIBRARY_NOTE = {
                          "replaces (kernel 1, PyTorch's ops, the coarse "
                          "CG kernel) as one CUDA graph replay"),
     "combine_lanes_cuda": None,
+    "level_apply_cuda": ("no one PyTorch call runs a variable-coefficient "
+                         "27-point stencil with a Jacobi sweep; "
+                         "plain_graph_ms is the route it replaces (kernel "
+                         "1 and PyTorch's ops) as one CUDA graph replay"),
+    "restrict_cuda": ("no one PyTorch call restricts on a graded lattice "
+                      "(its weights vary per knot); plain_graph_ms is the "
+                      "route it replaces (three axes of index_select, "
+                      "multiplies and adds, the mask) as one CUDA graph"),
+    "prolong_add_cuda": ("no one PyTorch call prolongs on a graded lattice "
+                         "(F.interpolate takes uniform knots); "
+                         "plain_graph_ms is the route it replaces as one "
+                         "CUDA graph"),
 }
+# the level kernels: each function held and timed at the levels above the
+# tail of the step04 app's, the megatet's and step02's hierarchies (the
+# first three kernels-line entries' main rows at step04's fine level)
+LEVEL_FUNCTIONS = [("level_apply_cuda", m) for m in
+                   ("sweep", "sweep0", "residual", "masked")] + \
+    [("restrict_cuda", None), ("prolong_add_cuda", None)]
+# device ms of the timed kernels with every launch on the same inputs
+# (L2 keeps what fits), by (kernel, dtype, shape)
+WARM = {}
 # the lanes' combine: the sweep's tail levels (25 lanes, 5 bodies) packed
 # (the main row) and one by one, step04's linear tail (15 lanes) packed,
 # and random edges (1 body, 8 bodies with 40 lanes); the single-level ones
@@ -513,11 +549,14 @@ def phase_parity(dev):
         if timed:
             copies = measure.input_copies(args)
             ms = measure.kernel_ms(kernel, copies)
+            warm = WARM[(name, dn, shape)] = measure.kernel_ms(
+                kernel, measure.input_copies(args, warm=True))
             turn = itertools.cycle(copies)
             call = measure.cuda_ms(lambda: kernel(*next(turn)))
             pms = measure.cuda_ms(lambda: twin(*next(turn)))
-            line += (f" kernel {ms:.4f} ms (one call with its wrapper "
-                     f"{call:.4f} ms) plain {pms:.4f} ms")
+            line += (f" kernel {ms:.4f} ms cold, {warm:.4f} ms warm (one "
+                     f"call with its wrapper {call:.4f} ms) plain "
+                     f"{pms:.4f} ms")
             lib = graph = None
             if library is not None:     # device time, as the kernel's
                 lib = measure.kernel_ms(library, copies)
@@ -683,10 +722,12 @@ def tail_hierarchies(dev):
     return out
 
 
-def phase_tail(dev, results):
-    """The V-cycle tail on the paths' hierarchies (tail_hierarchies), f32
-    and f64: one V-cycle through it torch.equal to the level route
-    (tail_from = len(levels)), and from its first level the kernel
+def phase_tail(dev, results, hiers):
+    """The V-cycle tail on the paths' hierarchies (hiers:
+    tail_hierarchies), f32 and f64: one V-cycle through it (and the level
+    kernels above it) torch.equal to the level route (tail_from =
+    len(levels), every level by kernel 1 and PyTorch's ops, the coarse CG
+    kernel), and from its first level the kernel
     torch.equal to that route and within check_vcycle_tail of its twin,
     timed (kernel, call, twin, the route as one CUDA graph) into
     `results` as phase_parity's rows; then a hierarchy that fits whole,
@@ -710,7 +751,7 @@ def phase_tail(dev, results):
         return sk.vcycle_tail_plain(b, tail, nu, omega, iters)
 
     starts = {}
-    for name, (hier, sig, kind) in tail_hierarchies(dev).items():
+    for name, (hier, sig, kind) in hiers.items():
         for dn in ("float32", "float64"):
             dtype = getattr(torch, dn)
             h, sg = hier.astype(dtype), sig.to(dtype)
@@ -730,13 +771,14 @@ def phase_tail(dev, results):
                     h.levels[0].coeff.shape[0]
                 b0 = rhs(frees[0].expand((L,) + frees[0].shape[1:]), dtype)
                 z = tmg._fused_cycle(pieces, h, b0)
-                want = tmg._fused_cycle(pieces, h, b0, tail_from=n)
+                want = tmg._fused_cycle(pieces, h, b0, tail_from=n,
+                                        route=True)
                 sub = tmg.MGHierarchy(levels=h.levels[t:],
                                       transfers=h.transfers[t:])
 
                 def route(b, *_, pieces=pieces, sub=sub, k=n - t):
                     return tmg._fused_cycle(pieces[n - k:], sub, b,
-                                            tail_from=k)
+                                            tail_from=k, route=True)
                 if kind == "bodies":    # the route the tail replaced
                     bf = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
                           for lv in h.levels[t:]]
@@ -746,16 +788,15 @@ def phase_tail(dev, results):
             else:
                 ops = [tmg._level_op(lv, sg) for lv in h.levels]
                 frees = [lv.free for lv in h.levels]
-                _, tail = tmg._v_tail([C for *_, C in ops], frees,
+                _, tail = tmg._v_tail([lv.C for lv in ops], frees,
                                       h.transfers, t)
                 b0 = rhs(frees[0], dtype)
                 z = tmg.make_v_cycle(h, sg)(b0)
-                want = tmg.make_v_cycle(h, sg, tail_from=n)(b0)
+                want = tmg.make_v_cycle(h, sg, tail_from=n, route=True)(b0)
 
-                def route(b, *_, ops=ops, frees=frees, tr=h.transfers,
-                          t=t):
-                    return tmg.cycle_impl(ops[t:], frees[t:], tr[t:], b,
-                                          tail_from=n - t)
+                def route(b, *_, ops=ops, tr=h.transfers, t=t):
+                    return tmg.cycle_impl(ops[t:], tr[t:], b,
+                                          tail_from=n - t, route=True)
             if tail is None:
                 raise AssertionError(f"tail {name} {dn}: no tail from "
                                      f"level {t} of {n}")
@@ -808,15 +849,149 @@ def phase_tail(dev, results):
     return starts
 
 
+def phase_levels(dev, results, hiers, covered):
+    """The level kernels at every level above the tail of the step04 app's,
+    the megatet's and step02's hierarchies (hiers: tail_hierarchies), f32
+    and f64, on the level's own stencil and mask, b masked as a V-cycle
+    masks it: each of LEVEL_FUNCTIONS within measure.check_close of its
+    twin and torch.equal to the card's route (kernel 1 and PyTorch's
+    ops); at the levels above the f32 tail timed cold (inputs rotated
+    through HBM) and warm (the same inputs every launch, as the path
+    finds them in L2; WARM), beside its twin and the route as one CUDA
+    graph, into `results` as phase_parity's rows.  Then one V-cycle
+    through them torch.equal to the route (route=True), with 6 launches a
+    level above the tail and none of kernel 1."""
+    import torch
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    rng = np.random.default_rng(3)
+
+    def route_apply(*args):
+        return sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
+
+    routes = {"level_apply_cuda": route_apply,
+              "restrict_cuda": sk.restrict_plain,
+              "prolong_add_cuda": sk.prolong_add_plain}
+    for name in ("step04", "megatet", "step02"):
+        hier, sig, kind = hiers[name]
+        for dn in ("float32", "float64"):
+            dtype = getattr(torch, dn)
+
+            def rand(shape):
+                return torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=dtype, device=dev)
+
+            h, sg = hier.astype(dtype), sig.to(dtype)
+            grids = [tuple(lv.free.shape[-3:]) for lv in h.levels]
+            t = tmg.tail_start(grids, dtype)
+            timed = tmg.tail_start(grids, torch.float32)
+            if kind == "one":
+                levels = [tmg._level_op(lv, sg) for lv in h.levels]
+            else:
+                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
+                          for lv in h.levels]
+                levels = [pc[5] for pc in pieces]
+            for l in range(t):
+                lv, nxt = levels[l], levels[l + 1]
+                tt = h.transfers[l].kernel_tables(dev, dtype)
+                lead = tuple(lv.C.shape[:-4])
+                grid = lead + grids[l]
+                x = rand(grid)
+                b = torch.where(lv.free, rand(grid), 0.0)
+                xc = rand(lead + grids[l + 1])
+                for kname, mode in LEVEL_FUNCTIONS:
+                    if mode is not None:
+                        args = (None if mode == "sweep0" else x,
+                                None if mode == "masked" else b, lv, mode,
+                                0.7)
+                    elif kname == "restrict_cuda":
+                        args = (b, tt, nxt.free)
+                    else:
+                        args = (x, xc, tt)
+                    shape = level_shape(kname, signature(kname, args)[2])
+                    kernel = getattr(sk, kname)
+                    twin = getattr(sk, kname.replace("_cuda", "_plain"))
+                    covered.add(signature(kname, args))
+                    y = kernel(*args)
+                    err = measure.check_close(
+                        f"levels {name} {kname} {shape} {dn}", y,
+                        twin(*args), dtype)
+                    if not torch.equal(y, routes[kname](*args)):
+                        raise AssertionError(f"levels {name} {kname} "
+                                             f"{shape} {dn}: not the route")
+                    line = (f"levels {name} {kname} {dn} {shape}: "
+                            f"max_abs_err {err:.3e} against the twin, "
+                            "torch.equal to the route")
+                    if l < timed:
+                        copies = measure.input_copies(args)
+                        ms = measure.kernel_ms(kernel, copies)
+                        warm = measure.kernel_ms(
+                            kernel, measure.input_copies(args, warm=True))
+                        turn = itertools.cycle(copies)
+                        call = measure.cuda_ms(lambda: kernel(*next(turn)))
+                        pms = measure.cuda_ms(lambda: twin(*next(turn)))
+                        graph = measure.kernel_ms(routes[kname], copies)
+                        row = (err, ms, pms, shape, call, None, graph)
+                        results.setdefault((kname, dn), row)
+                        results[(kname, dn, shape)] = row
+                        WARM[(kname, dn, shape)] = warm
+                        line += (f"; kernel {ms:.4f} ms cold, {warm:.4f} ms "
+                                 f"warm (one call with its wrapper "
+                                 f"{call:.4f} ms) plain {pms:.4f} ms, the "
+                                 f"route as one CUDA graph {graph:.4f} ms")
+                        del copies
+                    log(line)
+            torch.cuda.empty_cache()
+            # one V-cycle: the level kernels above the tail, then the tail
+            b0 = torch.where(levels[0].free, rand(
+                tuple(levels[0].C.shape[:-4]) + grids[0]), 0.0)
+            if kind == "one":
+                cycle = tmg.make_v_cycle(h, sg, tail_from=t)
+                want = tmg.make_v_cycle(h, sg, tail_from=t,
+                                        route=True)(b0)
+            else:
+                _, tail = tmg._fused_tail(pieces, h, t, 2)
+
+                def cycle(b):
+                    return tmg._fused_cycle(pieces, h, b, tail_from=t,
+                                            tail=tail)
+                want = tmg._fused_cycle(pieces, h, b0, tail_from=t,
+                                        tail=tail, route=True)
+            sk.reset_launches()
+            z = cycle(b0)
+            counts = {k: sk.LAUNCHES[k] for k in
+                      ("level_apply_cuda", "restrict_cuda",
+                       "prolong_add_cuda", "stencil_spmv_cuda",
+                       "vcycle_tail_cuda")}
+            sk.reset_launches()
+            if not torch.equal(z, want):
+                raise AssertionError(f"levels {name} {dn}: the V-cycle "
+                                     "through the level kernels is not "
+                                     "the route's")
+            if counts != {"level_apply_cuda": 4 * t, "restrict_cuda": t,
+                          "prolong_add_cuda": t, "stencil_spmv_cuda": 0,
+                          "vcycle_tail_cuda": 1}:
+                raise AssertionError(f"levels {name} {dn}: launches of one "
+                                     f"V-cycle {counts}, {t} levels above "
+                                     "the tail")
+            log(f"levels {name} {dn}: one V-cycle through the level kernels "
+                f"({t} levels above the tail, 6 launches each: {counts}) "
+                "torch.equal to the route")
+
+
 def signature(name, args):
-    """(kernel, dtype of the first argument, input shapes and other
-    arguments) of one launch; a V-cycle tail as (lanes, level grids)."""
+    """(kernel, dtype of the first tensor argument, input shapes and other
+    arguments) of one launch; a V-cycle tail as (lanes, level grids), a
+    level's LevelOp by its mask's shape, a transfer's tables by (fine,
+    coarse) grid."""
     def key(a):
         if hasattr(a, "shapes"):
             return (a.lanes, a.shapes)
         return tuple(a.shape) if hasattr(a, "shape") else a
-    return (name, str(args[0].dtype).split(".")[-1],
-            tuple(key(a) for a in args))
+    dt = next(a.dtype for a in args if hasattr(a, "dtype"))
+    return (name, str(dt).split(".")[-1], tuple(key(a) for a in args))
 
 
 def shape_key(name, dn, shapes):
@@ -836,9 +1011,66 @@ def shape_key(name, dn, shapes):
     if name == "combine_lanes_cuda":
         L, B, N = shapes[1][0], shapes[0][0], int(np.prod(shapes[0][1:]))
         return f"{dn} {(L, B, N)}"
+    if name in LEVEL_NAMES:
+        return f"{dn} {level_shape(name, shapes)}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
     return f"{dn} {(L, shapes[1][0], shapes[1][2:])}"
+
+
+LEVEL_NAMES = ("level_apply_cuda", "restrict_cuda", "prolong_add_cuda")
+
+
+def level_shape(name, shapes):
+    """A level kernel's launch signature shapes as measure.work takes
+    them: (mode, mask lanes, grid) for level_apply, (mask lanes, grid) for
+    restrict, (grid,) for prolong_add."""
+    lanes = lambda m: m[0] if len(m) == 4 else 1
+    if name == "level_apply_cuda":
+        x, b, mask, mode = shapes[:4]
+        return (mode, lanes(mask), x if x is not None else b)
+    if name == "restrict_cuda":
+        return (lanes(shapes[2]), shapes[0])
+    return (shapes[0],)
+
+
+def check_level_launches(seen):
+    """Every level above a tail that runs the level kernels (Counter
+    `seen` of one path's launch signatures) took 6 launches a V-cycle (nu
+    = 2):
+    "sweep0", the residual, the restriction and the prolongation once,
+    "sweep" twice; and kernel 1 in that dtype at that grid never (in f64
+    at a fine grid it is the CG's master apply)."""
+    per_level = collections.defaultdict(collections.Counter)
+    for (name, dn, shapes), n in seen.items():
+        if name in LEVEL_NAMES:
+            ws = level_shape(name, shapes)
+            per_level[(dn, ws[-1])][(name, ws[0] if len(ws) == 3
+                                     else None)] += n
+    for (dn, grid), c in sorted(per_level.items()):
+        V = c[("level_apply_cuda", "sweep0")]
+        if not V:
+            continue                   # only the CG's masked operator
+        want = {("level_apply_cuda", "sweep0"): V,
+                ("level_apply_cuda", "residual"): V,
+                ("level_apply_cuda", "sweep"): 2 * V,
+                ("restrict_cuda", None): V, ("prolong_add_cuda", None): V}
+        got = {k: c[k] for k in want}
+        k1 = seen_count(seen, "stencil_spmv_cuda", dn, grid)
+        if got != want or k1:
+            raise AssertionError(f"level {dn} {grid}: launches {got}, not 6 "
+                                 f"a V-cycle {want}; stencil_spmv_cuda "
+                                 f"{k1} times")
+        log(f"levels: {dn} {grid}: {V} V-cycles x 6 launches, "
+            f"{c[('level_apply_cuda', 'masked')]} masked applies (the "
+            "CG's operator), stencil_spmv_cuda 0 times")
+
+
+def seen_count(seen, name, dn, grid):
+    """Launches of kernel `name` in dtype dn whose first input had shape
+    `grid`."""
+    return sum(n for (k, d, shapes), n in seen.items()
+               if k == name and d == dn and shapes[0] == grid)
 
 
 def tail_shape(shapes):
@@ -893,6 +1125,9 @@ def phase_path_parity(dev, seen, covered, first):
         args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                 device=dev) if isinstance(s, tuple) else s
                 for s in shapes]
+        if name in LEVEL_NAMES:
+            args = list(measure.kernel_inputs(
+                name, level_shape(name, shapes), dtype, dev, rng))
         if name.startswith("batched"):         # sigma: positive, as solved
             args[2] = args[2].abs()
         if name == "stencil_spmv_bf16c_cuda":
@@ -1625,8 +1860,13 @@ def main():
     log(f"parity: done in {time.perf_counter() - t0:.1f} s; clocks "
         f"{gpu_query('clocks.sm,clocks.max.sm')}")
     t0 = time.perf_counter()
-    starts = phase_tail(dev, parity)
+    hiers = tail_hierarchies(dev)
+    starts = phase_tail(dev, parity, hiers)
     log(f"tail: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_levels(dev, parity, hiers, covered)
+    del hiers
+    log(f"levels: done in {time.perf_counter() - t0:.1f} s")
 
     # 4-14. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
@@ -1654,6 +1894,7 @@ def main():
         if four_d:
             log(f"launches {name}: stencil_spmv_cuda with a lane axis "
                 f"{four_d}")
+        check_level_launches(seen - before)
         for k, n in counts.items():
             launches[k] += n
         return out
@@ -1665,8 +1906,8 @@ def main():
     sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda",
                                     "vcycle_tail_cuda",
                                     "combine_lanes_cuda"], sweep_leg)
-    mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda"],
-                phase_megatet, dev, gpu)
+    mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda",
+                            *LEVEL_NAMES], phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda", "vcycle_tail_cuda",
                              "combine_lanes_cuda"],
@@ -1680,7 +1921,7 @@ def main():
                       gpu, outdir)
         step02 = path("step02", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda"],
+                                 "vcycle_tail_cuda", *LEVEL_NAMES],
                       phase_step02, dev, gpu, outdir, lanes=True)
         step02s = path("step02-serial", ["stencil_spmv_cuda"],
                        phase_step02_serial, dev, gpu, step02)
@@ -1688,7 +1929,8 @@ def main():
                       dev, gpu, outdir, lanes=True)
         step04 = path("step04", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda", "combine_lanes_cuda"],
+                                 "vcycle_tail_cuda", "combine_lanes_cuda",
+                                 *LEVEL_NAMES],
                       phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -1748,7 +1990,10 @@ def main():
                           ("plane_fma_cuda", "float32", "float64"),
                           ("coarse_cg_cuda", "float32", "float64"),
                           ("vcycle_tail_cuda", "float32", "float64"),
-                          ("combine_lanes_cuda", "float32", "float64")):
+                          ("combine_lanes_cuda", "float32", "float64"),
+                          ("level_apply_cuda", "float32", "float64"),
+                          ("restrict_cuda", "float32", "float64"),
+                          ("prolong_add_cuda", "float32", "float64")):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
         entry = dict(
@@ -1760,7 +2005,7 @@ def main():
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             library_note=LIBRARY_NOTE[name] if lib is None else None,
             dtype=dn, shape=str(shape), call_ms=call, other_dtype=None,
-            plain_graph_ms=graph)
+            plain_graph_ms=graph, warm_ms=WARM.get((name, dn, shape)))
         if alt is not None:
             a_err, a_ms, a_pms, a_shape, a_call, _, a_graph = \
                 parity[(name, alt)]
@@ -1768,9 +2013,12 @@ def main():
                 dtype=alt, shape=str(a_shape), max_abs_err=a_err, ms=a_ms,
                 plain_ms=a_pms, call_ms=a_call,
                 bound_ms=measure.bound(name, a_shape, alt)[0],
-                plain_graph_ms=a_graph)
+                plain_graph_ms=a_graph,
+                warm_ms=WARM.get((name, alt, a_shape)))
+        warm = entry["warm_ms"]
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it"
+            + (f"; warm {warm:.4f} ms" if warm is not None else "")
             + (f"; plain graph {graph:.4f} ms" if graph is not None else ""))
         # the kernel at its other timed shapes, beside its main row
         other_rows = []
@@ -1780,12 +2028,16 @@ def main():
                 continue
             o_dn = key[0]
             ob_ms, ob_by = measure.bound(name, o_shape, o_dn)
+            o_warm = WARM.get((name, o_dn, o_shape))
             other_rows.append(dict(
                 dtype=o_dn, shape=str(o_shape), max_abs_err=o_err, ms=o_ms,
                 plain_ms=o_pms, call_ms=o_call, bound_ms=ob_ms,
-                bound_by=ob_by, library_ms=o_lib, plain_graph_ms=o_graph))
+                bound_by=ob_by, library_ms=o_lib, plain_graph_ms=o_graph,
+                warm_ms=o_warm))
             log(f"{name} {o_dn} {o_shape}: {o_ms:.4f} ms against a bound of "
                 f"{ob_ms:.4f} ms ({ob_by}), {100 * ob_ms / o_ms:.1f}% of it"
+                + (f"; warm {o_warm:.4f} ms, {100 * ob_ms / o_warm:.1f}%"
+                   if o_warm is not None else "")
                 + (f"; library {o_lib:.4f} ms" if o_lib is not None else "")
                 + (f"; plain graph {o_graph:.4f} ms" if o_graph is not None
                    else ""))

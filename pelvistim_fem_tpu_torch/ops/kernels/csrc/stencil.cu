@@ -31,6 +31,12 @@
 //   combine_lanes           <- the on-the-fly combine sum_b sig[l, b] C_b of
 //                              batched_stencil_spmv_flat, made once a solve
 //                              for a tail's levels
+// and kernel 1's work at the levels above the tail, one launch a phase:
+//   level_apply             <- kernel 1 with the damped-Jacobi sweep, the
+//                              residual or the mask around it
+//   restrict, prolong_add   <- the transfers' per-axis gathers (the levels
+//                              that cycle_impl, multigrid.py:425-460, runs
+//                              as XLA fusions below FLAT_MIN_NODES)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
@@ -42,6 +48,10 @@
 //   b (S, G_t), packed planes (S, 27 * sum G_l), packed free (S or 1,
 //   sum G_l), transfer tables                    [vcycle_tail]
 //   coeff (B, N), sig (L, B) -> C (L, N)         [combine_lanes]
+//   x, b, wd (S, X, Y, Z), C (S, 27, X, Y, Z), neighbour words (S or 1,
+//   X, Y, Z)                                     [level_apply]
+//   r (S, G_f) -> rc (S, G_c), free (S or 1, G_c); x (S, G_f), xc (S, G_c);
+//   one transfer's tables as vcycle_tail's       [restrict, prolong_add]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
 //
 // All are bound by device-memory bandwidth: per grid point the single
@@ -632,20 +642,28 @@ __device__ __forceinline__ unsigned nbr_word(int q, int X, int Y, int Z,
   return nb;
 }
 
-// Kernel 1's apply at point q of a grid whose values v lie in shared
-// memory, c the grid's 27 planes of G points: acc = fma(C_o, v_o, acc) over
-// o = 0..26 in order (stencil_point's sum), v_o the neighbour along offset
-// o, 0 where bit o of nb is clear (outside the grid).
-template <typename T>
-__device__ __forceinline__ T apply_point(const T* c, const T* v, unsigned nb,
-                                         int q, int G, int Y, int Z) {
+// Kernel 1's apply at point q, c the grid's 27 planes of G points: acc =
+// fma(C_o, v_o, acc) over o = 0..26 in order (stencil_point's sum), v_o =
+// value(n) of the neighbour n along offset o, 0 where bit o of nb is clear
+// (outside the grid, or, in the level kernels' words, not free).
+template <typename T, typename Value>
+__device__ __forceinline__ T apply_with(const T* c, unsigned nb, int q, int G,
+                                        int Y, int Z, Value value) {
   T acc = T(0);
 #pragma unroll
   for (int o = 0; o < 27; ++o) {
-    const T pv = (nb >> o & 1u) ? v[q + shift(o, Y, Z)] : T(0);
+    const T pv = (nb >> o & 1u) ? value(q + shift(o, Y, Z)) : T(0);
     acc = fma(c[o * G + q], pv, acc);
   }
   return acc;
+}
+
+// apply_with on values v in memory (shared memory in the coarse CG and
+// the tail).
+template <typename T>
+__device__ __forceinline__ T apply_point(const T* c, const T* v, unsigned nb,
+                                         int q, int G, int Y, int Z) {
+  return apply_with(c, nb, q, G, Y, Z, [v](int n) { return v[n]; });
 }
 
 // The coarse CG's work on one lane's level, shared by coarse_cg_kernel and
@@ -1099,6 +1117,182 @@ vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
   for (int q = tid; q < G0; q += nt) x[q] = xs[q];
 }
 
+// ── the levels above the tail ────────────────────────────────────────────
+//
+// Kernel 1's work at a V-cycle level above the tail, with the smoothing,
+// residual and transfers around it, one launch a phase.  It replaces
+// kernel 1 (stencil_spmv_flat) at the levels that cycle_impl
+// (pelvistim_fem_tpu/ops/multigrid.py:425-460) runs as XLA fusions below
+// FLAT_MIN_NODES, where XLA fuses the stencil with the smoothing around it;
+// run op by op, such a level took ~70 launches a V-cycle (kernel 1 five
+// times, the where/sub/mul/add of the sweeps, three axes of K
+// index_selects, multiplies and adds a transfer), at the launch floor.
+// Now a level takes 6 at nu = 2:
+//   level_apply_kernel   one mode a launch: a damped-Jacobi sweep x + wd (b
+//                        - op(x)); the first two sweeps from x = 0 (x and
+//                        its neighbours formed as wd b on the fly); the
+//                        residual b - op(x); op(x) alone (the CG's fine-level
+//                        operator); op(x) = free ? K xm : x, xm = free ? x : 0
+//   restrict_kernel      R r masked by the coarse level's free, all three
+//                        axis passes, a thread a coarse point
+//   prolong_add_kernel   x + P xc, all three axis passes, a thread a fine
+//                        point
+// One thread a point, lanes on blockIdx.y, 32-bit indices (the launchers
+// refuse S * 27 * G past INT_MAX).  Each point's neighbour word is made once
+// a hierarchy: bit o set where the neighbour along offset o lies in the grid
+// AND is free, bit 31 where the point is free; so a neighbour read is one
+// bit test, no bounds tests, and the masked copy xm is never written: a
+// neighbour that is not free reads 0, as it reads 0 from xm.  wd = omega /
+// diag is made once too.  The arithmetic is the route's bit for bit: the
+// apply is kernel 1's fma chain (apply_with), the rest PyTorch's single
+// roundings in its operand order (add_rn etc., as in the tail), the
+// transfers' partial sums per axis pass as restrict_axis / prolong_axis
+// form them (each pass's values are recomputed a point: cheap next to the
+// launches they replace).  Bound by device memory where the level is large
+// (27 planes and a few vectors a point; warm in the 50 MB L2 on the path),
+// by the launch at the small levels: the design's gain is the ~64 launches
+// a level and V-cycle it removes.
+#ifndef PST_LEVEL_THREADS
+#define PST_LEVEL_THREADS 256
+#endif
+
+enum LevelMode { kSweep = 0, kSweep0 = 1, kResidual = 2, kMasked = 3 };
+
+template <typename T, int Mode>
+__global__ void __launch_bounds__(PST_LEVEL_THREADS)
+level_apply_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                   const T* __restrict__ C, const T* __restrict__ wd,
+                   const unsigned* __restrict__ words, T* __restrict__ y,
+                   int word_stride, int X, int Y, int Z) {
+  const int G = X * Y * Z;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= G) return;
+  const int off = blockIdx.y * G;
+  x += off;
+  b += off;
+  wd += off;
+  y += off;
+  C += 27 * off;
+  const unsigned nb = words[blockIdx.y * word_stride + q];
+  const bool f = (nb & kCgFree) != 0u;
+  if constexpr (Mode == kSweep0) {  // x = wd b, then one sweep
+    const auto x0 = [b, wd](int n) { return mul_rn(wd[n], b[n]); };
+    const T xq = x0(q);
+    const T ax = f ? apply_with(C, nb, q, G, Y, Z, x0) : xq;
+    y[q] = add_rn(xq, mul_rn(wd[q], sub_rn(b[q], ax)));
+  } else {
+    const T xq = x[q];
+    const T ax = f ? apply_with(C, nb, q, G, Y, Z, [x](int n) { return x[n]; })
+                   : xq;
+    if constexpr (Mode == kSweep) {
+      y[q] = add_rn(xq, mul_rn(wd[q], sub_rn(b[q], ax)));
+    } else if constexpr (Mode == kResidual) {
+      y[q] = sub_rn(b[q], ax);
+    } else {
+      y[q] = ax;
+    }
+  }
+}
+
+// rc = free_c ? R r : 0 at coarse point q of lane blockIdx.y, m the
+// layout of a two-level tail (the fine level, the coarse level, the
+// transfer's tables as vcycle_tail_kernel reads them).  The three axis
+// passes of restrict_axis nested: the axis-2 sum over the axis-1 sums over
+// the axis-0 sums, each acc = in_0 wt_0, then acc + in_k wt_k in k order.
+// Up to K0 * K1 * K2 = 125 reads a point, so the point's axis-0 and axis-1
+// table entries go to registers first and those two loops are unrolled to
+// kLevelMaxK (the entries past K predicated off): the K0 * K1 reads of one
+// axis-2 entry are then all in flight at once, not one latency each.
+constexpr int kLevelMaxK = 6;  // restriction entries a coarse knot at most
+
+template <typename T>
+__global__ void __launch_bounds__(PST_LEVEL_THREADS)
+restrict_kernel(const T* __restrict__ r, const int* __restrict__ itab,
+                const T* __restrict__ wtab,
+                const unsigned char* __restrict__ free_c, T* __restrict__ rc,
+                int free_stride, const __grid_constant__ TailMeta m) {
+  const TailLevel F = m.lv[0], Cl = m.lv[1];
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Cl.G) return;
+  r += blockIdx.y * F.G;
+  rc += blockIdx.y * Cl.G;
+  const TailTransfer& tr = m.tr[0];
+  const int K0 = tr.K[0], K1 = tr.K[1], K2 = tr.K[2];
+  int ci, cj, ck;
+  ijk(q, Cl.Y, Cl.Z, &ci, &cj, &ck);
+  const int* t0 = itab + tr.ioff[0] + F.X + ci * K0;
+  const int* t1 = itab + tr.ioff[1] + F.Y + cj * K1;
+  const int* i2 = itab + tr.ioff[2] + F.Z + ck * K2;
+  const T* v0 = wtab + tr.woff[0] + 2 * F.X + ci * K0;
+  const T* v1 = wtab + tr.woff[1] + 2 * F.Y + cj * K1;
+  const T* w2 = wtab + tr.woff[2] + 2 * F.Z + ck * K2;
+  int o0[kLevelMaxK], o1[kLevelMaxK];  // offsets of the entries in r
+  T w0[kLevelMaxK], w1[kLevelMaxK];
+#pragma unroll
+  for (int e = 0; e < kLevelMaxK; ++e) {
+    o0[e] = e < K0 ? t0[e] * F.Y * F.Z : 0;
+    w0[e] = e < K0 ? v0[e] : T(0);
+    o1[e] = e < K1 ? t1[e] * F.Z : 0;
+    w1[e] = e < K1 ? v1[e] : T(0);
+  }
+  T a2 = T(0);
+  for (int e2 = 0; e2 < K2; ++e2) {
+    const T* plane = r + i2[e2];
+    T a1 = T(0);
+#pragma unroll
+    for (int e1 = 0; e1 < kLevelMaxK; ++e1) {
+      if (e1 < K1) {
+        const T* row = plane + o1[e1];
+        T a0 = mul_rn(row[o0[0]], w0[0]);
+#pragma unroll
+        for (int e0 = 1; e0 < kLevelMaxK; ++e0) {
+          if (e0 < K0) a0 = add_rn(a0, mul_rn(row[o0[e0]], w0[e0]));
+        }
+        const T p1 = mul_rn(a0, w1[e1]);
+        a1 = e1 ? add_rn(a1, p1) : p1;
+      }
+    }
+    const T p2 = mul_rn(a1, w2[e2]);
+    a2 = e2 ? add_rn(a2, p2) : p2;
+  }
+  rc[q] = free_c[blockIdx.y * free_stride + q] ? a2 : T(0);
+}
+
+// y = x + P xc at fine point q of lane blockIdx.y (layout as
+// restrict_kernel's): the axis-2 pass over two axis-1 values, each over two
+// axis-0 values, each in_s0 wl + in_(s0+1) wr, as prolong_axis forms them.
+template <typename T>
+__global__ void __launch_bounds__(PST_LEVEL_THREADS)
+prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
+                   const int* __restrict__ itab, const T* __restrict__ wtab,
+                   T* __restrict__ y, const __grid_constant__ TailMeta m) {
+  const TailLevel F = m.lv[0], Cl = m.lv[1];
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= F.G) return;
+  x += blockIdx.y * F.G;
+  y += blockIdx.y * F.G;
+  xc += blockIdx.y * Cl.G;
+  const TailTransfer& tr = m.tr[0];
+  int i, j, k;
+  ijk(q, F.Y, F.Z, &i, &j, &k);
+  const int sx = itab[tr.ioff[0] + i], sy = itab[tr.ioff[1] + j],
+            sz = itab[tr.ioff[2] + k];
+  const T* w0 = wtab + tr.woff[0];
+  const T* w1 = wtab + tr.woff[1];
+  const T* w2 = wtab + tr.woff[2];
+  const T lx = w0[i], rx = w0[F.X + i], ly = w1[j], ry = w1[F.Y + j],
+          lz = w2[k], rz = w2[F.Z + k];
+  const int st = Cl.Y * Cl.Z;
+  const auto p0 = [&](int cy, int cz) {
+    const T* a = xc + sx * st + cy * Cl.Z + cz;
+    return add_rn(mul_rn(a[0], lx), mul_rn(a[st], rx));
+  };
+  const auto p1 = [&](int cz) {
+    return add_rn(mul_rn(p0(sy, cz), ly), mul_rn(p0(sy + 1, cz), ry));
+  };
+  y[q] = add_rn(x[q], add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz)));
+}
+
 // ── the lanes' combined stencils ─────────────────────────────────────────
 //
 // C[l, i] = sum_b sig[l, b] coeff[b, i] over the N elements of a body's
@@ -1486,6 +1680,78 @@ int launch_vcycle_tail(const void* b, const void* Cp, const void* Fp,
   return (int)cudaGetLastError();
 }
 
+// S lanes (gridDim.y, at most 65535) of G points within 32-bit indices.
+bool level_lanes_fit(long long G, int S) {
+  return S >= 0 && S <= 65535 && 27LL * S * G <= INT_MAX;
+}
+
+dim3 level_grid(int G, int S) {
+  return dim3((unsigned)((G + PST_LEVEL_THREADS - 1) / PST_LEVEL_THREADS), S);
+}
+
+// S lanes with their own stencils (27, X, Y, Z) and wd; neighbour words
+// shared by the lanes (word_lanes 1) or one set a lane (word_lanes S);
+// mode a LevelMode (x unread in kSweep0, b and wd unread in kMasked).
+template <typename T>
+int launch_level_apply(const void* x, const void* b, const void* C,
+                       const void* wd, const void* words, void* y, int S,
+                       int word_lanes, int mode, int X, int Y, int Z,
+                       void* stream) {
+  const long long G = (long long)X * Y * Z;
+  if (X < 1 || Y < 1 || Z < 1 || !level_lanes_fit(G, S) ||
+      !(word_lanes == 1 || word_lanes == S) || mode < kSweep ||
+      mode > kMasked) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (S == 0) return 0;
+  const auto kernel = mode == kSweep      ? level_apply_kernel<T, kSweep>
+                      : mode == kSweep0   ? level_apply_kernel<T, kSweep0>
+                      : mode == kResidual ? level_apply_kernel<T, kResidual>
+                                          : level_apply_kernel<T, kMasked>;
+  kernel<<<level_grid((int)G, S), PST_LEVEL_THREADS, 0,
+           (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)b, (const T*)C, (const T*)wd,
+      (const unsigned*)words, (T*)y, word_lanes == 1 ? 0 : (int)G, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+// The layout of one transfer: meta as tail_meta reads it, two levels.
+bool transfer_meta(const int* meta, int S, TailMeta* m) {
+  return meta[0] == 2 && tail_meta(meta, true, m) &&
+         level_lanes_fit(m->lv[0].G, S);
+}
+
+template <typename T>
+int launch_restrict(const void* r, const void* itab, const void* wtab,
+                    const void* free_c, void* rc, const int* meta, int S,
+                    int free_lanes, void* stream) {
+  TailMeta m;
+  if (!transfer_meta(meta, S, &m) || !(free_lanes == 1 || free_lanes == S) ||
+      std::max(m.tr[0].K[0], m.tr[0].K[1]) > kLevelMaxK) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (S == 0) return 0;
+  const int G = m.lv[1].G;
+  restrict_kernel<T><<<level_grid(G, S), PST_LEVEL_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const T*)r, (const int*)itab, (const T*)wtab,
+      (const unsigned char*)free_c, (T*)rc, free_lanes == 1 ? 0 : G, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_prolong_add(const void* x, const void* xc, const void* itab,
+                       const void* wtab, void* y, const int* meta, int S,
+                       void* stream) {
+  TailMeta m;
+  if (!transfer_meta(meta, S, &m)) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  prolong_add_kernel<T><<<level_grid(m.lv[0].G, S), PST_LEVEL_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)xc, (const int*)itab, (const T*)wtab, (T*)y, m);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int B>
 int launch_combine_lanes_b(const void* coeff, const void* sig, void* C, int L,
                            int N, cudaStream_t stream) {
@@ -1622,6 +1888,48 @@ int pst_combine_lanes_f32(const void* coeff, const void* sig, void* C, int L,
 int pst_combine_lanes_f64(const void* coeff, const void* sig, void* C, int L,
                           int B, int N, void* stream) {
   return launch_combine_lanes<double>(coeff, sig, C, L, B, N, stream);
+}
+
+int pst_level_apply_f32(const void* x, const void* b, const void* C,
+                        const void* wd, const void* words, void* y, int S,
+                        int word_lanes, int mode, int X, int Y, int Z,
+                        void* stream) {
+  return launch_level_apply<float>(x, b, C, wd, words, y, S, word_lanes,
+                                   mode, X, Y, Z, stream);
+}
+
+int pst_level_apply_f64(const void* x, const void* b, const void* C,
+                        const void* wd, const void* words, void* y, int S,
+                        int word_lanes, int mode, int X, int Y, int Z,
+                        void* stream) {
+  return launch_level_apply<double>(x, b, C, wd, words, y, S, word_lanes,
+                                    mode, X, Y, Z, stream);
+}
+
+int pst_restrict_f32(const void* r, const void* itab, const void* wtab,
+                     const void* free_c, void* rc, const int* meta, int S,
+                     int free_lanes, void* stream) {
+  return launch_restrict<float>(r, itab, wtab, free_c, rc, meta, S,
+                                free_lanes, stream);
+}
+
+int pst_restrict_f64(const void* r, const void* itab, const void* wtab,
+                     const void* free_c, void* rc, const int* meta, int S,
+                     int free_lanes, void* stream) {
+  return launch_restrict<double>(r, itab, wtab, free_c, rc, meta, S,
+                                 free_lanes, stream);
+}
+
+int pst_prolong_add_f32(const void* x, const void* xc, const void* itab,
+                        const void* wtab, void* y, const int* meta, int S,
+                        void* stream) {
+  return launch_prolong_add<float>(x, xc, itab, wtab, y, meta, S, stream);
+}
+
+int pst_prolong_add_f64(const void* x, const void* xc, const void* itab,
+                        const void* wtab, void* y, const int* meta, int S,
+                        void* stream) {
+  return launch_prolong_add<double>(x, xc, itab, wtab, y, meta, S, stream);
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

@@ -4,8 +4,10 @@
 Kernel device time is read from a CUDA graph of launches replayed between
 CUDA events, each launch on one of enough copies of its inputs that its
 reads come from HBM, not the H100's 50 MB L2 (`input_copies`,
-`kernel_ms`).  A bound is the least time the card could take for the
-same work (`bound`).
+`kernel_ms`): "cold".  "Warm" times launch every time on the same inputs
+(`input_copies(..., warm=True)`), as a solve does at the levels whose
+planes stay in L2.  A bound is the least time the card could take for
+the same work (`bound`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    VcycleTail, coarse_cg_plain, make_vcycle_tail, vcycle_tail_plain)
+    LEVEL_MODES, LevelOp, VcycleTail, coarse_cg_plain, make_vcycle_tail,
+    vcycle_tail_plain)
 
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
 # (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
@@ -48,20 +51,26 @@ def cuda_ms(fn, reps=20, warmup=10):
     return float(np.median(times))
 
 
-def input_copies(args):
-    """args and clones of its tensors and V-cycle tails (other arguments
-    kept), enough that using them in turn reads at least ROTATE_BYTES:
-    between two uses of one copy the others evict it from L2, so each
-    launch reads its inputs from HBM, as inside a solve where the CG
-    vectors evict the coefficients."""
+def input_copies(args, warm=False):
+    """args and clones of its tensors, V-cycle tails and level ops (other
+    arguments kept), enough that using them in turn reads at least
+    ROTATE_BYTES: between two uses of one copy the others evict it from
+    L2, so each launch reads its inputs from HBM, as inside a solve where
+    the CG vectors evict the coefficients.  warm: [args] alone, every
+    launch on the same inputs (L2 keeps what fits)."""
+    if warm:
+        return [tuple(args)]
     tensors = [a for a in args if torch.is_tensor(a)]
     for a in args:
         if isinstance(a, VcycleTail) and a.packed is not None:
             tensors += list(a.packed[:-1])
+        if isinstance(a, LevelOp):
+            tensors += [a.C] + list(a._wd.values()) + (
+                [a.words] if a.words is not None else [])
     nbytes = sum(a.numel() * a.element_size() for a in tensors)
     n = max(2, math.ceil(ROTATE_BYTES / nbytes))
     copy = lambda a: a.clone() if torch.is_tensor(a) or \
-        isinstance(a, VcycleTail) else a
+        isinstance(a, (VcycleTail, LevelOp)) else a
     return [tuple(args)] + [tuple(copy(a) for a in args)
                             for _ in range(n - 1)]
 
@@ -111,8 +120,42 @@ def work(name, shape, dtype):
     combine_lanes_cuda (L lanes of B bodies over the 27 planes of the
     levels of grids `shapes`, packed: each body's coefficients and sigma
     read once, each lane's stencils written once; 2B - 1 operations an
-    element and lane)."""
+    element and lane), (mode, FL, grid) for level_apply_cuda (S lanes of
+    grid (X, Y, Z) or (S, X, Y, Z): per point and lane the 27 planes and
+    the mode's vectors, x b wd y ("sweep"), b wd y ("sweep0"), x b y
+    ("residual"), x y ("masked"), and FL neighbour words of 4 bytes a
+    point; 54 operations of the apply, 3 of a sweep, 1 more for "sweep0"'s
+    wd b and the residual's subtraction), (FL, grid) for restrict_cuda
+    (r, rc, the coarse mask's FL bytes a point, the tables' idx and wt;
+    the three axis passes' multiply-adds as restrict_axes does them) and
+    (grid,) for prolong_add_cuda (x, xc, y, the tables' s0, wl and wr;
+    the axis passes' 3 operations a value and the add); the coarse grid
+    and the tables' K are those of multigrid.Transfer on the fine grid."""
     es = 4 if dtype == "float32" else 8
+    if name == "level_apply_cuda":
+        mode, FL, grid = shape
+        S, G = _lanes_points(grid)
+        vecs = {"sweep": 4, "sweep0": 3, "residual": 3, "masked": 2}[mode]
+        ops = 54 + {"sweep": 3, "sweep0": 4, "residual": 1, "masked": 0}[mode]
+        return S * G * (27 + vecs) * es + FL * G * 4, S * G * ops
+    if name in ("restrict_cuda", "prolong_add_cuda"):
+        grid = shape[-1]
+        S, G = _lanes_points(grid)
+        fine = tuple(grid[-3:])
+        coarse, K = _coarsening(fine)
+        Gc = int(np.prod(coarse))
+        passes = [(coarse[0], fine[1], fine[2]), (coarse[0], coarse[1],
+                                                  fine[2]), coarse]
+        if name == "restrict_cuda":
+            tables = sum(c * k for c, k in zip(coarse, K)) * (4 + es)
+            ops = sum(int(np.prod(p)) * (2 * k - 1)
+                      for p, k in zip(passes, K))
+            return S * (G + Gc) * es + shape[0] * Gc + tables, S * ops
+        passes = [(fine[0], coarse[1], coarse[2]),
+                  (fine[0], fine[1], coarse[2]), fine]
+        tables = sum(fine) * (4 + 2 * es)
+        return (S * (2 * G + Gc) * es + tables,
+                S * (sum(3 * int(np.prod(p)) for p in passes) + G))
     if name == "combine_lanes_cuda":
         L, B, shapes = shape
         N = 27 * sum(int(np.prod(s)) for s in shapes)
@@ -143,6 +186,14 @@ def work(name, shape, dtype):
     G = int(np.prod(grid))
     return ((2 * L * G + 27 * B * G + L * B) * es,
             L * G * 27 * (2 * B + 1))
+
+
+def _coarsening(fine):
+    """(coarse grid, K per axis) of multigrid.Transfer on grid `fine` (K
+    depends on the knots' order only, not their spacing)."""
+    from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
+    tr = Transfer([np.arange(n, dtype=float) for n in fine])
+    return tr.nc, [int(idx.shape[1]) for idx, _ in tr.tables]
 
 
 def bound(name, shape, dtype):
@@ -272,8 +323,12 @@ def kernel_inputs(name, shape, dtype, device, rng):
     (spd_stencil), a mask free on 85% of the points, one a lane, and b
     on every point (so that the masked-out points' identity rows run
     too); vcycle_tail_cuda tail_inputs; combine_lanes_cuda coeff (B, 27
-    * points) of the levels `shapes` packed, and positive sigma (L, B).
-    """
+    * points) of the levels `shapes` packed, and positive sigma (L, B);
+    level_apply_cuda (x, b, a LevelOp of a random stencil and a mask free
+    on 85% of the points, FL of them, its words and wd made, mode, 0.7);
+    restrict_cuda (r, the tables of multigrid.Transfer on unit-spaced
+    knots, a coarse mask of FL lanes), prolong_add_cuda (x, xc, those
+    tables)."""
     def rand(s):
         return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=device)
@@ -294,6 +349,27 @@ def kernel_inputs(name, shape, dtype, device, rng):
         N = 27 * sum(int(np.prod(s)) for s in shapes)
         return rand((B, N)), torch.as_tensor(rng.random((L, B)), dtype=dtype,
                                              device=device)
+    if name == "level_apply_cuda":
+        mode, FL, grid = shape
+        grid = tuple(grid)
+        lv = LevelOp(rand(grid[:-3] + (27,) + grid[-3:]), torch.as_tensor(
+            rng.random(((FL,) if len(grid) == 4 else ()) + grid[-3:])
+            < 0.85, device=device))
+        lv.neighbour_words()
+        lv.wd(0.7)
+        return rand(grid), rand(grid), lv, mode, 0.7
+    if name in ("restrict_cuda", "prolong_add_cuda"):
+        from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
+        grid = tuple(shape[-1])
+        tr = Transfer([np.arange(n, dtype=float) for n in grid[-3:]])
+        tt = tr.kernel_tables(device, dtype)
+        coarse = grid[:-3] + tr.nc
+        if name == "prolong_add_cuda":
+            return rand(grid), rand(coarse), tt
+        free = torch.as_tensor(rng.random(
+            ((shape[0],) if len(grid) == 4 else ()) + tr.nc) < 0.85,
+            device=device)
+        return rand(grid), tt, free
     if name == "coarse_cg_cuda":
         iters, grid = shape
         grid = tuple(grid)

@@ -80,6 +80,34 @@ takes where the lanes share body-factored coefficients:
       twin: combine_lanes_plain        (to within one unit in the last
                                        place: PyTorch has no fma)
 
+and a V-cycle level above the tail, one launch a phase, on a level's
+LevelOp (its stencil, mask, Jacobi diagonal and neighbour words) and the
+TransferTables to its next level, each made once a hierarchy:
+
+  level_apply(x, b, lv, mode, omega)   mode "sweep": x + wd (b - op(x)),
+                                       wd = omega * dinv; "sweep0": that
+                                       sweep from x = wd b (two sweeps from
+                                       x = 0); "residual": b - op(x);
+                                       "masked": op(x) = where(free, K
+                                       where(free, x, 0), x); x and b 3-D,
+                                       or S lanes each with its own stencil
+      CUDA: level_apply_cuda
+      twin: level_apply_plain
+  restrict(r, tt, free_c)              where(free_c, R r, 0)
+      CUDA: restrict_cuda
+      twin: restrict_plain
+  prolong_add(x, xc, tt)               x + P xc
+      CUDA: prolong_add_cuda
+      twin: prolong_add_plain
+                                       The three replace kernel 1 and
+                                       PyTorch's ops around it at the
+                                       levels above the tail of cycle_impl
+                                       (pelvistim_fem_tpu/ops/multigrid.py);
+                                       the twins are that route op by op
+                                       on stencil_spmv_plain, restrict_axes
+                                       and prolong_axes (with
+                                       spmv=stencil_spmv, the card's route)
+
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
 
@@ -96,6 +124,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -121,7 +150,11 @@ LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0,
             "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
             "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0,
-            "combine_lanes_cuda": 0}
+            "combine_lanes_cuda": 0, "level_apply_cuda": 0,
+            "restrict_cuda": 0, "prolong_add_cuda": 0}
+
+# level_apply's modes (LevelMode in csrc/stencil.cu)
+LEVEL_MODES = {"sweep": 0, "sweep0": 1, "residual": 2, "masked": 3}
 
 # The tail kernel's limits (kTailMaxLevels, kMaxSmem and the coarse CG's
 # most points a lane in csrc/stencil.cu; pst_tail_max_levels,
@@ -350,18 +383,30 @@ def _pack_tail(tail, planes=None):
         if planes is None else planes
     Fp = torch.cat([f.reshape(k, -1).expand(FL, -1)
                     for f, k in zip(tail.frees, lanes)], dim=1)
+    Ip, Wp, layout = _pack_transfers(tail.pro, tail.res, tail.shapes,
+                                     Cp.device, Cp.dtype)
+    return Cp.contiguous(), Fp.contiguous(), Ip, Wp, layout
+
+
+def _pack_transfers(pro, res, shapes, device, dtype):
+    """(ints, floats, layout) of the transfers pro[l], res[l] between
+    levels of grids shapes[l] and shapes[l + 1], as vcycle_tail_kernel
+    reads them: per transfer and axis the int s0 and idx and the float wl,
+    wr and wt, one after another; the layout a ctypes int array (the level
+    count, each level's X, Y, Z, each transfer axis's K)."""
     ints, wts, ks = [], [], []
-    for p_axes, r_axes in zip(tail.pro, tail.res):
+    for p_axes, r_axes in zip(pro, res):
         for (s0, _, wl, wr), (idx, wt) in zip(p_axes, r_axes):
             ints += [s0, idx.reshape(-1)]
             wts += [wl, wr, wt.reshape(-1)]
             ks.append(int(idx.shape[1]))
     Ip = torch.cat(ints).to(torch.int32) if ints else \
-        torch.zeros(1, dtype=torch.int32, device=Cp.device)
-    Wp = torch.cat(wts).to(Cp.dtype) if wts else torch.zeros_like(Cp[0, :1])
-    layout = [len(tail.shapes)] + [d for s in tail.shapes for d in s] + ks
-    return (Cp.contiguous(), Fp.contiguous(), Ip.contiguous(),
-            Wp.contiguous(), (ctypes.c_int * len(layout))(*layout))
+        torch.zeros(1, dtype=torch.int32, device=device)
+    Wp = torch.cat(wts).to(dtype) if wts else \
+        torch.zeros(1, dtype=dtype, device=device)
+    layout = [len(shapes)] + [d for s in shapes for d in s] + ks
+    return (Ip.contiguous(), Wp.contiguous(),
+            (ctypes.c_int * len(layout))(*layout))
 
 
 def vcycle_tail_smem(shapes, dtype) -> int:
@@ -409,6 +454,121 @@ def vcycle_tail_plain(b, tail, nu=2, omega=0.7, coarse_iters=24):
         return x
 
     return cycle(0, b)
+
+
+def neighbour_words(free):
+    """(FL, points) int32 of a mask free (X, Y, Z) (FL = 1) or (FL, X, Y,
+    Z): bit o set where the neighbour along offset o lies in the grid and
+    is free, bit 31 where the point itself is free."""
+    f = free.reshape((-1,) + tuple(free.shape[-3:]))
+    X, Y, Z = f.shape[-3:]
+    fp = torch.nn.functional.pad(f.to(torch.int32), (1, 1, 1, 1, 1, 1))
+    w = torch.zeros(f.shape, dtype=torch.int32, device=f.device)
+    for o, (dx, dy, dz) in enumerate(OFFSETS):
+        w |= fp[:, 1 + dx:1 + dx + X, 1 + dy:1 + dy + Y,
+                1 + dz:1 + dz + Z] << o
+    w = torch.where(f, w | -2 ** 31, w)
+    return w.reshape(f.shape[0], -1).contiguous()
+
+
+@dataclasses.dataclass(eq=False)
+class LevelOp:
+    """One multigrid level for the level kernels: its combined stencil C,
+    (27, X, Y, Z) or, S lanes, (S, 27, X, Y, Z), contiguous, and its mask
+    free, (X, Y, Z) or (S or 1, X, Y, Z) bool.  Made once at first use
+    and kept: dinv = 1 / where(free & (C_13 != 0), C_13, 1), the Jacobi
+    diagonal's inverse (C's lanes and grid); wd(omega) = omega * dinv;
+    the neighbour words (neighbour_words; `words` where given) that the
+    CUDA kernel reads."""
+    C: torch.Tensor
+    free: torch.Tensor
+    words: torch.Tensor | None = None
+    _wd: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @functools.cached_property
+    def dinv(self):
+        c13 = self.C[..., DIAG_OFFSET, :, :, :]
+        return 1.0 / torch.where(self.free & (c13 != 0), c13, 1.0)
+
+    def wd(self, omega):
+        if omega not in self._wd:
+            self._wd[omega] = omega * self.dinv
+        return self._wd[omega]
+
+    def neighbour_words(self):
+        if self.words is None:
+            self.words = neighbour_words(self.free)
+        return self.words
+
+    def clone(self) -> "LevelOp":
+        """The same level with copies of its tensors (and of what is
+        made)."""
+        lv = LevelOp(self.C.clone(), self.free.clone(),
+                     None if self.words is None else self.words.clone())
+        lv._wd.update({k: v.clone() for k, v in self._wd.items()})
+        return lv
+
+    @property
+    def shape(self):
+        """The mask's shape: (X, Y, Z), or (S or 1, X, Y, Z)."""
+        return tuple(self.free.shape)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TransferTables:
+    """One transfer's tables (multigrid.Transfer.kernel_tables): pro and
+    res as prolong_axes and restrict_axes take them; `packed`, made once
+    at first use, the kernels' arguments (_pack_transfers of this transfer
+    alone: its int and float tables and its layout)."""
+    pro: tuple
+    res: tuple
+
+    @property
+    def shape(self):
+        """(fine grid, coarse grid)."""
+        return (tuple(int(p[0].shape[0]) for p in self.pro),
+                tuple(int(r[1].shape[0]) for r in self.res))
+
+    @functools.cached_property
+    def packed(self):
+        w = self.res[0][1]
+        return _pack_transfers([self.pro], [self.res], self.shape, w.device,
+                               w.dtype)
+
+
+def _level_mode(name, mode):
+    if mode not in LEVEL_MODES:
+        raise ValueError(f"{name}: mode {mode!r}, one of "
+                         f"{', '.join(LEVEL_MODES)}")
+
+
+def level_apply_plain(x, b, lv, mode, omega=0.7, spmv=stencil_spmv_plain):
+    """One phase of a V-cycle level op by op, with op(x) = where(free,
+    spmv(where(free, x, 0), C), x) on lv (a LevelOp) and wd =
+    lv.wd(omega): mode "sweep" x + wd (b - op(x)); "sweep0" that sweep
+    from x = wd b (x not read); "residual" b - op(x); "masked" op(x) (b
+    not read).  spmv=stencil_spmv gives the card's route (kernel 1 and
+    PyTorch's ops), the default the plain twin."""
+    _level_mode("level_apply_plain", mode)
+    if mode == "sweep0":
+        x = lv.wd(omega) * b
+    ax = torch.where(lv.free, spmv(torch.where(lv.free, x, 0.0), lv.C), x)
+    if mode == "masked":
+        return ax
+    if mode == "residual":
+        return b - ax
+    return x + lv.wd(omega) * (b - ax)
+
+
+def restrict_plain(r, tt, free_c):
+    """where(free_c, R r, 0): restrict_axes on the tables of tt (a
+    TransferTables), masked by the coarse level's free."""
+    return torch.where(free_c, restrict_axes(r, tt.res), 0.0)
+
+
+def prolong_add_plain(x, xc, tt):
+    """x + P xc: prolong_axes on the tables of tt."""
+    return x + prolong_axes(xc, tt.pro)
 
 
 def batched_stencil_spmv_plain(Xs, coeff, sig):
@@ -561,6 +721,16 @@ def build(extra_flags=()) -> ctypes.CDLL:
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"pst_combine_lanes_{dt}")
             fn.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
+            fn.restype = i
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_level_apply_{dt}")
+            fn.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
+            fn.restype = i
+            fn = getattr(lib, f"pst_restrict_{dt}")
+            fn.argtypes = [ptr] * 6 + [i, i, ptr]
+            fn.restype = i
+            fn = getattr(lib, f"pst_prolong_add_{dt}")
+            fn.argtypes = [ptr] * 6 + [i, ptr]
             fn.restype = i
         lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
         lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
@@ -789,7 +959,68 @@ def _dims_combine_lanes(coeff, sig):
                          f"{tuple(sig.shape)}")
     return ((coeff, sig), (sig.shape[0], coeff.shape[0],
                            coeff[0].numel()),
-            f"pst_combine_lanes_{_SUFFIX[coeff.dtype]}")
+            f"pst_combine_lanes_{_SUFFIX[coeff.dtype]}",
+            (sig.shape[0],) + tuple(coeff.shape[1:]))
+
+
+def _dims_level_apply(x, b, lv, mode, omega=0.7):
+    name = "level_apply_cuda"
+    _level_mode(name, mode)
+    x = b if mode == "sweep0" else x
+    b = x if mode == "masked" else b
+    wd = lv.wd(omega) if mode in ("sweep", "sweep0") else x
+    _check(name, x.dtype, x.device, x=x, b=b, C=lv.C, wd=wd)
+    words = lv.neighbour_words()
+    _check(name, torch.int32, x.device, (torch.int32,), words=words)
+    S, X, Y, Z = _lanes_grid(name, x, lv.C, 27)
+    if tuple(b.shape) != tuple(x.shape) or \
+            tuple(wd.shape) != tuple(x.shape) or \
+            words.shape[0] not in (1, S) or words.shape[1] != X * Y * Z:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}, wd {tuple(wd.shape)}, mask "
+                         f"{lv.shape}")
+    return ((x, b, lv.C, wd, words),
+            (S, words.shape[0], LEVEL_MODES[mode], X, Y, Z),
+            f"pst_level_apply_{_SUFFIX[x.dtype]}")
+
+
+def _transfer_args(name, a, tt, grid):
+    """tt's packed tables checked against a, whose grid must be `grid`;
+    (S, Ip, Wp, layout)."""
+    Ip, Wp, layout = tt.packed
+    _check(name, a.dtype, a.device, x=a, weights=Wp)
+    _check(name, torch.int32, a.device, (torch.int32,), tables=Ip)
+    if a.dim() not in (3, 4) or tuple(a.shape[-3:]) != grid:
+        raise ValueError(f"{name}: {tuple(a.shape)}, the transfer joins "
+                         f"{tt.shape[0]} to {tt.shape[1]}")
+    return (a.shape[0] if a.dim() == 4 else 1), Ip, Wp, layout
+
+
+def _dims_restrict(r, tt, free_c):
+    name = "restrict_cuda"
+    S, Ip, Wp, layout = _transfer_args(name, r, tt, tt.shape[0])
+    _check(name, torch.bool, r.device, (torch.bool,), free=free_c)
+    coarse = tuple(r.shape[:-3]) + tt.shape[1]
+    if free_c.dim() != r.dim() or tuple(free_c.shape[-3:]) != tt.shape[1] \
+            or tuple(free_c.shape[:-3]) not in (tuple(r.shape[:-3]),
+                                                (1,) * (r.dim() - 3)):
+        raise ValueError(f"{name}: r {tuple(r.shape)}, free "
+                         f"{tuple(free_c.shape)}")
+    return ((r, Ip, Wp, free_c),
+            (ctypes.addressof(layout), S,
+             free_c.shape[0] if r.dim() == 4 else 1),
+            f"pst_restrict_{_SUFFIX[r.dtype]}", coarse)
+
+
+def _dims_prolong_add(x, xc, tt):
+    name = "prolong_add_cuda"
+    S, Ip, Wp, layout = _transfer_args(name, x, tt, tt.shape[0])
+    _check(name, x.dtype, x.device, xc=xc)
+    if tuple(xc.shape) != tuple(x.shape[:-3]) + tt.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, xc "
+                         f"{tuple(xc.shape)}")
+    return ((x, xc, Ip, Wp), (ctypes.addressof(layout), S),
+            f"pst_prolong_add_{_SUFFIX[x.dtype]}")
 
 
 _DIMS = {"stencil_spmv_cuda": _dims_single,
@@ -799,7 +1030,10 @@ _DIMS = {"stencil_spmv_cuda": _dims_single,
          "plane_fma_cuda": _dims_plane_fma,
          "coarse_cg_cuda": _dims_coarse_cg,
          "vcycle_tail_cuda": _dims_vcycle_tail,
-         "combine_lanes_cuda": _dims_combine_lanes}
+         "combine_lanes_cuda": _dims_combine_lanes,
+         "level_apply_cuda": _dims_level_apply,
+         "restrict_cuda": _dims_restrict,
+         "prolong_add_cuda": _dims_prolong_add}
 
 
 def launch(name, *args, extra_flags=()):
@@ -814,8 +1048,11 @@ def launch(name, *args, extra_flags=()):
     pst_coarse_cg_max_points() (2048) points a lane, the V-cycle tail at
     most TAIL_MAX_LEVELS levels within SMEM_MAX bytes of shared memory
     (vcycle_tail_smem), the lanes' combine 1..8 bodies and L times the
-    elements of a body within an int; the launch raises otherwise."""
-    tensors, dims, entry = _DIMS[name](*args)
+    elements of a body within an int, the level kernels at most 65535
+    lanes and S * 27 * points within an int (the restriction at most 6
+    entries a coarse knot on axes 0 and 1); the launch raises
+    otherwise."""
+    tensors, dims, entry, *out_shape = _DIMS[name](*args)
     lib = build(extra_flags)
     if (name.startswith("batched") or name == "combine_lanes_cuda") and \
             not 1 <= dims[1] <= lib.pst_max_bodies():
@@ -825,11 +1062,8 @@ def launch(name, *args, extra_flags=()):
             dims[3] * dims[4] * dims[5] > lib.pst_coarse_cg_max_points():
         raise ValueError(f"{name}: grid {dims[3:]}, the kernel takes at "
                          f"most {lib.pst_coarse_cg_max_points()} points")
-    if name == "combine_lanes_cuda":     # (L, ...) from coeff (B, ...)
-        coeff, sig = tensors
-        out = coeff.new_empty((sig.shape[0],) + tuple(coeff.shape[1:]))
-    else:
-        out = torch.empty_like(tensors[0])
+    out = tensors[0].new_empty(out_shape[0]) if out_shape else \
+        torch.empty_like(tensors[0])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
@@ -918,6 +1152,34 @@ def combine_lanes_cuda(coeff, sig):
     return C
 
 
+def level_apply_cuda(x, b, lv, mode, omega=0.7):
+    """CUDA kernel for level_apply_plain's function (kernel 1's fma order,
+    PyTorch's roundings): x, b (X, Y, Z) or (S, X, Y, Z), contiguous, of
+    lv's dtype (float32 or float64) and on its device; x may be None in
+    mode "sweep0", b in mode "masked"."""
+    y = launch("level_apply_cuda", x, b, lv, mode, omega)
+    LAUNCHES["level_apply_cuda"] += 1
+    return y
+
+
+def restrict_cuda(r, tt, free_c):
+    """CUDA kernel for restrict_plain's function: r (X, Y, Z) or (S, X, Y,
+    Z) on tt's fine grid, free_c the coarse mask (Xc, Yc, Zc) or (S or 1,
+    Xc, Yc, Zc); contiguous, on tt's device and of its dtype."""
+    rc = launch("restrict_cuda", r, tt, free_c)
+    LAUNCHES["restrict_cuda"] += 1
+    return rc
+
+
+def prolong_add_cuda(x, xc, tt):
+    """CUDA kernel for prolong_add_plain's function: x on tt's fine grid,
+    xc on its coarse grid, with the same lanes; contiguous, on tt's device
+    and of its dtype."""
+    y = launch("prolong_add_cuda", x, xc, tt)
+    LAUNCHES["prolong_add_cuda"] += 1
+    return y
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -983,3 +1245,28 @@ def combine_lanes(coeff, sig):
     if coeff.is_cuda:
         return combine_lanes_cuda(coeff, sig)
     return combine_lanes_plain(coeff, sig)
+
+
+def level_apply(x, b, lv, mode, omega=0.7):
+    """One phase of a V-cycle level on lv (level_apply_plain's modes): the
+    CUDA kernel for a level on a CUDA device, the plain twin on the
+    CPU."""
+    if lv.C.is_cuda:
+        return level_apply_cuda(x, b, lv, mode, omega)
+    return level_apply_plain(x, b, lv, mode, omega)
+
+
+def restrict(r, tt, free_c):
+    """where(free_c, R r, 0): the CUDA kernel for CUDA tensors, the plain
+    twin for CPU tensors."""
+    if r.is_cuda:
+        return restrict_cuda(r, tt, free_c)
+    return restrict_plain(r, tt, free_c)
+
+
+def prolong_add(x, xc, tt):
+    """x + P xc: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors."""
+    if x.is_cuda:
+        return prolong_add_cuda(x, xc, tt)
+    return prolong_add_plain(x, xc, tt)

@@ -17,6 +17,14 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     launch on the card); body-factored lanes whose levels were not
     combined (the CPU's default) run them as fixed_cg on the batched
     apply.
+  * The levels above the tail with their own combined stencil: each
+    phase of a V-cycle there (the pre-smoothing, the residual, the
+    restriction, the prolongation, each post-sweep) is one call of
+    kernels.stencil_kernels.level_apply, restrict or prolong_add
+    (_level_cycle), one launch on the card: 6 a level at nu = 2.  The
+    level's Jacobi diagonal and neighbour words (LevelOp) and the
+    transfer's tables (Transfer.kernel_tables) are made once a
+    hierarchy.
   * The tail: on the card, the levels from the first one whose stencils,
     with every coarser level's, fit one SM's shared memory (tail_start)
     run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
@@ -38,19 +46,21 @@ f64 master operator until the TRUE f64 relative residual meets `tol`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    SMEM_MAX, TAIL_MAX_LEVELS, coarse_cg, combine_lanes, fixed_cg,
-    make_vcycle_tail, prolong_axes, restrict_axes, vcycle_tail,
-    vcycle_tail_smem)
+    SMEM_MAX, TAIL_MAX_LEVELS, LevelOp, TransferTables, coarse_cg,
+    combine_lanes, fixed_cg, level_apply, level_apply_plain,
+    make_vcycle_tail, prolong_add, prolong_add_plain, prolong_axes, restrict,
+    restrict_axes, restrict_plain, vcycle_tail, vcycle_tail_smem)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
                                                refine_lanes)
 from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
-                                                 _operator,
+                                                 _masked_operator, _operator,
                                                  batched_stencil_spmv,
                                                  combine_coeffs,
                                                  combine_stacks,
@@ -113,6 +123,7 @@ class Transfer:
         self.fine_shape = tuple(len(a) for a in axes)
         self.coarse_axes = tuple(coarse_axes)
         self._cache = {}
+        self._tables = {}
 
     def _tensors(self, device, dtype):
         key = (device, dtype)
@@ -128,6 +139,14 @@ class Transfer:
             res = [(as_i(idx), as_f(wt)) for idx, wt in self.tables]
             self._cache[key] = (pro, res)
         return self._cache[key]
+
+    def kernel_tables(self, device, dtype) -> TransferTables:
+        """The tables as the level kernels take them (made once per
+        (device, dtype))."""
+        key = (torch.device(device), dtype)
+        if key not in self._tables:
+            self._tables[key] = TransferTables(*self._tensors(*key))
+        return self._tables[key]
 
     def prolong(self, xc):
         """(..., Xc, Yc, Zc) -> (..., X, Y, Z)."""
@@ -157,18 +176,52 @@ class MGHierarchy:
             transfers=self.transfers)
 
 
-def _level_op(level: MGLevel, sigma_table):
-    """(op, diag, C) of one level: its masked apply, Jacobi diagonal and
-    combined stencil."""
-    C = combine_coeffs(level.coeff, sigma_table).contiguous()
-    free = level.free
-    diag = torch.where(free & (C[DIAG_OFFSET] != 0), C[DIAG_OFFSET], 1.0)
+def _level_op(level: MGLevel, sigma_table) -> LevelOp:
+    """One level's LevelOp: its stencil combined with sigma_table, and its
+    mask."""
+    return LevelOp(combine_coeffs(level.coeff, sigma_table).contiguous(),
+                   level.free)
 
-    def op(x):
-        xm = torch.where(free, x, 0.0)
-        return torch.where(free, stencil_spmv(xm, C), x)
 
-    return op, diag, C
+def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
+                 zero_start=False):
+    """One V-cycle's work at a level above the tail, lv its LevelOp, tt
+    the tables of its transfer to the next level and free_c that level's
+    mask, coarser(rc) the cycle below: from x = 0 the pre-smoothing (nu >=
+    2: a "sweep0" call and nu - 2 sweeps; else x = wd b, or zeros at nu =
+    0 with zero_start), the residual, its restriction masked by free_c,
+    the prolongation of coarser's result added, nu sweeps:
+    max(1, nu - 1) + 3 + nu launches on the card at nu >= 1.  route: the
+    route the kernels repeat bit for bit (kernel 1 and PyTorch's ops)."""
+    if route:
+        apply = functools.partial(level_apply_plain, spmv=stencil_spmv)
+        down, up = restrict_plain, prolong_add_plain
+    else:
+        apply, down, up = level_apply, restrict, prolong_add
+    if nu >= 2:
+        x = apply(None, b, lv, "sweep0", omega)
+    elif nu == 0 and zero_start:
+        x = torch.zeros_like(b)
+    else:
+        x = lv.wd(omega) * b
+    for _ in range(nu - 2):
+        x = apply(x, b, lv, "sweep", omega)
+    r = apply(x, b, lv, "residual", omega)
+    x = up(x, coarser(down(r, tt, free_c)), tt)
+    for _ in range(nu):
+        x = apply(x, b, lv, "sweep", omega)
+    return x
+
+
+def _make_level_args(levels, transfers, upto, omega):
+    """The level kernels' arguments of LevelOps levels[:upto] (None: a
+    level without one) and of their transfers, made now on a CUDA device
+    (not in the first V-cycle)."""
+    for lv, tr in zip(levels[:upto], transfers):
+        if lv is not None and lv.C.is_cuda:
+            lv.neighbour_words()
+            lv.wd(omega)
+            _ = tr.kernel_tables(lv.C.device, lv.C.dtype).packed
 
 
 def tail_start(shapes, dtype) -> int:
@@ -209,64 +262,57 @@ def _v_tail(Cs, frees, transfers, tail_from, planes=None):
                                        [r for _, r in tables], planes)
 
 
-def cycle_impl(ops_diags, frees, transfers, b, *, nu=2, omega=0.7,
-               coarse_iters=24, tail_from=None, tail=None):
+def cycle_impl(levels, transfers, b, *, nu=2, omega=0.7, coarse_iters=24,
+               tail_from=None, tail=None, route=False):
     """One V-cycle over explicit level data (finest first), damped-Jacobi
-    smoothing.  ops_diags: [(op, diag, C)] per level (_level_op); frees:
-    level free masks; transfers: Transfer between consecutive levels.
-    The coarsest level is coarse_cg on its combined stencil C.  From
-    level tail_from on, the cycle is one vcycle_tail call on `tail` (its
-    levels; made here from ops_diags when not given): tail_from None is
-    tail_start's level on the card and no tail on the CPU; len(levels)
-    is the level-by-level route."""
-    n_levels = len(ops_diags)
+    smoothing.  levels: a LevelOp per level (_level_op); transfers:
+    Transfer between consecutive levels.  A level above the tail is
+    _level_cycle (the level kernels on the card; route=True: kernel 1 and
+    PyTorch's ops, the route they repeat); the coarsest level is
+    coarse_cg on its combined stencil.  From level tail_from on, the cycle
+    is one vcycle_tail call on `tail` (its levels; made here from
+    `levels` when not given): tail_from None is tail_start's level on the
+    card and no tail on the CPU; len(levels) is the level-by-level
+    route."""
+    n_levels = len(levels)
     if tail is None:
-        tail_from, tail = _v_tail([C for _, _, C in ops_diags], frees,
-                                  transfers, tail_from)
-
-    def smooth(op, dinv, x, b, n):
-        for _ in range(n):
-            x = x + omega * dinv * (b - op(x))
-        return x
-
-    def smooth0(op, dinv, b, n):
-        # pre-smooth from x = 0: the first sweep is exactly omega*dinv*b
-        x = omega * dinv * b
-        return smooth(op, dinv, x, b, n - 1) if n > 1 else x
+        tail_from, tail = _v_tail([lv.C for lv in levels],
+                                  [lv.free for lv in levels], transfers,
+                                  tail_from)
 
     def cycle(level, b):
         if level == tail_from:
             return vcycle_tail(b, tail, nu, omega, coarse_iters)
-        op, diag, C = ops_diags[level]
+        lv = levels[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration CG (a fixed SPD approximation)
-            return coarse_cg(b, C, frees[level], coarse_iters)
-        dinv = 1.0 / diag
-        x = smooth0(op, dinv, b, nu)
-        r = b - op(x)
-        rc = transfers[level].restrict(r)
-        rc = torch.where(frees[level + 1], rc, 0.0)
-        xc = cycle(level + 1, rc)
-        x = x + transfers[level].prolong(xc)
-        return smooth(op, dinv, x, b, nu)
+            return coarse_cg(b, lv.C, lv.free, coarse_iters)
+        return _level_cycle(
+            lv, transfers[level].kernel_tables(b.device, b.dtype),
+            levels[level + 1].free, b, lambda rc: cycle(level + 1, rc),
+            nu=nu, omega=omega, route=route)
 
     return cycle(0, b)
 
 
 def make_v_cycle(hier: MGHierarchy, sigma_table, *, nu=2, omega=0.7,
-                 coarse_iters=24, tail_from=None):
+                 coarse_iters=24, tail_from=None, route=False):
     """SPD preconditioner apply(r) -> z (one Jacobi V-cycle).  The levels
     from tail_from on (cycle_impl; default: tail_start's on the card, none
-    on the CPU) are one vcycle_tail call, its levels made here once."""
-    ops_diags = [_level_op(lv, sigma_table) for lv in hier.levels]
-    frees = [lv.free for lv in hier.levels]
-    tail_from, tail = _v_tail([C for _, _, C in ops_diags], frees,
-                              hier.transfers, tail_from)
+    on the CPU) are one vcycle_tail call; the tail and the level kernels'
+    arguments of the levels above it are made here once.  route: the
+    levels above the tail by kernel 1 and PyTorch's ops (cycle_impl)."""
+    levels = [_level_op(lv, sigma_table) for lv in hier.levels]
+    tail_from, tail = _v_tail([lv.C for lv in levels],
+                              [lv.free for lv in levels], hier.transfers,
+                              tail_from)
+    _make_level_args(levels, hier.transfers,
+                     min(tail_from, len(levels) - 1), omega)
 
     def apply(r):
-        return cycle_impl(ops_diags, frees, hier.transfers, r, nu=nu,
-                          omega=omega, coarse_iters=coarse_iters,
-                          tail_from=tail_from, tail=tail)
+        return cycle_impl(levels, hier.transfers, r, nu=nu, omega=omega,
+                          coarse_iters=coarse_iters, tail_from=tail_from,
+                          tail=tail, route=route)
 
     return apply
 
@@ -288,7 +334,7 @@ def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
     sig64 = sigma_table.to(torch.float64)
     sig32 = sigma_table.to(torch.float32)
     op64, _, b64 = _operator(sc64, sig64)
-    op32, _, _ = _operator(sc32, sig32)
+    op32 = _masked_operator(sc32, sig32)
     M32 = make_v_cycle(hier32, sig32, nu=nu, coarse_iters=coarse_iters)
     free = scase.free
 
@@ -322,9 +368,10 @@ def _lanes(v):
 
 
 def _fused_level_pieces(coeff, free, sig, C=None):
-    """(op, dinv, freeb, raw, C) for one lane-stacked level; raw is the
-    unprojected apply.  sig (L, T) full sigma tables (body b at slot
-    b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
+    """(op, dinv, freeb, raw, C, lv) for one lane-stacked level; raw is
+    the unprojected apply, lv the level's LevelOp where the lanes have
+    their own stencils (else None).  sig (L, T) full sigma tables (body
+    b at slot b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
     applied body-factored by batched_stencil_spmv, with free (X, Y, Z),
     and C is None; or each lane has its own stack, coeff (L, B, 27, X, Y,
     Z) with free (L, X, Y, Z) (a geometry batch): each lane's sigma is
@@ -332,11 +379,14 @@ def _fused_level_pieces(coeff, free, sig, C=None):
     stencil_spmv; or C (L, 27, X, Y, Z) is given, the lanes' own stencils
     of a body-factored level (combined_tail_levels), applied likewise,
     with free (X, Y, Z) shared.  Where the lanes have their own stencils,
-    the Jacobi diagonal is their C_13."""
+    the Jacobi diagonal is their C_13 and op one level_apply call
+    ("masked")."""
     if C is None and coeff.dim() == 6:
         C = combine_stacks(coeff, sig.to(coeff.dtype)).contiguous()
+    freeb = free if free.dim() == 4 else free[None]
+    lv = None
     if C is not None:
-        diag_l = C[:, DIAG_OFFSET]
+        lv = LevelOp(C, freeb)
 
         def raw(Xs):
             return stencil_spmv(Xs, C)
@@ -352,13 +402,16 @@ def _fused_level_pieces(coeff, free, sig, C=None):
 
         def raw(Xs):
             return batched_stencil_spmv(Xs, coeff, sig_b)
-    freeb = free if free.dim() == 4 else free[None]
+
+    if lv is not None:      # one level_apply launch on the card
+        return (lambda Xs: level_apply(Xs, None, lv, "masked"), lv.dinv,
+                freeb, raw, C, lv)
 
     def op(Xs):
         return torch.where(freeb, raw(torch.where(freeb, Xs, 0.0)), Xs)
 
     diag = torch.where(freeb & (diag_l != 0), diag_l, 1.0)
-    return op, 1.0 / diag, freeb, raw, C
+    return op, 1.0 / diag, freeb, raw, C, lv
 
 
 def combined_tail_levels(hier, sig, t):
@@ -410,14 +463,16 @@ def _fused_tail(pieces, hier, tail_from, nu, planes=None):
 
 
 def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
-                 tail_from=None, tail=None):
+                 tail_from=None, tail=None, route=False):
     """One lane-stacked V-cycle (the recursion of cycle_impl with
     lane-wise reductions).  pieces: _fused_level_pieces per level;
     b (L, X, Y, Z) -> z (L, X, Y, Z).  The coarsest level is coarse_cg
     where the lanes have their own stencils (their own stacks, or levels
     combined by combined_tail_levels), else fixed_cg on the body-factored
     apply; levels where the lanes have their own stencils run from
-    tail_from on as one vcycle_tail call (as cycle_impl; _fused_tail)."""
+    tail_from on as one vcycle_tail call (as cycle_impl; _fused_tail), and
+    above it as _level_cycle (route: as cycle_impl's); body-factored
+    levels op by op on the batched apply."""
     n_levels = len(hier.levels)
     if tail is None:
         tail_from, tail = _fused_tail(pieces, hier, tail_from, nu)
@@ -430,12 +485,17 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
     def cycle(level, b):
         if level == tail_from:
             return vcycle_tail(b, tail, nu, omega, coarse_iters)
-        op, dinv, freeb, _, C = pieces[level]
+        op, dinv, freeb, _, C, lv = pieces[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration lane-aware CG
             if C is not None:
                 return coarse_cg(b, C, freeb, coarse_iters)
             return fixed_cg(op, dinv, b, coarse_iters)
+        if lv is not None:
+            return _level_cycle(
+                lv, hier.transfers[level].kernel_tables(b.device, b.dtype),
+                pieces[level + 1][2], b, lambda rc: cycle(level + 1, rc),
+                nu=nu, omega=omega, route=route, zero_start=True)
         # the first sweep from x = 0 is exactly omega*dinv*b (saves the
         # zero apply; bit-identical to sweeping from zeros)
         x = smooth(op, dinv, omega * dinv * b, b, nu - 1) if nu else \
@@ -465,8 +525,8 @@ def _fused_bc_pieces(scase, sig):
     (build_padded_group: a leading lane axis on coeff, free, dirichlet
     and b_neumann) gives each lane its own operator and BCs."""
     L = sig.shape[0]
-    op, _, freeb, raw, _ = _fused_level_pieces(scase.coeff, scase.free,
-                                               sig)
+    op, _, freeb, raw, *_ = _fused_level_pieces(scase.coeff, scase.free,
+                                                sig)
     lead = lambda a: a if a.dim() == 4 else a[None]
     phi_d = torch.where(scase.free, 0.0, scase.dirichlet)
     Kphi_d = raw(phi_d.expand((L,) + tuple(phi_d.shape[-3:])).contiguous())
@@ -517,6 +577,8 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32, C)
               for lv, C in zip(levels, own)]
     tail_from, tail = _fused_tail(pieces, hier32, tail_from, nu, planes)
+    _make_level_args([p[5] for p in pieces], hier32.transfers,
+                     min(tail_from, n - 1), omega)
 
     def M32(r):
         rm = torch.where(freeb, r, 0.0)

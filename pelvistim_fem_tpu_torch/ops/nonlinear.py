@@ -214,17 +214,21 @@ def solve_case_field_dependent(case, law: FieldLaw, *, tol=1e-8,
 
 
 def _stencil_refined_warm(coeff64, free, diri64, bneu64, M32, x, *, tol,
-                          inner_tol, maxiter, max_refinements):
+                          inner_tol, maxiter, max_refinements, words=None):
     """Mixed-precision refinement on a pre-combined (1, 27, X, Y, Z)
     stack from warm start x (grid-shaped, f64), with the caller's
-    (frozen) f32 V-cycle M32.  Returns (x, rel, iters)."""
-    from pelvistim_fem_tpu_torch.ops.stencil import StencilCase, _operator
+    (frozen) f32 V-cycle M32; the f32 operator one level_apply launch an
+    apply (words: free's neighbour words, where made).  Returns (x, rel,
+    iters)."""
+    from pelvistim_fem_tpu_torch.ops.stencil import (StencilCase,
+                                                     _masked_operator,
+                                                     _operator)
     f32, f64 = torch.float32, torch.float64
     sig2 = torch.tensor([0.0, 1.0], dtype=f64, device=coeff64.device)
     sc64 = StencilCase(coeff=coeff64, free=free, dirichlet=diri64,
                        b_neumann=bneu64, grid_index=None, sigma_table=sig2)
     op64, _, b64 = _operator(sc64, sig2)
-    op32, _, _ = _operator(sc64.astype(f32), sig2.to(f32))
+    op32 = _masked_operator(sc64.astype(f32), sig2.to(f32), words)
 
     def Mp(r):
         return torch.where(free, M32(torch.where(free, r, 0.0)), r)
@@ -255,6 +259,8 @@ def solve_lattice_field_dependent(spec, law: FieldLaw, *, tol=1e-8,
     nz) per (Kuhn class, cell), phi (N,) in mesh node order."""
     from pelvistim_fem_tpu_torch.ops.lattice_assembly import (
         _hierarchy, lattice_cell_e_mag, lattice_coeff, spec_device_arrays)
+    from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
+        neighbour_words
     from pelvistim_fem_tpu_torch.ops.multigrid import make_v_cycle
     f32, f64 = torch.float32, torch.float64
     dev = device_arrays or spec_device_arrays(spec, f64, device)
@@ -276,6 +282,7 @@ def solve_lattice_field_dependent(spec, law: FieldLaw, *, tol=1e-8,
                                             device=free.device),
                        nu=nu, coarse_iters=coarse_iters)
     x0 = torch.where(free, 0.0, diri64)
+    words = neighbour_words(free) if free.is_cuda else None
 
     def solve(sigma_cell, x):
         coeff64 = lattice_coeff(h64, coords64, body, n_bodies,
@@ -283,7 +290,7 @@ def solve_lattice_field_dependent(spec, law: FieldLaw, *, tol=1e-8,
         return _stencil_refined_warm(
             coeff64, free, diri64, bneu64, M32, x, tol=tol,
             inner_tol=inner_tol, maxiter=maxiter,
-            max_refinements=max_refinements)
+            max_refinements=max_refinements, words=words)
 
     sigma_e, x, change, tot_it, k = _picard(
         solve, lambda x: lattice_cell_e_mag(h64, coords64, x), law64, body,

@@ -43,8 +43,8 @@ import torch
 
 from pelvistim_fem_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    DIAG_OFFSET, OFFSETS, batched_stencil_spmv, batched_stencil_spmv_lminor,
-    stencil_spmv)
+    DIAG_OFFSET, OFFSETS, LevelOp, batched_stencil_spmv,
+    batched_stencil_spmv_lminor, level_apply, stencil_spmv)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                jacobi_inner, jacobi_pcg,
                                                refine_lanes)
@@ -230,6 +230,16 @@ def _operator(scase: StencilCase, sigma_table, coeff=None):
     phi_d = torch.where(free, 0.0, dirichlet)
     b_eff = torch.where(free, b_neumann - raw(phi_d), dirichlet)
     return op, diag, b_eff
+
+
+def _masked_operator(scase: StencilCase, sigma_table, words=None):
+    """_operator's op alone, for one combined stencil: op(x) = where(free,
+    K where(free, x, 0), x) as one level_apply launch ("masked") on the
+    card, its arithmetic kernel 1's.  words: the mask's neighbour words,
+    where already made (stencil_kernels.neighbour_words)."""
+    lv = LevelOp(combine_coeffs(scase.coeff, sigma_table).contiguous(),
+                 scase.free, words)
+    return lambda x: level_apply(x, None, lv, "masked")
 
 
 def _nodes(x, grid_index):

@@ -1,8 +1,9 @@
 """Tile variants of the two batched stencil kernels, and block sizes of
-the V-cycle tail kernel, timed on a CUDA card.
+the V-cycle tail kernel and of the level kernels, timed on a CUDA card.
 
-    python -m pelvistim_fem_tpu_torch.profile_kernels          # both
+    python -m pelvistim_fem_tpu_torch.profile_kernels          # all
     python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tail
+    python -m pelvistim_fem_tpu_torch.profile_kernels --levels # levels
 
 Builds the kernel library once per variant of the tile constants of
 csrc/stencil.cu (-D flags; all builds at once, each in _build/ under its
@@ -23,6 +24,14 @@ paths' tails, SPD stencils on their level grids (step04's app, the megatet,
 step02's 8 lanes, the sweep's 25 lanes, step04's 15 linear lanes), f32
 and f64, each build first held against the twin
 (measure.check_vcycle_tail).
+
+The level kernels (`level_apply_cuda` in its four modes, `restrict_cuda`,
+`prolong_add_cuda`) are built at each of LEVEL_THREADS threads a block
+(-DPST_LEVEL_THREADS; the default build takes 256) and timed at the
+levels above the paths' tails (LEVELS), cold (inputs rotated through
+HBM) and warm (the same inputs each launch, as a solve finds them in L2),
+each build first held against the twin; kernel 1 is timed cold and warm
+at the same grids beside them.
 """
 
 from __future__ import annotations
@@ -143,6 +152,62 @@ def print_usage(variants):
                   f"{u['spill_bytes']:5d} B spilled")
 
 
+# the level kernels' block sizes, and the grids above the paths' tails:
+# the step04 app's two, the megatet's three, step02's 8-lane fine level
+LEVEL_THREADS = (128, 256, 512)
+LEVELS = [(55, 31, 19), (28, 16, 10), (112, 68, 41), (56, 34, 21),
+          (29, 18, 11), (8, 67, 29, 8)]
+
+
+def level_flags(threads):
+    return (f"-DPST_LEVEL_THREADS={threads}",)
+
+
+def time_levels(gpu):
+    """The level kernels at each of LEVEL_THREADS on LEVELS, f32 and f64,
+    cold and warm, against the bound; kernel 1 (the default build) cold
+    and warm at the same grids."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    for t in LEVEL_THREADS:
+        for k, u in sorted(sk.ptxas_usage(level_flags(t)).items()):
+            if k.startswith(("level_apply", "restrict", "prolong_add")):
+                print(f"  {t:5d} threads {k:32s} {u['registers']:4d} regs "
+                      f"{u['spill_bytes']:5d} B spilled")
+    print(f"level kernels' device ms cold / warm by threads a block "
+          f"{LEVEL_THREADS}; {gpu}")
+    rng = np.random.default_rng(2)
+    for dn in ("float32", "float64"):
+        dtype = getattr(torch, dn)
+        for grid in LEVELS:
+            lanes = grid[0] if len(grid) == 4 else 1
+            jobs = [("level_apply_cuda", (m, lanes, grid)) for m in
+                    ("sweep", "sweep0", "residual", "masked")]
+            jobs += [("restrict_cuda", (lanes, grid)),
+                     ("prolong_add_cuda", (grid,)),
+                     ("stencil_spmv_cuda", grid)]
+            for name, shape in jobs:
+                args = measure.kernel_inputs(name, shape, dtype, "cuda", rng)
+                ref = getattr(sk, name.replace("_cuda", "_plain"))(*args)
+                builds = [()] if name == "stencil_spmv_cuda" else \
+                    [level_flags(t) for t in LEVEL_THREADS]
+                cold = measure.input_copies(args)
+                warm = measure.input_copies(args, warm=True)
+                cells = []
+                for fl in builds:
+                    def kernel(*a, _fl=fl):
+                        return sk.launch(name, *a, extra_flags=_fl)
+                    measure.check_close(f"{fl} {name} {shape} {dn}",
+                                        kernel(*args), ref, dtype)
+                    cells.append(f"{measure.kernel_ms(kernel, cold):.4f} / "
+                                 f"{measure.kernel_ms(kernel, warm):.4f}")
+                b_ms = measure.bound(name, shape, dn)[0]
+                print(f"  {'   '.join(cells)}  {name} {dn} {shape} bound "
+                      f"{b_ms:.6f}")
+                del cold
+                torch.cuda.empty_cache()
+
+
 def tail_flags(threads):
     return (f"-DPST_TAIL_THREADS={threads}",)
 
@@ -184,6 +249,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tail", action="store_true",
                     help="only the tail kernel's block sizes")
+    ap.add_argument("--levels", action="store_true",
+                    help="only the level kernels' block sizes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
@@ -193,16 +260,24 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(gpu)
-    builds = [tail_flags(t) for t in TAIL_THREADS]
-    if not args.tail:
+    every = not (args.tail or args.levels)
+    builds = [()]
+    if args.tail or every:
+        builds += [tail_flags(t) for t in TAIL_THREADS]
+    if args.levels or every:
+        builds += [level_flags(t) for t in LEVEL_THREADS]
+    if every:
         builds += list(VARIANTS.values())
     with ThreadPoolExecutor(len(builds)) as pool:
-        for f in [pool.submit(sk.build, fl) for fl in builds]:
+        for f in [pool.submit(sk.build, fl) for fl in set(builds)]:
             f.result()
-    if not args.tail:
+    if every:
         print_usage(VARIANTS)
         print_table(time_variants(VARIANTS), gpu)
-    time_tail(gpu)
+    if args.tail or every:
+        time_tail(gpu)
+    if args.levels or every:
+        time_levels(gpu)
     return 0
 
 

@@ -20,7 +20,9 @@ each it
 prints the wall time, the summed device time of all kernels, their
 ratio (the device busy share; the rest is host time between launches),
 the number of kernel launches, and the kernels that take the most
-device time.
+device time; for the megatet, step02's batch and the step04 nonlinear
+chain also the launches per MG-CG iteration (step02: over its longest
+lane's iterations, which the lanes' loop runs).
 """
 
 from __future__ import annotations
@@ -54,7 +56,12 @@ def _profile(name, fn, top=12):
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / max(dev_us, 1e-9):5.1f}% "
               f"{n:7d}x  {kname[:90]}")
-    return wall, dev_us
+    return wall, dev_us, len(kernels)
+
+
+def _per_iteration(launches, iterations):
+    print(f"  launches per MG-CG iteration {launches / iterations:.1f} "
+          f"({launches} / {iterations})")
 
 
 def main():
@@ -121,9 +128,10 @@ def main():
         out["mega"] = solve_lattice_mg_refined(spec_m, tol=1e-8,
                                                device_arrays=dev_m)
 
-    _profile("megatet", megatet)
+    n = _profile("megatet", megatet)[2]
     print(f"  iterations {int(out['mega'].iterations)} residual "
           f"{float(out['mega'].residual):.3e}")
+    _per_iteration(n, int(out["mega"].iterations))
 
     from pelvistim_fem_tpu_torch.models.electrodes import \
         build_electrode_case
@@ -151,8 +159,9 @@ def main():
             stacked, out["bhier"], tol=1e-8, maxiter=30_000)
 
     _profile("step02_hierarchy", step02_hierarchy)
-    _profile("step02_batch", step02_batch)
+    n = _profile("step02_batch", step02_batch)[2]
     print(f"  iterations {out['step02'].iterations.tolist()}")
+    _per_iteration(n, int(out["step02"].iterations.max()))
 
     p3 = default_params("step03_ankle_layers")
     scase3, stack3, cases3, _ = build_t_fat_group(
@@ -212,9 +221,10 @@ def _profile_step04(dev):
         out["nl"] = nl.solve_lattice_field_dependent(
             spec, law, tol=1e-8, max_picard=3, device_arrays=dev64)
 
-    _profile("step04_nonlinear_3_passes", nonlinear)
+    n = _profile("step04_nonlinear_3_passes", nonlinear)[2]
     print(f"  inner iterations {int(out['nl'].inner_iters)} residual "
           f"{float(out['nl'].residual):.3e}")
+    _per_iteration(n, int(out["nl"].inner_iters))
 
 
 if __name__ == "__main__":

@@ -111,18 +111,22 @@ def test_kernels_spill_no_registers(dev):
     kernel, the plane-FMA probe's 3-row form and its 1-row form at P = 1,
     27 and any, with and without 16-byte loads, and the coarse CG at
     1-8 points a thread with its coefficients in shared or device
-    memory, the V-cycle tail in both dtypes, and the lanes' combine at
-    every dtype and body count) spills to local memory."""
+    memory, the V-cycle tail in both dtypes, the lanes' combine at
+    every dtype and body count, and the level kernels: level_apply in
+    its four modes, restrict and prolong_add, in both dtypes) spills to
+    local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 * 8, sorted(usage)
+        + 2 * 8 + 2 * 4 + 2 + 2, sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
             "coarse_cg_kernel<float,1,1>",
             "coarse_cg_kernel<double,8,0>", "vcycle_tail_kernel<float>",
             "vcycle_tail_kernel<double>", "combine_lanes_kernel<float,5>",
-            "combine_lanes_kernel<double,8>"} <= set(usage)
+            "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
+            "level_apply_kernel<double,3>", "restrict_kernel<float>",
+            "prolong_add_kernel<double>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -571,3 +575,146 @@ def test_vcycle_tail_smem_matches_library(dev):
             es = torch.finfo(dt).bits // 8
             assert lib.pst_vcycle_tail_smem(arr, es) == \
                 sk.vcycle_tail_smem(shapes, dt), (shapes, dt)
+
+
+# ── the level kernels ───────────────────────────────────────────────────
+
+
+def _coarse04(dev):
+    from pelvistim_fem_tpu_torch.models.pressure import (build_pressure_spec,
+                                                         sigma_tables)
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import \
+        assemble_lattice
+    spec, _ = build_pressure_spec(coarse=True)
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    tabs = torch.as_tensor(sigma_tables(spec, [5e-5, 0.5]), device=dev)
+    return scase, hier, tabs
+
+
+def _level_hierarchy(hier, tabs, dt, kind, rng, dev):
+    """(LevelOps, hierarchy): one operator, or two lanes with their own
+    stencils and a shared ("shared") or per-lane ("lanes") mask."""
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    h = hier.astype(dt)
+    sig = tabs.to(dt)
+    if kind == "one":
+        return [tmg._level_op(lv, sig[0]) for lv in h.levels], h
+    levels = []
+    for lv in h.levels:
+        free = lv.free[None]
+        if kind == "lanes":
+            free = torch.stack([lv.free, lv.free & torch.as_tensor(
+                rng.random(tuple(lv.free.shape)) < 0.9, device=dev)])
+        levels.append(tmg.MGLevel(coeff=torch.stack([lv.coeff,
+                                                     1.5 * lv.coeff]),
+                                  free=free))
+    st = tmg.MGHierarchy(levels=tuple(levels), transfers=h.transfers)
+    return [tmg._fused_level_pieces(lv.coeff, lv.free, sig)[5]
+            for lv in st.levels], st
+
+
+@pytest.mark.parametrize("kind", ["one", "shared", "lanes"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_level_kernels_match_twin_and_route(dev, dtype, kind):
+    """At every level of the coarse step04 hierarchy above the coarsest:
+    level_apply_cuda in each mode within measure.check_close of its twin
+    (the f32 / f64 tolerances with atol relative to max|twin|: a sweep
+    scales the apply's rounding by omega / diag, up to ~1e6 here) and
+    torch.equal to the card's route (kernel 1 and PyTorch's ops);
+    restrict_cuda and prolong_add_cuda torch.equal to their twins (the
+    route's own ops)."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(60)
+    _, hier, tabs = _coarse04(dev)
+    levels, h = _level_hierarchy(hier, tabs, dt, kind, rng, dev)
+    for l in range(len(levels) - 1):
+        lv, nxt = levels[l], levels[l + 1]
+        shape = tuple(lv.C.shape[:-4]) + tuple(lv.C.shape[-3:])
+        x = _rand(rng, shape, dt, dev)
+        b = torch.where(lv.free, _rand(rng, shape, dt, dev), 0.0)
+        for mode in sk.LEVEL_MODES:
+            y = sk.level_apply_cuda(x, b, lv, mode)
+            measure.check_close(f"level {l} {mode}", y,
+                                sk.level_apply_plain(x, b, lv, mode), dt)
+            assert torch.equal(y, sk.level_apply_plain(
+                x, b, lv, mode, spmv=sk.stencil_spmv_cuda)), (l, mode)
+        tt = h.transfers[l].kernel_tables(dev, dt)
+        assert torch.equal(sk.restrict_cuda(b, tt, nxt.free),
+                           sk.restrict_plain(b, tt, nxt.free))
+        xc = _rand(rng, shape[:-3] + tuple(nxt.C.shape[-3:]), dt, dev)
+        assert torch.equal(sk.prolong_add_cuda(x, xc, tt),
+                           sk.prolong_add_plain(x, xc, tt))
+
+
+def test_v_cycles_through_the_level_kernels_equal_the_route(dev):
+    """One V-cycle with the levels above the tail through the level
+    kernels torch.equal to the route (route=True), f32 and f64, for one
+    operator (make_v_cycle) and two lanes with their own stencils and
+    masks (_fused_cycle); 6 launches a level above the tail, kernel 1
+    never; the CG's masked operator torch.equal to _operator's."""
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    from pelvistim_fem_tpu_torch.ops import stencil as tst
+    rng = np.random.default_rng(61)
+    scase, hier, tabs = _coarse04(dev)
+    for dt in (torch.float32, torch.float64):
+        h = hier.astype(dt)
+        t = tmg.tail_start([tuple(lv.free.shape) for lv in h.levels], dt)
+        free = h.levels[0].free
+        b = torch.where(free, _rand(rng, tuple(free.shape), dt, dev), 0.0)
+        want = tmg.make_v_cycle(h, tabs[0].to(dt), route=True)(b)
+        M = tmg.make_v_cycle(h, tabs[0].to(dt))
+        sk.reset_launches()
+        assert torch.equal(M(b), want)
+        assert sk.LAUNCHES["stencil_spmv_cuda"] == 0
+        assert sk.LAUNCHES["level_apply_cuda"] == 4 * t
+        assert sk.LAUNCHES["restrict_cuda"] == t
+        assert sk.LAUNCHES["prolong_add_cuda"] == t
+        levels, st = _level_hierarchy(hier, tabs, dt, "lanes", rng, dev)
+        sig = tabs.to(dt)
+        pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sig)
+                  for lv in st.levels]
+        B = torch.where(pieces[0][2], _rand(rng, (2,) + tuple(free.shape),
+                                            dt, dev), 0.0)
+        want = tmg._fused_cycle(pieces, st, B, route=True)
+        sk.reset_launches()
+        assert torch.equal(tmg._fused_cycle(pieces, st, B), want)
+        assert sk.LAUNCHES["stencil_spmv_cuda"] == 0
+        assert sk.LAUNCHES["level_apply_cuda"] == 4 * t
+        sc = scase.astype(dt)
+        op, _, _ = tst._operator(sc, sc.sigma_table)
+        x = _rand(rng, tuple(sc.free.shape), dt, dev)
+        sk.reset_launches()
+        assert torch.equal(tst._masked_operator(sc, sc.sigma_table)(x),
+                           op(x))
+        assert sk.LAUNCHES["level_apply_cuda"] == 1
+
+
+def test_level_wrappers_count_and_refuse(dev):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    rng = np.random.default_rng(62)
+    x, b, lv, mode, omega = measure.kernel_inputs(
+        "level_apply_cuda", ("sweep", 1, (9, 7, 5)), torch.float32, dev, rng)
+    r, tt, free_c = measure.kernel_inputs("restrict_cuda", (1, (9, 7, 5)),
+                                          torch.float32, dev, rng)
+    xc = torch.zeros(tt.shape[1], device=dev)
+    sk.reset_launches()
+    sk.level_apply(x, b, lv, "sweep")
+    sk.restrict(r, tt, free_c)
+    sk.prolong_add(x, xc, tt)
+    assert (sk.LAUNCHES["level_apply_cuda"], sk.LAUNCHES["restrict_cuda"],
+            sk.LAUNCHES["prolong_add_cuda"]) == (1, 1, 1)
+    with pytest.raises(TypeError):
+        sk.level_apply_cuda(x.double(), b.double(), lv, "sweep")
+    with pytest.raises(ValueError):
+        sk.level_apply_cuda(x[:8].contiguous(), b, lv, "residual")
+    with pytest.raises(ValueError, match="mode"):
+        sk.level_apply_cuda(x, b, lv, "jacobi")
+    with pytest.raises(ValueError):
+        sk.restrict_cuda(xc, tt, free_c)
+    with pytest.raises(ValueError):
+        sk.prolong_add_cuda(x, x, tt)
+    with pytest.raises(TypeError):
+        sk.restrict_cuda(r, tt, free_c.float())
+    assert (sk.LAUNCHES["level_apply_cuda"], sk.LAUNCHES["restrict_cuda"],
+            sk.LAUNCHES["prolong_add_cuda"]) == (1, 1, 1)

@@ -179,6 +179,9 @@ def test_cpu_tensors_take_the_twin():
                        sk.coarse_cg_plain(x, C, free, 2))
     assert torch.equal(sk.combine_lanes(coeff, sig),
                        sk.combine_lanes_plain(coeff, sig))
+    lv = sk.LevelOp(C, free)
+    assert torch.equal(sk.level_apply(x, x, lv, "sweep"),
+                       sk.level_apply_plain(x, x, lv, "sweep"))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_lminor_cuda": 0,
@@ -186,7 +189,10 @@ def test_cpu_tensors_take_the_twin():
                            "plane_fma_cuda": 0,
                            "coarse_cg_cuda": 0,
                            "vcycle_tail_cuda": 0,
-                           "combine_lanes_cuda": 0}
+                           "combine_lanes_cuda": 0,
+                           "level_apply_cuda": 0,
+                           "restrict_cuda": 0,
+                           "prolong_add_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
@@ -199,6 +205,8 @@ def test_cpu_tensors_take_the_twin():
         sk.coarse_cg_cuda(x, C, free, 2)
     with pytest.raises(ValueError, match="must lie on"):
         sk.combine_lanes_cuda(coeff, sig)
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.level_apply_cuda(x, x, lv, "sweep")
 
 
 PTXAS_REPORT = """\

@@ -112,10 +112,9 @@ def test_plain_tail_equals_the_recursion(coarse04, dtype):
     rng = np.random.default_rng(31)
     for t in range(n - 1):
         b = _rhs(rng, frees[t], dtype)
-        _, tail = tmg._v_tail([C for *_, C in ops], frees, h.transfers, t)
+        _, tail = tmg._v_tail([lv.C for lv in ops], frees, h.transfers, t)
         assert tail.shapes == tuple(tuple(f.shape) for f in frees[t:])
-        want = tmg.cycle_impl(ops[t:], frees[t:], h.transfers[t:], b,
-                              tail_from=n - t)
+        want = tmg.cycle_impl(ops[t:], h.transfers[t:], b, tail_from=n - t)
         assert torch.equal(sk.vcycle_tail_plain(b, tail), want), t
 
 
@@ -214,7 +213,7 @@ def test_v_cycle_through_the_tail_matches_reference_f64():
 def test_make_vcycle_tail_refuses_tables_that_do_not_join(coarse04):
     hier, tabs = coarse04
     ops = [tmg._level_op(lv, tabs[0]) for lv in hier.levels]
-    Cs = [C for *_, C in ops]
+    Cs = [lv.C for lv in ops]
     frees = [lv.free for lv in hier.levels]
     pro, res = hier.transfers[1]._tensors(torch.device("cpu"), F64)
     with pytest.raises(ValueError, match="does not join"):
