@@ -55,18 +55,24 @@ through its paths at the benchmark's full sizes, and imports no JAX:
   3c. levels    the level kernels (level_apply in its four modes,
                 restrict, prolong_add) at every level above the tail of
                 the step04 app's, the megatet's and step02's hierarchies,
-                f32 and f64: each within tolerance of its twin and
-                torch.equal to the card's route (kernel 1 and PyTorch's
-                ops); at the levels above the f32 tail timed cold and warm
-                (the same inputs every launch, as the path finds them in
-                L2) beside the twin and the route as one CUDA graph; one
-                V-cycle through them torch.equal to the route, 6 launches
-                a level
+                and the body-factored level kernel (level_apply_factored
+                in its four modes, with restrict and prolong_add on the
+                lanes' one coarse mask) at every level above the tail of
+                the sweep's first 25-lane chunk and of the step04 app's
+                15 linear lanes, f32 and f64: each within tolerance of
+                its twin and torch.equal to the card's route (kernel 1, or
+                kernel 2, and PyTorch's ops); at the levels above the f32
+                tail timed cold and warm (the same inputs every launch, as
+                the path finds them in L2) beside the twin and the route
+                as one CUDA graph; one V-cycle through them torch.equal to
+                the route, 6 launches a level
   4. sweep      step04 contact sweep: rim-banded (89, 41, 19) lattice,
                 100 log-spaced contact conductivities, certified to a
                 1e-8 true f64 residual in chunks of 25 lanes; then the
                 metric rows of all 100 lanes on the 361,920-tet element
-                Case (f32, as bench.py extracts) with the flux gate
+                Case (f32, as bench.py extracts) with the flux gate; the
+                V-cycle's three levels above its tail by the
+                body-factored level kernel
   5. megatet    one 1,747,398-tet step03 case on (112, 68, 41),
                 assembled and solved certified to 1e-8
   6. jacobi     the reference's 15 contact levels on the same f64
@@ -93,7 +99,8 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 lanes and rows against the JAX package's anchors
  12. step04     the pressure app with --thermal --nonlinear at its
                 defaults: 15 contact levels on (55, 31, 19), 31,052
-                nodes, 167,104 tets; the certified linear sweep (kernel 2),
+                nodes, 167,104 tets; the certified linear sweep (the
+                body-factored level kernel, the tail),
                 the f32 Pennes lanes and heating course, and the 15
                 sigma_skin(|E|) fixed points on the lattice (kernel 1 in
                 f64 and f32 on the two finest levels, the V-cycle's
@@ -120,8 +127,10 @@ each of the paths 4-14 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
 sweep, megatet, jacobi, step02 and step04 the V-cycle tail; the sweep,
 jacobi and step04 the lanes' combine; the megatet, step02 and step04 the
-level kernels, 6 launches a V-cycle at each level above a tail and
-kernel 1 there never in that dtype), and every kernel but the coarse
+level kernels, the sweep, jacobi and step04 the body-factored one, 6
+launches a V-cycle at each level above a tail and kernel 1, or kernel 2
+with more than one body, there never in that dtype), and every kernel
+but the coarse
 CG must have run; the coarse CG must not have run on any path, nor
 kernel 1 at any level of a tail, nor kernel 2 with more than one body
 (a V-cycle's apply, not the assembly's Galerkin probes) at any grid of
@@ -161,8 +170,9 @@ MEGATET_ITERS = 50
 MEGATET_TETS, MEGATET_GRID = 1_747_398, (112, 68, 41)
 SWEEP_NODES, SWEEP_GRID = 66_228, (89, 41, 19)
 SWEEP_TETS = 361_920
-# the coarser levels of the sweep's hierarchy: kernel 2 runs the V-cycle
-# at the first two, the tail kernel at the last two (timed for the record)
+# the coarser levels of the sweep's hierarchy: the body-factored level
+# kernel runs the V-cycle at the first two, the tail kernel at the last
+# two; kernel 2 is timed at all four for the record
 SWEEP_LEVELS = [(45, 21, 10), (23, 11, 6), (12, 6, 4), (7, 4, 3)]
 # The reference's extraction of the same 100-lane sweep (BENCH_r05).
 MAX_FLUX_ERR, MAX_FLUX_ERR_CONSISTENT = 0.00564, 1.86e-7
@@ -354,6 +364,7 @@ REPLACES = {
     "level_apply_cuda": f"{PALLAS}:326, {MULTIGRID}:425",
     "restrict_cuda": f"{MULTIGRID}:425",
     "prolong_add_cuda": f"{MULTIGRID}:425",
+    "level_apply_factored_cuda": f"{PALLAS}:410, {MULTIGRID}:797",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -386,6 +397,11 @@ LIBRARY_NOTE = {
                          "(F.interpolate takes uniform knots); "
                          "plain_graph_ms is the route it replaces as one "
                          "CUDA graph"),
+    "level_apply_factored_cuda": (
+        "no one PyTorch call runs a body-factored variable-coefficient "
+        "27-point stencil with a Jacobi sweep; plain_graph_ms is the route "
+        "it replaces (kernel 2 and PyTorch's ops) as one CUDA graph "
+        "replay"),
 }
 # the level kernels: each function held and timed at the levels above the
 # tail of the step04 app's, the megatet's and step02's hierarchies (the
@@ -393,6 +409,12 @@ LIBRARY_NOTE = {
 LEVEL_FUNCTIONS = [("level_apply_cuda", m) for m in
                    ("sweep", "sweep0", "residual", "masked")] + \
     [("restrict_cuda", None), ("prolong_add_cuda", None)]
+# the body-factored level kernel likewise, at the levels above the tail of
+# the sweep's first chunk and of the step04 app's linear lanes (its main
+# row: a sweep at the sweep's fine level, 25 lanes)
+FACTORED = "level_apply_factored_cuda"
+FACTORED_FUNCTIONS = [(FACTORED, m) for _, m in LEVEL_FUNCTIONS[:4]] + \
+    LEVEL_FUNCTIONS[4:]
 # device ms of the timed kernels with every launch on the same inputs
 # (L2 keeps what fits), by (kernel, dtype, shape)
 WARM = {}
@@ -582,6 +604,10 @@ def phase_parity(dev):
     batched = edges + [(LANES_PER_CHUNK, 5, SWEEP_GRID),
                        (JACOBI_LANES, 5, SWEEP_GRID), (27, 1, MEGATET_GRID)]
     batched += [(LANES_PER_CHUNK, 5, grid) for grid in SWEEP_LEVELS]
+    # kernel 2 at 15 lanes: the step04 app's linear sweep's two levels
+    # above its tail (timed with the Jacobi sweep's (15, 5, SWEEP_GRID))
+    batched += [(JACOBI_LANES, 5, grid) for grid in
+                (STEP04_GRID, STEP04_LEVELS[0])]
     lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
     timed_lanes = [STEP02_LANES, STEP03_LANES, (1,) + MEGATET_GRID]
     lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
@@ -592,7 +618,7 @@ def phase_parity(dev):
             run("stencil_spmv_cuda", dn, shape, shape in timed_lanes)
         for L, B, shape in batched:
             run("batched_stencil_spmv_cuda", dn, (L, B, shape),
-                L == LANES_PER_CHUNK)
+                L in (LANES_PER_CHUNK, JACOBI_LANES))
         for L, B, shape in lminor:
             run("batched_stencil_spmv_lminor_cuda", dn, (L, B, shape),
                 L == JACOBI_LANES)
@@ -784,7 +810,8 @@ def phase_tail(dev, results, hiers):
                           for lv in h.levels[t:]]
 
                     def replaced(b, *_, bf=bf, sub=sub, k=n - t):
-                        return tmg._fused_cycle(bf, sub, b, tail_from=k)
+                        return tmg._fused_cycle(bf, sub, b, tail_from=k,
+                                                route=True)
             else:
                 ops = [tmg._level_op(lv, sg) for lv in h.levels]
                 frees = [lv.free for lv in h.levels]
@@ -860,7 +887,11 @@ def phase_levels(dev, results, hiers, covered):
     finds them in L2; WARM), beside its twin and the route as one CUDA
     graph, into `results` as phase_parity's rows.  Then one V-cycle
     through them torch.equal to the route (route=True), with 6 launches a
-    level above the tail and none of kernel 1."""
+    level above the tail and none of kernel 1.  Likewise the
+    body-factored level kernel (FACTORED_FUNCTIONS, the route kernel 2
+    and PyTorch's ops) at the levels above the tail of the sweep's first
+    chunk and the step04 app's linear lanes, whose V-cycle (the tail's
+    levels combined a lane, as the solve does) launches kernel 2 never."""
     import torch
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
     from pelvistim_fem_tpu_torch.ops.kernels import measure
@@ -871,11 +902,17 @@ def phase_levels(dev, results, hiers, covered):
     def route_apply(*args):
         return sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
 
-    routes = {"level_apply_cuda": route_apply,
+    def route_factored(*args):
+        return sk.level_apply_factored_plain(
+            *args, spmv=sk.batched_stencil_spmv_cuda)
+
+    routes = {"level_apply_cuda": route_apply, FACTORED: route_factored,
               "restrict_cuda": sk.restrict_plain,
               "prolong_add_cuda": sk.prolong_add_plain}
-    for name in ("step04", "megatet", "step02"):
+    for name in ("step04", "megatet", "step02", "sweep", "step04-linear"):
         hier, sig, kind = hiers[name]
+        functions = FACTORED_FUNCTIONS if kind == "bodies" else \
+            LEVEL_FUNCTIONS
         for dn in ("float32", "float64"):
             dtype = getattr(torch, dn)
 
@@ -887,21 +924,26 @@ def phase_levels(dev, results, hiers, covered):
             grids = [tuple(lv.free.shape[-3:]) for lv in h.levels]
             t = tmg.tail_start(grids, dtype)
             timed = tmg.tail_start(grids, torch.float32)
+            own, planes = [None] * len(grids), None
+            if kind == "bodies":    # the tail levels combined, as solved
+                planes, own[t:] = tmg.combined_tail_levels(h, sg, t)
             if kind == "one":
                 levels = [tmg._level_op(lv, sg) for lv in h.levels]
+                lead = ()
             else:
-                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
-                          for lv in h.levels]
+                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg, C)
+                          for lv, C in zip(h.levels, own)]
                 levels = [pc[5] for pc in pieces]
+                lead = (sg.shape[0] if kind == "bodies" else
+                        h.levels[0].coeff.shape[0],)
             for l in range(t):
                 lv, nxt = levels[l], levels[l + 1]
                 tt = h.transfers[l].kernel_tables(dev, dtype)
-                lead = tuple(lv.C.shape[:-4])
                 grid = lead + grids[l]
                 x = rand(grid)
                 b = torch.where(lv.free, rand(grid), 0.0)
                 xc = rand(lead + grids[l + 1])
-                for kname, mode in LEVEL_FUNCTIONS:
+                for kname, mode in functions:
                     if mode is not None:
                         args = (None if mode == "sweep0" else x,
                                 None if mode == "masked" else b, lv, mode,
@@ -931,7 +973,12 @@ def phase_levels(dev, results, hiers, covered):
                             kernel, measure.input_copies(args, warm=True))
                         turn = itertools.cycle(copies)
                         call = measure.cuda_ms(lambda: kernel(*next(turn)))
-                        pms = measure.cuda_ms(lambda: twin(*next(turn)))
+                        # the body-factored twins take ~5 ms a call: 5
+                        # timed calls
+                        pms = measure.cuda_ms(
+                            lambda: twin(*next(turn)),
+                            **({"reps": 5, "warmup": 2} if kind == "bodies"
+                               else {}))
                         graph = measure.kernel_ms(routes[kname], copies)
                         row = (err, ms, pms, shape, call, None, graph)
                         results.setdefault((kname, dn), row)
@@ -945,14 +992,13 @@ def phase_levels(dev, results, hiers, covered):
                     log(line)
             torch.cuda.empty_cache()
             # one V-cycle: the level kernels above the tail, then the tail
-            b0 = torch.where(levels[0].free, rand(
-                tuple(levels[0].C.shape[:-4]) + grids[0]), 0.0)
+            b0 = torch.where(levels[0].free, rand(lead + grids[0]), 0.0)
             if kind == "one":
                 cycle = tmg.make_v_cycle(h, sg, tail_from=t)
                 want = tmg.make_v_cycle(h, sg, tail_from=t,
                                         route=True)(b0)
             else:
-                _, tail = tmg._fused_tail(pieces, h, t, 2)
+                _, tail = tmg._fused_tail(pieces, h, t, 2, planes)
 
                 def cycle(b):
                     return tmg._fused_cycle(pieces, h, b, tail_from=t,
@@ -961,17 +1007,19 @@ def phase_levels(dev, results, hiers, covered):
                                         tail=tail, route=True)
             sk.reset_launches()
             z = cycle(b0)
+            apply = FACTORED if kind == "bodies" else "level_apply_cuda"
             counts = {k: sk.LAUNCHES[k] for k in
-                      ("level_apply_cuda", "restrict_cuda",
-                       "prolong_add_cuda", "stencil_spmv_cuda",
+                      (apply, "restrict_cuda", "prolong_add_cuda",
+                       "stencil_spmv_cuda", "batched_stencil_spmv_cuda",
                        "vcycle_tail_cuda")}
             sk.reset_launches()
             if not torch.equal(z, want):
                 raise AssertionError(f"levels {name} {dn}: the V-cycle "
                                      "through the level kernels is not "
                                      "the route's")
-            if counts != {"level_apply_cuda": 4 * t, "restrict_cuda": t,
+            if counts != {apply: 4 * t, "restrict_cuda": t,
                           "prolong_add_cuda": t, "stencil_spmv_cuda": 0,
+                          "batched_stencil_spmv_cuda": 0,
                           "vcycle_tail_cuda": 1}:
                 raise AssertionError(f"levels {name} {dn}: launches of one "
                                      f"V-cycle {counts}, {t} levels above "
@@ -984,11 +1032,14 @@ def phase_levels(dev, results, hiers, covered):
 def signature(name, args):
     """(kernel, dtype of the first tensor argument, input shapes and other
     arguments) of one launch; a V-cycle tail as (lanes, level grids), a
-    level's LevelOp by its mask's shape, a transfer's tables by (fine,
-    coarse) grid."""
+    level's LevelOp by its mask's shape, a FactoredLevelOp by its
+    coefficients' (B, 27, X, Y, Z), a transfer's tables by (fine, coarse)
+    grid."""
     def key(a):
         if hasattr(a, "shapes"):
             return (a.lanes, a.shapes)
+        if hasattr(a, "coeff"):
+            return tuple(a.coeff.shape)
         return tuple(a.shape) if hasattr(a, "shape") else a
     dt = next(a.dtype for a in args if hasattr(a, "dtype"))
     return (name, str(dt).split(".")[-1], tuple(key(a) for a in args))
@@ -1011,7 +1062,7 @@ def shape_key(name, dn, shapes):
     if name == "combine_lanes_cuda":
         L, B, N = shapes[1][0], shapes[0][0], int(np.prod(shapes[0][1:]))
         return f"{dn} {(L, B, N)}"
-    if name in LEVEL_NAMES:
+    if name in LEVEL_KERNELS:
         return f"{dn} {level_shape(name, shapes)}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
         shapes[0][3]
@@ -1019,16 +1070,21 @@ def shape_key(name, dn, shapes):
 
 
 LEVEL_NAMES = ("level_apply_cuda", "restrict_cuda", "prolong_add_cuda")
+LEVEL_KERNELS = LEVEL_NAMES + (FACTORED,)
 
 
 def level_shape(name, shapes):
     """A level kernel's launch signature shapes as measure.work takes
-    them: (mode, mask lanes, grid) for level_apply, (mask lanes, grid) for
-    restrict, (grid,) for prolong_add."""
+    them: (mode, mask lanes, grid) for level_apply, (mode, bodies, (L, X,
+    Y, Z)) for level_apply_factored, (mask lanes, grid) for restrict,
+    (grid,) for prolong_add."""
     lanes = lambda m: m[0] if len(m) == 4 else 1
     if name == "level_apply_cuda":
         x, b, mask, mode = shapes[:4]
         return (mode, lanes(mask), x if x is not None else b)
+    if name == FACTORED:
+        x, b, coeff, mode = shapes[:4]
+        return (mode, coeff[0], x if x is not None else b)
     if name == "restrict_cuda":
         return (lanes(shapes[2]), shapes[0])
     return (shapes[0],)
@@ -1037,33 +1093,39 @@ def level_shape(name, shapes):
 def check_level_launches(seen):
     """Every level above a tail that runs the level kernels (Counter
     `seen` of one path's launch signatures) took 6 launches a V-cycle (nu
-    = 2):
-    "sweep0", the residual, the restriction and the prolongation once,
-    "sweep" twice; and kernel 1 in that dtype at that grid never (in f64
-    at a fine grid it is the CG's master apply)."""
+    = 2): "sweep0", the residual, the restriction and the prolongation
+    once, "sweep" twice, of level_apply or, for body-factored lanes,
+    level_apply_factored; and kernel 1, or kernel 2 with more than one
+    body, in that dtype at that grid never (in f64 at a fine grid they are
+    the CG's master apply and the right-hand side's)."""
     per_level = collections.defaultdict(collections.Counter)
     for (name, dn, shapes), n in seen.items():
-        if name in LEVEL_NAMES:
+        if name in LEVEL_KERNELS:
             ws = level_shape(name, shapes)
             per_level[(dn, ws[-1])][(name, ws[0] if len(ws) == 3
                                      else None)] += n
     for (dn, grid), c in sorted(per_level.items()):
-        V = c[("level_apply_cuda", "sweep0")]
+        apply = FACTORED if c[(FACTORED, "sweep0")] else "level_apply_cuda"
+        V = c[(apply, "sweep0")]
         if not V:
             continue                   # only the CG's masked operator
-        want = {("level_apply_cuda", "sweep0"): V,
-                ("level_apply_cuda", "residual"): V,
-                ("level_apply_cuda", "sweep"): 2 * V,
+        want = {(apply, "sweep0"): V, (apply, "residual"): V,
+                (apply, "sweep"): 2 * V,
                 ("restrict_cuda", None): V, ("prolong_add_cuda", None): V}
         got = {k: c[k] for k in want}
         k1 = seen_count(seen, "stencil_spmv_cuda", dn, grid)
-        if got != want or k1:
+        k2 = sum(n for (k, d, shapes), n in seen.items()
+                 if k == "batched_stencil_spmv_cuda" and d == dn and
+                 shapes[0] == grid and shapes[1][0] > 1)
+        if got != want or k1 or k2:
             raise AssertionError(f"level {dn} {grid}: launches {got}, not 6 "
                                  f"a V-cycle {want}; stencil_spmv_cuda "
-                                 f"{k1} times")
-        log(f"levels: {dn} {grid}: {V} V-cycles x 6 launches, "
-            f"{c[('level_apply_cuda', 'masked')]} masked applies (the "
-            "CG's operator), stencil_spmv_cuda 0 times")
+                                 f"{k1} times, batched_stencil_spmv_cuda "
+                                 f"{k2} times")
+        log(f"levels: {dn} {grid}: {V} V-cycles x 6 launches of {apply}, "
+            f"restrict_cuda and prolong_add_cuda, "
+            f"{c[(apply, 'masked')]} masked applies (the CG's operator), "
+            "stencil_spmv_cuda and batched_stencil_spmv_cuda 0 times")
 
 
 def seen_count(seen, name, dn, grid):
@@ -1106,7 +1168,7 @@ def phase_path_parity(dev, seen, covered, first):
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     rng = np.random.default_rng(1)
-    for (name, dn, shapes), args in sorted(first.items()):
+    for (name, dn, shapes), args in sorted(first.items(), key=str):
         b, tail, nu, omega, iters = args
         for dtype in (torch.float32, torch.float64):
             if sk.vcycle_tail_smem(tail.shapes, dtype) > sk.SMEM_MAX:
@@ -1119,15 +1181,16 @@ def phase_path_parity(dev, seen, covered, first):
                 f"{tail_shape(shapes)} on the path's inputs ({dn}): "
                 f"max_abs_err {err:.3e} (max|x| "
                 f"{float(y.abs().max()):.3e})")
-    todo = sorted(set(seen) - covered - set(first))
+    todo = sorted(set(seen) - covered - set(first), key=str)
     for name, dn, shapes in todo:
         dtype = getattr(torch, dn)
-        args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
-                                device=dev) if isinstance(s, tuple) else s
-                for s in shapes]
-        if name in LEVEL_NAMES:
+        if name in LEVEL_KERNELS:
             args = list(measure.kernel_inputs(
                 name, level_shape(name, shapes), dtype, dev, rng))
+        else:
+            args = [torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                    device=dev) if isinstance(s, tuple)
+                    else s for s in shapes]
         if name.startswith("batched"):         # sigma: positive, as solved
             args[2] = args[2].abs()
         if name == "stencil_spmv_bf16c_cuda":
@@ -1905,12 +1968,13 @@ def main():
 
     sweep, metrics = path("sweep", ["batched_stencil_spmv_cuda",
                                     "vcycle_tail_cuda",
-                                    "combine_lanes_cuda"], sweep_leg)
+                                    "combine_lanes_cuda", FACTORED,
+                                    *LEVEL_NAMES[1:]], sweep_leg)
     mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda",
                             *LEVEL_NAMES], phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda", "vcycle_tail_cuda",
-                             "combine_lanes_cuda"],
+                             "combine_lanes_cuda", FACTORED],
                   phase_jacobi, dev, gpu, sweep, metrics["case"])
     single = path("single", ["stencil_spmv_cuda"], phase_single, dev, gpu,
                   sweep, jacobi)
@@ -1930,7 +1994,7 @@ def main():
         step04 = path("step04", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
                                  "vcycle_tail_cuda", "combine_lanes_cuda",
-                                 *LEVEL_NAMES],
+                                 *LEVEL_NAMES, FACTORED],
                       phase_step04, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -1993,7 +2057,8 @@ def main():
                           ("combine_lanes_cuda", "float32", "float64"),
                           ("level_apply_cuda", "float32", "float64"),
                           ("restrict_cuda", "float32", "float64"),
-                          ("prolong_add_cuda", "float32", "float64")):
+                          ("prolong_add_cuda", "float32", "float64"),
+                          (FACTORED, "float32", "float64")):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         b_ms, b_by = measure.bound(name, shape, dn)
         entry = dict(

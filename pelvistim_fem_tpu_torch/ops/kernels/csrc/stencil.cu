@@ -37,6 +37,11 @@
 //   restrict, prolong_add   <- the transfers' per-axis gathers (the levels
 //                              that cycle_impl, multigrid.py:425-460, runs
 //                              as XLA fusions below FLAT_MIN_NODES)
+// and kernel 2's work at the body-factored levels above the tail:
+//   level_apply_factored    <- kernel 2 with the damped-Jacobi sweep, the
+//                              residual or the mask around it (the levels
+//                              of _fused_cycle, multigrid.py:797-830, that
+//                              XLA fuses around batched_stencil_spmv_fused)
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
@@ -50,6 +55,8 @@
 //   coeff (B, N), sig (L, B) -> C (L, N)         [combine_lanes]
 //   x, b, wd (S, X, Y, Z), C (S, 27, X, Y, Z), neighbour words (S or 1,
 //   X, Y, Z)                                     [level_apply]
+//   x, b, wd (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B), neighbour
+//   words (X, Y, Z)                              [level_apply_factored]
 //   r (S, G_f) -> rc (S, G_c), free (S or 1, G_c); x (S, G_f), xc (S, G_c);
 //   one transfer's tables as vcycle_tail's       [restrict, prolong_add]
 // with offset o = (dx+1)*9 + (dy+1)*3 + (dz+1) and zero outside the grid.
@@ -1293,6 +1300,181 @@ prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
   y[q] = add_rn(x[q], add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz)));
 }
 
+// ── kernel 2's work at the levels above the tail ─────────────────────────
+//
+// level_apply's four modes where the L lanes of a level share body-factored
+// coefficients (B, 27, X, Y, Z) and one mask: op(x)_l = free ? sum_o (sum_b
+// sig[l, b] C_b[o]) x_l(shift o) : x_l, x_l masked by free.  It replaces
+// kernel 2 (batched_stencil_spmv_flat) with the sweep, residual and masks
+// around it at the body-factored levels above the tail of _fused_cycle
+// (pelvistim_fem_tpu/ops/multigrid.py:797-830, where XLA fuses them around
+// batched_stencil_spmv_fused); run op by op there took ~77 launches a level
+// and V-cycle (kernel 2 five times, the where/sub/mul/add of the sweeps, the
+// transfers' gathers).  Now a level takes 6 at nu = 2: four launches of
+// this kernel and restrict_kernel and prolong_add_kernel, which take lanes
+// on blockIdx.y and the lanes' one coarse mask with free_stride 0.
+//
+// The arithmetic is the route's bit for bit: each lane's coefficient is
+// formed as kernel 2 forms it (co = s_0 c_0, then fma(s_b, c_b, co)), the
+// sum is kernel 2's acc = fma(co, x, acc) over o in its row / dz order
+// (factored_apply), the rest PyTorch's single roundings in the route's
+// operand order (level_out).  The neighbour words are level_apply_kernel's,
+// one a point, shared by the lanes; wd = omega / diag is made once a solve,
+// diag the route's explicit sum over bodies.
+//
+// Bound by device memory at the fine level: the B * 27 coefficient planes
+// (37 MB in f32 at the sweep's (89, 41, 19), 5 bodies) and 2-4 vectors a
+// lane (6.9 MB each at 25 lanes).  The coefficients must be read once for
+// all lanes: a block's lanes read a point's coefficients from one tile in
+// shared memory, as in kernel 2: kernel 2's tiles of P consecutive points
+// with all lanes of the slab, persistent blocks, the next tile's
+// coefficients copied by cp.async while the current one is computed; x (or
+// wd b) from device memory, 27 neighbour reads a point and lane through L1.
+// Kernel 2's grid at every level: on a level of few tiles, spreading the
+// lanes over more blocks (more slabs of fewer lane groups, or fewer lanes a
+// thread) was slower on the card, since every block stages its whole
+// coefficient tile.  A variant with the neighbours from shared memory (one
+// box of rows a block, its coefficients and its lanes' x over the box and
+// its halo copied in, then computed, no copy overlapped) was slower at every
+// level and is not kept (PERF.md).
+
+// Kernel 2's apply at one point for a thread's nl <= K lanes (s their sigma
+// rows): acc[l] = sum_o co_l(o) v(l, o), co_l(o) = s_l0 c(0, o), then
+// fma(s_lb, c(b, o), co), acc = fma(co, v, acc) over the rows (dx, dy) and
+// dz in batched_stencil_spmv_kernel's order, each row's 3 x K neighbour
+// values loaded first; v(l, o) is read only where bit o of nb is set (the
+// neighbour lies in the grid and is free), else 0.
+template <typename T, int B, int K, typename Coef, typename Value>
+__device__ __forceinline__ void factored_apply(const T (&s)[K][B], int nl,
+                                               unsigned nb, Coef coef,
+                                               Value value, T (&acc)[K]) {
+#pragma unroll
+  for (int row = 0; row < 9; ++row) {
+    T xv[3][K];
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+      const bool ok = (nb >> (row * 3 + dz) & 1u) != 0u;
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        xv[dz][l] = (ok && l < nl) ? value(l, row * 3 + dz) : T(0);
+      }
+    }
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+      const int o = row * 3 + dz;
+      T c[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) c[b] = coef(b, o);
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        if (l < nl) {
+          T co = s[l][0] * c[0];
+#pragma unroll
+          for (int b = 1; b < B; ++b) co = fma(s[l][b], c[b], co);
+          acc[l] = fma(co, xv[dz][l], acc[l]);
+        }
+      }
+    }
+  }
+}
+
+// One lane's output at point q from its x, its op(x) ax and the mode
+// (level_apply_kernel's epilogue).
+template <typename T>
+__device__ __forceinline__ T level_out(int mode, T xq, T ax,
+                                       const T* __restrict__ b,
+                                       const T* __restrict__ wd, int q) {
+  if (mode == kResidual) return sub_rn(b[q], ax);
+  if (mode == kMasked) return ax;
+  return add_rn(xq, mul_rn(wd[q], sub_rn(b[q], ax)));
+}
+
+// The sigma rows of a thread's lanes l0 .. l0 + nl - 1 (0 past them).
+template <typename T, int B, int K>
+__device__ __forceinline__ void load_sigma(T (&s)[K][B],
+                                           const T* __restrict__ sig, int l0,
+                                           int nl) {
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      s[l][b] = l < nl ? sig[(l0 + l) * B + b] : T(0);
+    }
+  }
+}
+
+// Blocks an SM that level_apply_factored_kernel's register use must allow:
+// kernel 2's, but one for kSweep0 in f64, whose neighbour values wd b take
+// twice the loads (two spilled at 72 registers).
+template <typename T, bool kFromZero>
+constexpr int factored_min_blocks() {
+  return kFromZero && sizeof(T) == 8 ? 1 : Tile<T>::kB2MinBlocks;
+}
+
+// batched_stencil_spmv_kernel's blocks and tiles; mode a LevelMode,
+// kFromZero for kSweep0 (x and its neighbours formed as wd b).
+template <typename T, int B, int K, int P, bool kFromZero>
+__global__ void __launch_bounds__(Tile<T>::kB2Threads,
+                                  factored_min_blocks<T, kFromZero>())
+level_apply_factored_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                            const T* __restrict__ coeff,
+                            const T* __restrict__ sig,
+                            const T* __restrict__ wd,
+                            const unsigned* __restrict__ words,
+                            T* __restrict__ y, int mode, int L, int X, int Y,
+                            int Z) {
+  constexpr int kTile = B * 27 * P;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* tiles = reinterpret_cast<T*>(s_raw);  // two tiles
+  const int G = X * Y * Z;
+  const int ntiles = (G + P - 1) / P;
+  const int l0 = (blockIdx.y * blockDim.y + threadIdx.y) * K;
+  const int nl = min(K, L - l0);  // lanes of this thread (<= 0: none)
+  T s[K][B];
+  load_sigma<T, B, K>(s, sig, l0, nl);
+  const auto xval = [x, b, wd](int n) {
+    if constexpr (kFromZero) {
+      return mul_rn(wd[n], b[n]);
+    } else {
+      return x[n];
+    }
+  };
+
+  const int step = gridDim.x;
+  int tile = blockIdx.x;
+  stage_coeff_tile<T, B, P>(tiles, coeff, G, tile * P);
+  for (int it = 0; tile < ntiles; ++it, tile += step) {
+    cp_async_wait_block();
+    if (tile + step < ntiles) {
+      stage_coeff_tile<T, B, P>(
+          tiles + ((it + 1) & 1) * kTile, coeff, G, (tile + step) * P);
+    }
+    const T* s_c = tiles + (it & 1) * kTile + threadIdx.x;
+    const int p = tile * P + threadIdx.x;
+    if (p >= G || nl <= 0) continue;
+    const unsigned nb = words[p];
+    const bool f = (nb & kCgFree) != 0u;
+    const int q0 = l0 * G + p;
+    T acc[K];
+#pragma unroll
+    for (int l = 0; l < K; ++l) acc[l] = T(0);
+    if (f) {
+      factored_apply<T, B, K>(
+          s, nl, nb, [s_c](int bb, int o) { return s_c[(bb * 27 + o) * P]; },
+          [&](int l, int o) { return xval(q0 + l * G + shift(o, Y, Z)); },
+          acc);
+    }
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      if (l < nl) {
+        const int q = q0 + l * G;
+        const T xq = xval(q);
+        y[q] = level_out(mode, xq, f ? acc[l] : xq, b, wd, q);
+      }
+    }
+  }
+}
+
 // ── the lanes' combined stencils ─────────────────────────────────────────
 //
 // C[l, i] = sum_b sig[l, b] coeff[b, i] over the N elements of a body's
@@ -1752,6 +1934,79 @@ int launch_prolong_add(const void* x, const void* xc, const void* itab,
   return (int)cudaGetLastError();
 }
 
+// Pointers of a level_apply_factored launch.
+template <typename T>
+struct FactoredArgs {
+  const T *x, *b, *coeff, *sig, *wd;
+  const unsigned* words;
+  T* y;
+};
+
+// B bodies: kernel 2's launch (Batched::run): blocks of P points by the
+// lane groups of K lanes a slab holds, as many blocks as the card holds and
+// at most one a tile.
+template <typename T, int B, bool kFromZero>
+int launch_factored_tiles(const FactoredArgs<T>& a, int mode, int L, int X,
+                          int Y, int Z, cudaStream_t stream) {
+  constexpr int P = Tile<T>::kB2Points;
+  constexpr int K = lanes_per_thread<T>(B, Tile<T>::kB2Lanes);
+  constexpr int smem = 2 * B * 27 * P * (int)sizeof(T);
+  const auto kernel = level_apply_factored_kernel<T, B, K, P, kFromZero>;
+  static std::atomic<unsigned> opted{0};
+  static std::atomic<unsigned long long> last{0};
+  int slabs = 0, blocks = 0;
+  const int groups = even_slabs((L + K - 1) / K,
+                                Tile<T>::kB2Threads / P, &slabs);
+  cudaError_t err = allow_smem(kernel, smem, opted);
+  if (err == cudaSuccess) {
+    err = resident_blocks(kernel, P * groups, smem, last, &blocks);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (slabs > 65535) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<dim3(std::min(blocks, (X * Y * Z + P - 1) / P), slabs),
+           dim3(P, groups), smem, stream>>>(
+      a.x, a.b, a.coeff, a.sig, a.wd, a.words, a.y, mode, L, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int B>
+int launch_factored_b(const FactoredArgs<T>& a, int mode, int L, int X,
+                      int Y, int Z, cudaStream_t st) {
+  return mode == kSweep0
+             ? launch_factored_tiles<T, B, true>(a, mode, L, X, Y, Z, st)
+             : launch_factored_tiles<T, B, false>(a, mode, L, X, Y, Z, st);
+}
+
+// L lanes of B bodies (1..kMaxBodies) on grid (X, Y, Z) within 32-bit
+// indices; mode a LevelMode (x unread in kSweep0, b and wd in kMasked).
+template <typename T>
+int launch_level_apply_factored(const void* x, const void* b,
+                                const void* coeff, const void* sig,
+                                const void* wd, const void* words, void* y,
+                                int L, int B, int mode, int X, int Y, int Z,
+                                void* stream) {
+  const long long G = (long long)X * Y * Z;
+  if (X < 1 || Y < 1 || Z < 1 || B < 1 || B > kMaxBodies || L < 0 ||
+      !fits_int(G, L, B) || mode < kSweep || mode > kMasked) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (L == 0) return 0;
+  const FactoredArgs<T> a{(const T*)x,  (const T*)b,  (const T*)coeff,
+                          (const T*)sig, (const T*)wd, (const unsigned*)words,
+                          (T*)y};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (B) {
+    case 1: return launch_factored_b<T, 1>(a, mode, L, X, Y, Z, st);
+    case 2: return launch_factored_b<T, 2>(a, mode, L, X, Y, Z, st);
+    case 3: return launch_factored_b<T, 3>(a, mode, L, X, Y, Z, st);
+    case 4: return launch_factored_b<T, 4>(a, mode, L, X, Y, Z, st);
+    case 5: return launch_factored_b<T, 5>(a, mode, L, X, Y, Z, st);
+    case 6: return launch_factored_b<T, 6>(a, mode, L, X, Y, Z, st);
+    case 7: return launch_factored_b<T, 7>(a, mode, L, X, Y, Z, st);
+    default: return launch_factored_b<T, 8>(a, mode, L, X, Y, Z, st);
+  }
+}
+
 template <typename T, int B>
 int launch_combine_lanes_b(const void* coeff, const void* sig, void* C, int L,
                            int N, cudaStream_t stream) {
@@ -1930,6 +2185,24 @@ int pst_prolong_add_f64(const void* x, const void* xc, const void* itab,
                         const void* wtab, void* y, const int* meta, int S,
                         void* stream) {
   return launch_prolong_add<double>(x, xc, itab, wtab, y, meta, S, stream);
+}
+
+int pst_level_apply_factored_f32(const void* x, const void* b,
+                                 const void* coeff, const void* sig,
+                                 const void* wd, const void* words, void* y,
+                                 int L, int B, int mode, int X, int Y, int Z,
+                                 void* stream) {
+  return launch_level_apply_factored<float>(x, b, coeff, sig, wd, words, y,
+                                            L, B, mode, X, Y, Z, stream);
+}
+
+int pst_level_apply_factored_f64(const void* x, const void* b,
+                                 const void* coeff, const void* sig,
+                                 const void* wd, const void* words, void* y,
+                                 int L, int B, int mode, int X, int Y, int Z,
+                                 void* stream) {
+  return launch_level_apply_factored<double>(x, b, coeff, sig, wd, words, y,
+                                             L, B, mode, X, Y, Z, stream);
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

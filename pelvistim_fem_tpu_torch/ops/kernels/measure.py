@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    LEVEL_MODES, LevelOp, VcycleTail, coarse_cg_plain, make_vcycle_tail,
-    vcycle_tail_plain)
+    DIAG_OFFSET, LEVEL_MODES, FactoredLevelOp, LevelOp, VcycleTail, coarse_cg_plain,
+    make_vcycle_tail, vcycle_tail_plain)
 
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
 # (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
@@ -65,12 +65,16 @@ def input_copies(args, warm=False):
         if isinstance(a, VcycleTail) and a.packed is not None:
             tensors += list(a.packed[:-1])
         if isinstance(a, LevelOp):
-            tensors += [a.C] + list(a._wd.values()) + (
+            tensors += [a.C]
+        if isinstance(a, FactoredLevelOp):
+            tensors += [a.coeff, a.sig]
+        if isinstance(a, (LevelOp, FactoredLevelOp)):
+            tensors += list(a._wd.values()) + (
                 [a.words] if a.words is not None else [])
     nbytes = sum(a.numel() * a.element_size() for a in tensors)
     n = max(2, math.ceil(ROTATE_BYTES / nbytes))
     copy = lambda a: a.clone() if torch.is_tensor(a) or \
-        isinstance(a, (VcycleTail, LevelOp)) else a
+        isinstance(a, (VcycleTail, LevelOp, FactoredLevelOp)) else a
     return [tuple(args)] + [tuple(copy(a) for a in args)
                             for _ in range(n - 1)]
 
@@ -125,19 +129,30 @@ def work(name, shape, dtype):
     the mode's vectors, x b wd y ("sweep"), b wd y ("sweep0"), x b y
     ("residual"), x y ("masked"), and FL neighbour words of 4 bytes a
     point; 54 operations of the apply, 3 of a sweep, 1 more for "sweep0"'s
-    wd b and the residual's subtraction), (FL, grid) for restrict_cuda
+    wd b and the residual's subtraction), (mode, B, (L, X, Y, Z)) for
+    level_apply_factored_cuda (L lanes sharing B bodies' coefficients:
+    the B * 27 planes once, sigma, per point and lane the mode's vectors
+    as level_apply's, one word of 4 bytes a point; operations per point
+    and lane as the batched kernels' apply, 27 (2B + 1), and the mode's
+    as level_apply's), (FL, grid) for restrict_cuda
     (r, rc, the coarse mask's FL bytes a point, the tables' idx and wt;
     the three axis passes' multiply-adds as restrict_axes does them) and
     (grid,) for prolong_add_cuda (x, xc, y, the tables' s0, wl and wr;
     the axis passes' 3 operations a value and the add); the coarse grid
     and the tables' K are those of multigrid.Transfer on the fine grid."""
     es = 4 if dtype == "float32" else 8
+    vecs = {"sweep": 4, "sweep0": 3, "residual": 3, "masked": 2}
+    mode_ops = {"sweep": 3, "sweep0": 4, "residual": 1, "masked": 0}
     if name == "level_apply_cuda":
         mode, FL, grid = shape
         S, G = _lanes_points(grid)
-        vecs = {"sweep": 4, "sweep0": 3, "residual": 3, "masked": 2}[mode]
-        ops = 54 + {"sweep": 3, "sweep0": 4, "residual": 1, "masked": 0}[mode]
-        return S * G * (27 + vecs) * es + FL * G * 4, S * G * ops
+        return (S * G * (27 + vecs[mode]) * es + FL * G * 4,
+                S * G * (54 + mode_ops[mode]))
+    if name == "level_apply_factored_cuda":
+        mode, B, grid = shape
+        L, G = _lanes_points(grid)
+        return ((L * G * vecs[mode] + B * 27 * G + L * B) * es + G * 4,
+                L * G * (27 * (2 * B + 1) + mode_ops[mode]))
     if name in ("restrict_cuda", "prolong_add_cuda"):
         grid = shape[-1]
         S, G = _lanes_points(grid)
@@ -326,6 +341,11 @@ def kernel_inputs(name, shape, dtype, device, rng):
     * points) of the levels `shapes` packed, and positive sigma (L, B);
     level_apply_cuda (x, b, a LevelOp of a random stencil and a mask free
     on 85% of the points, FL of them, its words and wd made, mode, 0.7);
+    level_apply_factored_cuda likewise with a FactoredLevelOp of B bodies'
+    random coefficients, their centre ones 27 + |N(0, 1)| (the Jacobi
+    diagonal of positive sigma then far from 0, as a level's: near 0, wd
+    b and the sweeps cancel to values that no f32 tolerance relative to
+    max|twin| holds), positive sigma and one such mask;
     restrict_cuda (r, the tables of multigrid.Transfer on unit-spaced
     knots, a coarse mask of FL lanes), prolong_add_cuda (x, xc, those
     tables)."""
@@ -355,6 +375,20 @@ def kernel_inputs(name, shape, dtype, device, rng):
         lv = LevelOp(rand(grid[:-3] + (27,) + grid[-3:]), torch.as_tensor(
             rng.random(((FL,) if len(grid) == 4 else ()) + grid[-3:])
             < 0.85, device=device))
+        lv.neighbour_words()
+        lv.wd(0.7)
+        return rand(grid), rand(grid), lv, mode, 0.7
+    if name == "level_apply_factored_cuda":
+        mode, B, grid = shape
+        grid = tuple(grid)
+        coeff = rand((B, 27) + grid[1:])
+        coeff[:, DIAG_OFFSET] = 27 + coeff[:, DIAG_OFFSET].abs()
+        lv = FactoredLevelOp(
+            coeff,
+            torch.as_tensor(rng.random((grid[0], B)), dtype=dtype,
+                            device=device),
+            torch.as_tensor(rng.random((1,) + grid[1:]) < 0.85,
+                            device=device))
         lv.neighbour_words()
         lv.wd(0.7)
         return rand(grid), rand(grid), lv, mode, 0.7

@@ -108,6 +108,24 @@ TransferTables to its next level, each made once a hierarchy:
                                        and prolong_axes (with
                                        spmv=stencil_spmv, the card's route)
 
+and the same phase where the lanes share body-factored coefficients
+(a FactoredLevelOp: coeff, sig, one mask, made once a solve), with
+restrict and prolong_add as above:
+
+  level_apply_factored(x, b, lv, mode, omega)
+                                       level_apply's modes with op(x) =
+                                       where(free, batched_stencil_spmv(
+                                       where(free, x, 0), coeff, sig), x);
+                                       x and b (L, X, Y, Z)
+      CUDA: level_apply_factored_cuda  replaces kernel 2 and PyTorch's ops
+                                       around it at the body-factored levels
+                                       above the tail of _fused_cycle
+                                       (pelvistim_fem_tpu/ops/multigrid.py)
+      twin: level_apply_factored_plain (that route op by op on
+                                       batched_stencil_spmv_plain; with
+                                       spmv=batched_stencil_spmv, the card's
+                                       route)
+
 Dispatch is by tensor device only: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel, and a build or launch failure raises.
 
@@ -151,9 +169,11 @@ LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
             "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0,
             "combine_lanes_cuda": 0, "level_apply_cuda": 0,
-            "restrict_cuda": 0, "prolong_add_cuda": 0}
+            "restrict_cuda": 0, "prolong_add_cuda": 0,
+            "level_apply_factored_cuda": 0}
 
-# level_apply's modes (LevelMode in csrc/stencil.cu)
+# level_apply's and level_apply_factored's modes (LevelMode in
+# csrc/stencil.cu)
 LEVEL_MODES = {"sweep": 0, "sweep0": 1, "residual": 2, "masked": 3}
 
 # The tail kernel's limits (kTailMaxLevels, kMaxSmem and the coarse CG's
@@ -542,22 +562,29 @@ def _level_mode(name, mode):
                          f"{', '.join(LEVEL_MODES)}")
 
 
-def level_apply_plain(x, b, lv, mode, omega=0.7, spmv=stencil_spmv_plain):
-    """One phase of a V-cycle level op by op, with op(x) = where(free,
-    spmv(where(free, x, 0), C), x) on lv (a LevelOp) and wd =
-    lv.wd(omega): mode "sweep" x + wd (b - op(x)); "sweep0" that sweep
-    from x = wd b (x not read); "residual" b - op(x); "masked" op(x) (b
-    not read).  spmv=stencil_spmv gives the card's route (kernel 1 and
-    PyTorch's ops), the default the plain twin."""
-    _level_mode("level_apply_plain", mode)
+def _level_phase(name, x, b, lv, mode, omega, apply):
+    """One phase of a V-cycle level op by op on lv (a LevelOp or a
+    FactoredLevelOp), with op(x) = where(free, apply(where(free, x, 0)),
+    x) and wd = lv.wd(omega): mode "sweep" x + wd (b - op(x)); "sweep0"
+    that sweep from x = wd b (x not read); "residual" b - op(x); "masked"
+    op(x) (b not read)."""
+    _level_mode(name, mode)
     if mode == "sweep0":
         x = lv.wd(omega) * b
-    ax = torch.where(lv.free, spmv(torch.where(lv.free, x, 0.0), lv.C), x)
+    ax = torch.where(lv.free, apply(torch.where(lv.free, x, 0.0)), x)
     if mode == "masked":
         return ax
     if mode == "residual":
         return b - ax
     return x + lv.wd(omega) * (b - ax)
+
+
+def level_apply_plain(x, b, lv, mode, omega=0.7, spmv=stencil_spmv_plain):
+    """One phase of a V-cycle level op by op (_level_phase) on lv, a
+    LevelOp, with apply spmv(., lv.C).  spmv=stencil_spmv gives the card's
+    route (kernel 1 and PyTorch's ops), the default the plain twin."""
+    return _level_phase("level_apply_plain", x, b, lv, mode, omega,
+                        lambda xm: spmv(xm, lv.C))
 
 
 def restrict_plain(r, tt, free_c):
@@ -606,6 +633,54 @@ def batched_stencil_spmv_lminor_plain(Xm, coeff, sig):
             acc = acc + coeff[b, o][..., None] * sig[b]
         Ym = Ym + acc * shifted
     return Ym
+
+
+@dataclasses.dataclass(eq=False)
+class FactoredLevelOp:
+    """One body-factored multigrid level of L lanes for
+    level_apply_factored: the bodies' coefficients coeff (B, 27, X, Y, Z)
+    and the lanes' sigma sig (L, B), contiguous, and the lanes' one mask
+    free (1, X, Y, Z) bool.  Made once at first use and kept, as
+    LevelOp's: dinv = 1 / where(free & (diag != 0), diag, 1) with diag
+    (L, X, Y, Z) = sum_b sig[:, b] coeff[b, 13], a multiply and an add a
+    body (no fma, as the route sums it); wd(omega) = omega * dinv; the
+    neighbour words (one row, shared by the lanes)."""
+    coeff: torch.Tensor
+    sig: torch.Tensor
+    free: torch.Tensor
+    words: torch.Tensor | None = None
+    _wd: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @functools.cached_property
+    def dinv(self):
+        s = self.sig[:, :, None, None, None]
+        diag = s[:, 0] * self.coeff[0, DIAG_OFFSET]
+        for b in range(1, self.coeff.shape[0]):
+            diag = diag + s[:, b] * self.coeff[b, DIAG_OFFSET]
+        return 1.0 / torch.where(self.free & (diag != 0), diag, 1.0)
+
+    wd = LevelOp.wd
+    neighbour_words = LevelOp.neighbour_words
+    shape = LevelOp.shape
+
+    def clone(self) -> "FactoredLevelOp":
+        """The same level with copies of its tensors (and of what is
+        made)."""
+        lv = FactoredLevelOp(self.coeff.clone(), self.sig.clone(),
+                             self.free.clone(), None if self.words is None
+                             else self.words.clone())
+        lv._wd.update({k: v.clone() for k, v in self._wd.items()})
+        return lv
+
+
+def level_apply_factored_plain(x, b, lv, mode, omega=0.7,
+                               spmv=batched_stencil_spmv_plain):
+    """One phase of a V-cycle level op by op (_level_phase) on lv, a
+    FactoredLevelOp, with apply spmv(., lv.coeff, lv.sig): x and b (L, X,
+    Y, Z).  spmv=batched_stencil_spmv gives the card's route (kernel 2 and
+    PyTorch's ops), the default the plain twin."""
+    return _level_phase("level_apply_factored_plain", x, b, lv, mode, omega,
+                        lambda xm: spmv(xm, lv.coeff, lv.sig))
 
 
 def _two_product(a, b):
@@ -731,6 +806,9 @@ def build(extra_flags=()) -> ctypes.CDLL:
             fn.restype = i
             fn = getattr(lib, f"pst_prolong_add_{dt}")
             fn.argtypes = [ptr] * 6 + [i, ptr]
+            fn.restype = i
+            fn = getattr(lib, f"pst_level_apply_factored_{dt}")
+            fn.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
             fn.restype = i
         lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
         lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
@@ -984,6 +1062,32 @@ def _dims_level_apply(x, b, lv, mode, omega=0.7):
             f"pst_level_apply_{_SUFFIX[x.dtype]}")
 
 
+def _dims_level_apply_factored(x, b, lv, mode, omega=0.7):
+    name = "level_apply_factored_cuda"
+    _level_mode(name, mode)
+    x = b if mode == "sweep0" else x
+    b = x if mode == "masked" else b
+    wd = lv.wd(omega) if mode in ("sweep", "sweep0") else x
+    _check(name, x.dtype, x.device, x=x, b=b, coeff=lv.coeff, sig=lv.sig,
+           wd=wd)
+    words = lv.neighbour_words()
+    _check(name, torch.int32, x.device, (torch.int32,), words=words)
+    L, B = x.shape[0], lv.coeff.shape[0]
+    grid = tuple(x.shape[1:])
+    if x.dim() != 4 or tuple(lv.coeff.shape) != (B, 27) + grid or \
+            tuple(lv.sig.shape) != (L, B) or \
+            tuple(b.shape) != tuple(x.shape) or \
+            tuple(wd.shape) != tuple(x.shape) or \
+            tuple(words.shape) != (1, math.prod(grid)):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}, wd {tuple(wd.shape)}, coeff "
+                         f"{tuple(lv.coeff.shape)}, sig "
+                         f"{tuple(lv.sig.shape)}, mask {lv.shape}")
+    return ((x, b, lv.coeff, lv.sig, wd, words),
+            (L, B, LEVEL_MODES[mode]) + grid,
+            f"pst_level_apply_factored_{_SUFFIX[x.dtype]}")
+
+
 def _transfer_args(name, a, tt, grid):
     """tt's packed tables checked against a, whose grid must be `grid`;
     (S, Ip, Wp, layout)."""
@@ -1033,7 +1137,8 @@ _DIMS = {"stencil_spmv_cuda": _dims_single,
          "combine_lanes_cuda": _dims_combine_lanes,
          "level_apply_cuda": _dims_level_apply,
          "restrict_cuda": _dims_restrict,
-         "prolong_add_cuda": _dims_prolong_add}
+         "prolong_add_cuda": _dims_prolong_add,
+         "level_apply_factored_cuda": _dims_level_apply_factored}
 
 
 def launch(name, *args, extra_flags=()):
@@ -1050,11 +1155,12 @@ def launch(name, *args, extra_flags=()):
     (vcycle_tail_smem), the lanes' combine 1..8 bodies and L times the
     elements of a body within an int, the level kernels at most 65535
     lanes and S * 27 * points within an int (the restriction at most 6
-    entries a coarse knot on axes 0 and 1); the launch raises
-    otherwise."""
+    entries a coarse knot on axes 0 and 1), the body-factored level kernel
+    as the batched kernels; the launch raises otherwise."""
     tensors, dims, entry, *out_shape = _DIMS[name](*args)
     lib = build(extra_flags)
-    if (name.startswith("batched") or name == "combine_lanes_cuda") and \
+    if (name.startswith("batched") or name in (
+            "combine_lanes_cuda", "level_apply_factored_cuda")) and \
             not 1 <= dims[1] <= lib.pst_max_bodies():
         raise ValueError(f"{name}: {dims[1]} bodies, the kernel takes "
                          f"1..{lib.pst_max_bodies()}")
@@ -1180,6 +1286,16 @@ def prolong_add_cuda(x, xc, tt):
     return y
 
 
+def level_apply_factored_cuda(x, b, lv, mode, omega=0.7):
+    """CUDA kernel for level_apply_factored_plain's function (kernel 2's
+    fma order, PyTorch's roundings): x, b (L, X, Y, Z), contiguous, of
+    lv's dtype (float32 or float64) and on its device; x may be None in
+    mode "sweep0", b in mode "masked"; 1..8 bodies."""
+    y = launch("level_apply_factored_cuda", x, b, lv, mode, omega)
+    LAUNCHES["level_apply_factored_cuda"] += 1
+    return y
+
+
 # ── dispatch by device ─────────────────────────────────────────────────
 
 
@@ -1270,3 +1386,12 @@ def prolong_add(x, xc, tt):
     if x.is_cuda:
         return prolong_add_cuda(x, xc, tt)
     return prolong_add_plain(x, xc, tt)
+
+
+def level_apply_factored(x, b, lv, mode, omega=0.7):
+    """One phase of a V-cycle body-factored level on lv (a
+    FactoredLevelOp; level_apply_factored_plain's modes): the CUDA kernel
+    for a level on a CUDA device, the plain twin on the CPU."""
+    if lv.coeff.is_cuda:
+        return level_apply_factored_cuda(x, b, lv, mode, omega)
+    return level_apply_factored_plain(x, b, lv, mode, omega)

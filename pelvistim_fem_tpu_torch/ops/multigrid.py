@@ -17,14 +17,15 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     launch on the card); body-factored lanes whose levels were not
     combined (the CPU's default) run them as fixed_cg on the batched
     apply.
-  * The levels above the tail with their own combined stencil: each
-    phase of a V-cycle there (the pre-smoothing, the residual, the
-    restriction, the prolongation, each post-sweep) is one call of
-    kernels.stencil_kernels.level_apply, restrict or prolong_add
-    (_level_cycle), one launch on the card: 6 a level at nu = 2.  The
-    level's Jacobi diagonal and neighbour words (LevelOp) and the
-    transfer's tables (Transfer.kernel_tables) are made once a
-    hierarchy.
+  * The levels above the tail: each phase of a V-cycle there (the
+    pre-smoothing, the residual, the restriction, the prolongation, each
+    post-sweep) is one call of kernels.stencil_kernels.level_apply (a
+    level with its own combined stencil, LevelOp) or level_apply_factored
+    (lanes that share body-factored coefficients, FactoredLevelOp),
+    restrict or prolong_add (_level_cycle), one launch on the card: 6 a
+    level at nu = 2.  The level's Jacobi diagonal and neighbour words and
+    the transfer's tables (Transfer.kernel_tables) are made once a
+    hierarchy (a solve for body-factored lanes).
   * The tail: on the card, the levels from the first one whose stencils,
     with every coarser level's, fit one SM's shared memory (tail_start)
     run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
@@ -52,14 +53,15 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    SMEM_MAX, TAIL_MAX_LEVELS, LevelOp, TransferTables, coarse_cg,
-    combine_lanes, fixed_cg, level_apply, level_apply_plain,
-    make_vcycle_tail, prolong_add, prolong_add_plain, prolong_axes, restrict,
-    restrict_axes, restrict_plain, vcycle_tail, vcycle_tail_smem)
+    SMEM_MAX, TAIL_MAX_LEVELS, FactoredLevelOp, LevelOp, TransferTables,
+    coarse_cg, combine_lanes, fixed_cg, level_apply, level_apply_factored,
+    level_apply_factored_plain, level_apply_plain, make_vcycle_tail,
+    prolong_add, prolong_add_plain, prolong_axes, restrict, restrict_axes,
+    restrict_plain, vcycle_tail, vcycle_tail_smem)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
                                                refine_lanes)
-from pelvistim_fem_tpu_torch.ops.stencil import (DIAG_OFFSET, StencilCase,
+from pelvistim_fem_tpu_torch.ops.stencil import (StencilCase,
                                                  _masked_operator, _operator,
                                                  batched_stencil_spmv,
                                                  combine_coeffs,
@@ -185,19 +187,24 @@ def _level_op(level: MGLevel, sigma_table) -> LevelOp:
 
 def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
                  zero_start=False):
-    """One V-cycle's work at a level above the tail, lv its LevelOp, tt
-    the tables of its transfer to the next level and free_c that level's
-    mask, coarser(rc) the cycle below: from x = 0 the pre-smoothing (nu >=
-    2: a "sweep0" call and nu - 2 sweeps; else x = wd b, or zeros at nu =
-    0 with zero_start), the residual, its restriction masked by free_c,
-    the prolongation of coarser's result added, nu sweeps:
-    max(1, nu - 1) + 3 + nu launches on the card at nu >= 1.  route: the
-    route the kernels repeat bit for bit (kernel 1 and PyTorch's ops)."""
+    """One V-cycle's work at a level above the tail, lv its LevelOp (or
+    FactoredLevelOp), tt the tables of its transfer to the next level and
+    free_c that level's mask, coarser(rc) the cycle below: from x = 0 the
+    pre-smoothing (nu >= 2: a "sweep0" call and nu - 2 sweeps; else x = wd
+    b, or zeros at nu = 0 with zero_start), the residual, its restriction
+    masked by free_c, the prolongation of coarser's result added, nu
+    sweeps: max(1, nu - 1) + 3 + nu launches on the card at nu >= 1.
+    route: the route the kernels repeat bit for bit (kernel 1, or kernel 2
+    for a FactoredLevelOp, and PyTorch's ops)."""
+    factored = isinstance(lv, FactoredLevelOp)
     if route:
-        apply = functools.partial(level_apply_plain, spmv=stencil_spmv)
+        apply = functools.partial(level_apply_factored_plain,
+                                  spmv=batched_stencil_spmv) if factored \
+            else functools.partial(level_apply_plain, spmv=stencil_spmv)
         down, up = restrict_plain, prolong_add_plain
     else:
-        apply, down, up = level_apply, restrict, prolong_add
+        apply = level_apply_factored if factored else level_apply
+        down, up = restrict, prolong_add
     if nu >= 2:
         x = apply(None, b, lv, "sweep0", omega)
     elif nu == 0 and zero_start:
@@ -214,14 +221,14 @@ def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
 
 
 def _make_level_args(levels, transfers, upto, omega):
-    """The level kernels' arguments of LevelOps levels[:upto] (None: a
-    level without one) and of their transfers, made now on a CUDA device
+    """The level kernels' arguments of levels[:upto] (LevelOps or
+    FactoredLevelOps) and of their transfers, made now on a CUDA device
     (not in the first V-cycle)."""
     for lv, tr in zip(levels[:upto], transfers):
-        if lv is not None and lv.C.is_cuda:
+        if lv.free.is_cuda:
             lv.neighbour_words()
-            lv.wd(omega)
-            _ = tr.kernel_tables(lv.C.device, lv.C.dtype).packed
+            wd = lv.wd(omega)
+            _ = tr.kernel_tables(wd.device, wd.dtype).packed
 
 
 def tail_start(shapes, dtype) -> int:
@@ -357,61 +364,50 @@ def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
 
 # ── Lane-stacked fused-SpMV multigrid (wide material sweeps) ──────────
 #
-# Every level runs on lane-stacked (L, X, Y, Z) arrays with the
-# body-factored batched SpMV: peak memory O(L*G + B*27*G), no per-lane
-# combined coefficients above the tail.  The tail's levels (a few hundred
-# points) get the lanes' own stencils, combined once a solve.
-
-
-def _lanes(v):
-    return v[:, None, None, None]
+# Every level runs on lane-stacked (L, X, Y, Z) arrays with body-factored
+# coefficients: peak memory O(L*G + B*27*G), no per-lane combined
+# coefficients above the tail, where each phase of a V-cycle is one
+# level_apply_factored call (kernel 2's apply with the sweep around it).
+# The tail's levels (a few hundred points) get the lanes' own stencils,
+# combined once a solve.
 
 
 def _fused_level_pieces(coeff, free, sig, C=None):
     """(op, dinv, freeb, raw, C, lv) for one lane-stacked level; raw is
-    the unprojected apply, lv the level's LevelOp where the lanes have
-    their own stencils (else None).  sig (L, T) full sigma tables (body
-    b at slot b+1).  Either coeff (B, 27, X, Y, Z) is shared by the lanes and
-    applied body-factored by batched_stencil_spmv, with free (X, Y, Z),
-    and C is None; or each lane has its own stack, coeff (L, B, 27, X, Y,
-    Z) with free (L, X, Y, Z) (a geometry batch): each lane's sigma is
-    combined into its own stencil C (L, 27, X, Y, Z), applied by the 4-D
-    stencil_spmv; or C (L, 27, X, Y, Z) is given, the lanes' own stencils
-    of a body-factored level (combined_tail_levels), applied likewise,
-    with free (X, Y, Z) shared.  Where the lanes have their own stencils,
-    the Jacobi diagonal is their C_13 and op one level_apply call
-    ("masked")."""
+    the unprojected apply, op(x) = where(freeb, raw(where(freeb, x, 0)),
+    x) one "masked" call of the level's phase kernel on lv.  sig (L, T)
+    full sigma tables (body b at slot b+1).  Either coeff (B, 27, X, Y, Z)
+    is shared by the lanes, with free (X, Y, Z), and C is None: lv is a
+    FactoredLevelOp (the Jacobi diagonal the explicit sum over bodies),
+    raw batched_stencil_spmv and op one level_apply_factored call; or
+    each lane has its own stack, coeff (L, B, 27, X, Y, Z) with free (L,
+    X, Y, Z) (a geometry batch): each lane's sigma is combined into its
+    own stencil C (L, 27, X, Y, Z), applied by the 4-D stencil_spmv; or C
+    (L, 27, X, Y, Z) is given, the lanes' own stencils of a body-factored
+    level (combined_tail_levels), applied likewise, with free (X, Y, Z)
+    shared.  Where the lanes have their own stencils, lv is their
+    LevelOp (the Jacobi diagonal their C_13) and op one level_apply
+    call."""
     if C is None and coeff.dim() == 6:
         C = combine_stacks(coeff, sig.to(coeff.dtype)).contiguous()
     freeb = free if free.dim() == 4 else free[None]
-    lv = None
     if C is not None:
-        lv = LevelOp(C, freeb)
+        lv, apply = LevelOp(C, freeb), level_apply
 
         def raw(Xs):
             return stencil_spmv(Xs, C)
     else:
-        coeff = coeff.contiguous()
         B = coeff.shape[0]
-        sig_b = sig[:, 1:1 + B].to(coeff.dtype).contiguous()
-        # per-lane diagonal as an explicit sum over bodies (no einsum: see
-        # stencil.combine_coeffs)
-        diag_l = _lanes(sig_b[:, 0]) * coeff[0, DIAG_OFFSET]
-        for b in range(1, B):
-            diag_l = diag_l + _lanes(sig_b[:, b]) * coeff[b, DIAG_OFFSET]
+        lv = FactoredLevelOp(coeff.contiguous(),
+                             sig[:, 1:1 + B].to(coeff.dtype).contiguous(),
+                             freeb)
+        apply = level_apply_factored
 
         def raw(Xs):
-            return batched_stencil_spmv(Xs, coeff, sig_b)
+            return batched_stencil_spmv(Xs, lv.coeff, lv.sig)
 
-    if lv is not None:      # one level_apply launch on the card
-        return (lambda Xs: level_apply(Xs, None, lv, "masked"), lv.dinv,
-                freeb, raw, C, lv)
-
-    def op(Xs):
-        return torch.where(freeb, raw(torch.where(freeb, Xs, 0.0)), Xs)
-
-    diag = torch.where(freeb & (diag_l != 0), diag_l, 1.0)
-    return op, 1.0 / diag, freeb, raw, C, lv
+    return (lambda Xs: apply(Xs, None, lv, "masked"), lv.dinv, freeb, raw,
+            C, lv)
 
 
 def combined_tail_levels(hier, sig, t):
@@ -469,18 +465,14 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
     b (L, X, Y, Z) -> z (L, X, Y, Z).  The coarsest level is coarse_cg
     where the lanes have their own stencils (their own stacks, or levels
     combined by combined_tail_levels), else fixed_cg on the body-factored
-    apply; levels where the lanes have their own stencils run from
-    tail_from on as one vcycle_tail call (as cycle_impl; _fused_tail), and
-    above it as _level_cycle (route: as cycle_impl's); body-factored
-    levels op by op on the batched apply."""
+    op; levels where the lanes have their own stencils run from tail_from
+    on as one vcycle_tail call (as cycle_impl; _fused_tail); every level
+    above it runs as _level_cycle on its LevelOp or FactoredLevelOp
+    (route: kernel 1 or kernel 2 and PyTorch's ops, the route the level
+    kernels repeat)."""
     n_levels = len(hier.levels)
     if tail is None:
         tail_from, tail = _fused_tail(pieces, hier, tail_from, nu)
-
-    def smooth(op, dinv, x, bb, n):
-        for _ in range(n):
-            x = x + omega * dinv * (bb - op(x))
-        return x
 
     def cycle(level, b):
         if level == tail_from:
@@ -490,22 +482,15 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
             # coarsest: fixed-iteration lane-aware CG
             if C is not None:
                 return coarse_cg(b, C, freeb, coarse_iters)
+            if route:
+                op = functools.partial(
+                    level_apply_factored_plain, b=None, lv=lv,
+                    mode="masked", spmv=batched_stencil_spmv)
             return fixed_cg(op, dinv, b, coarse_iters)
-        if lv is not None:
-            return _level_cycle(
-                lv, hier.transfers[level].kernel_tables(b.device, b.dtype),
-                pieces[level + 1][2], b, lambda rc: cycle(level + 1, rc),
-                nu=nu, omega=omega, route=route, zero_start=True)
-        # the first sweep from x = 0 is exactly omega*dinv*b (saves the
-        # zero apply; bit-identical to sweeping from zeros)
-        x = smooth(op, dinv, omega * dinv * b, b, nu - 1) if nu else \
-            torch.zeros_like(b)
-        r = b - op(x)
-        rc = hier.transfers[level].restrict(r)
-        rc = torch.where(pieces[level + 1][2], rc, 0.0)
-        xc = cycle(level + 1, rc)
-        x = x + hier.transfers[level].prolong(xc)
-        return smooth(op, dinv, x, b, nu)
+        return _level_cycle(
+            lv, hier.transfers[level].kernel_tables(b.device, b.dtype),
+            pieces[level + 1][2], b, lambda rc: cycle(level + 1, rc),
+            nu=nu, omega=omega, route=route, zero_start=True)
 
     return cycle(0, b)
 

@@ -4,6 +4,7 @@ the V-cycle tail kernel and of the level kernels, timed on a CUDA card.
     python -m pelvistim_fem_tpu_torch.profile_kernels          # all
     python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tail
     python -m pelvistim_fem_tpu_torch.profile_kernels --levels # levels
+    python -m pelvistim_fem_tpu_torch.profile_kernels --factored
 
 Builds the kernel library once per variant of the tile constants of
 csrc/stencil.cu (-D flags; all builds at once, each in _build/ under its
@@ -32,6 +33,13 @@ levels above the paths' tails (LEVELS), cold (inputs rotated through
 HBM) and warm (the same inputs each launch, as a solve finds them in L2),
 each build first held against the twin; kernel 1 is timed cold and warm
 at the same grids beside them.
+
+The body-factored level kernel (`level_apply_factored_cuda`, its four
+modes) is timed cold and warm at the body-factored levels above the
+paths' tails (FACTORED: the sweep's three at 25 lanes, step04's two at
+15, 5 bodies), first held against the twin and torch.equal to the card's
+route (kernel 2 and PyTorch's ops); kernel 2 is timed cold and warm
+beside it.
 """
 
 from __future__ import annotations
@@ -208,6 +216,58 @@ def time_levels(gpu):
                 torch.cuda.empty_cache()
 
 
+# the body-factored level kernel's levels: (lanes, grid) with 5 bodies
+FACTORED = [(25, (89, 41, 19)), (25, (45, 21, 10)), (25, (23, 11, 6)),
+            (15, (55, 31, 19)), (15, (28, 16, 10))]
+
+
+def time_factored(gpu):
+    """The body-factored level kernel on FACTORED, f32 and f64, every
+    mode, cold and warm, against the bound; kernel 2 cold and warm at the
+    same shapes."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    for k, u in sorted(sk.ptxas_usage().items()):
+        if k.startswith("level_apply_factored") and k.split(",")[1] == "5":
+            print(f"  {k:48s} {u['registers']:4d} regs "
+                  f"{u['spill_bytes']:5d} B spilled")
+    print(f"body-factored level kernel device ms cold / warm; {gpu}")
+    kernel = sk.level_apply_factored_cuda
+    name = "level_apply_factored_cuda"
+    rng = np.random.default_rng(3)
+    for dn in ("float32", "float64"):
+        dtype = getattr(torch, dn)
+        for L, grid in FACTORED:
+            for mode in sk.LEVEL_MODES:
+                shape = (mode, 5, (L,) + grid)
+                args = measure.kernel_inputs(name, shape, dtype, "cuda",
+                                             rng)
+                args = (None if mode == "sweep0" else args[0],
+                        None if mode == "masked" else args[1]) + args[2:]
+                ref = sk.level_apply_factored_plain(*args)
+                route = sk.level_apply_factored_plain(
+                    *args, spmv=sk.batched_stencil_spmv_cuda)
+                cold = measure.input_copies(args)
+                warm = measure.input_copies(args, warm=True)
+                y = kernel(*args)
+                measure.check_close(f"{shape} {dn}", y, ref, dtype)
+                if not torch.equal(y, route):
+                    raise AssertionError(f"{shape} {dn}: not the route")
+                b_ms = measure.bound(name, shape, dn)[0]
+                print(f"  {measure.kernel_ms(kernel, cold):.4f} / "
+                      f"{measure.kernel_ms(kernel, warm):.4f}  {dn} {mode} "
+                      f"L={L} {grid} bound {b_ms:.6f}")
+                del cold
+            xs = measure.kernel_inputs("batched_stencil_spmv_cuda",
+                                       (L, 5, grid), dtype, "cuda", rng)
+            k2 = sk.batched_stencil_spmv_cuda
+            print(f"  kernel 2 {measure.kernel_ms(k2, measure.input_copies(xs)):.4f}"
+                  f" / {measure.kernel_ms(k2, measure.input_copies(xs, warm=True)):.4f}"
+                  f"  {dn} L={L} {grid} bound "
+                  f"{measure.bound('batched_stencil_spmv_cuda', (L, 5, grid), dn)[0]:.6f}")
+            torch.cuda.empty_cache()
+
+
 def tail_flags(threads):
     return (f"-DPST_TAIL_THREADS={threads}",)
 
@@ -251,6 +311,8 @@ def main(argv=None):
                     help="only the tail kernel's block sizes")
     ap.add_argument("--levels", action="store_true",
                     help="only the level kernels' block sizes")
+    ap.add_argument("--factored", action="store_true",
+                    help="only the body-factored level kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
@@ -260,7 +322,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(gpu)
-    every = not (args.tail or args.levels)
+    every = not (args.tail or args.levels or args.factored)
     builds = [()]
     if args.tail or every:
         builds += [tail_flags(t) for t in TAIL_THREADS]
@@ -278,6 +340,8 @@ def main(argv=None):
         time_tail(gpu)
     if args.levels or every:
         time_levels(gpu)
+    if args.factored or every:
+        time_factored(gpu)
     return 0
 
 

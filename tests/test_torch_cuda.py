@@ -113,11 +113,12 @@ def test_kernels_spill_no_registers(dev):
     1-8 points a thread with its coefficients in shared or device
     memory, the V-cycle tail in both dtypes, the lanes' combine at
     every dtype and body count, and the level kernels: level_apply in
-    its four modes, restrict and prolong_add, in both dtypes) spills to
-    local memory."""
+    its four modes, restrict and prolong_add, in both dtypes; the
+    body-factored level kernel at every dtype and body count, from x and
+    from zero) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 * 8 + 2 * 4 + 2 + 2, sorted(usage)
+        + 2 * 8 + 2 * 4 + 2 + 2 + 2 * 8 * 2, sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
@@ -126,7 +127,9 @@ def test_kernels_spill_no_registers(dev):
             "vcycle_tail_kernel<double>", "combine_lanes_kernel<float,5>",
             "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
             "level_apply_kernel<double,3>", "restrict_kernel<float>",
-            "prolong_add_kernel<double>"} <= set(usage)
+            "prolong_add_kernel<double>",
+            "level_apply_factored_kernel<float,5,4,64,0>",
+            "level_apply_factored_kernel<double,5,2,32,1>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -718,3 +721,100 @@ def test_level_wrappers_count_and_refuse(dev):
         sk.restrict_cuda(r, tt, free_c.float())
     assert (sk.LAUNCHES["level_apply_cuda"], sk.LAUNCHES["restrict_cuda"],
             sk.LAUNCHES["prolong_add_cuda"]) == (1, 1, 1)
+
+
+# ── the body-factored level kernel ──────────────────────────────────────
+
+# The sweep's three levels above its tail (25 lanes) and step04's two (15
+# lanes), 5 bodies; and edges: lane counts that fill no lane group or
+# block, 1 and 8 bodies, grids that end mid-tile.
+FACTORED = [(25, (89, 41, 19)), (25, (45, 21, 10)), (25, (23, 11, 6)),
+            (15, (55, 31, 19)), (15, (28, 16, 10))]
+FACTORED_EDGES = [(1, 1, (9, 7, 5)), (3, 8, (9, 7, 5)), (33, 1, (9, 7, 5)),
+                  (40, 8, (9, 7, 5)), (25, 5, (5, 4, 3))]
+
+
+def _factored_route(x, b, lv, mode, omega=0.7):
+    return sk.level_apply_factored_plain(x, b, lv, mode, omega,
+                                         spmv=sk.batched_stencil_spmv_cuda)
+
+
+def _check_factored(dev, dtype, L, B, grid, seed):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    dt = getattr(torch, dtype)
+    x, b, lv, _, omega = measure.kernel_inputs(
+        "level_apply_factored_cuda", ("sweep", B, (L,) + grid), dt, dev,
+        np.random.default_rng(seed))
+    for mode in sk.LEVEL_MODES:
+        xa = None if mode == "sweep0" else x
+        ba = None if mode == "masked" else b
+        y = sk.level_apply_factored_cuda(xa, ba, lv, mode, omega)
+        measure.check_close(f"factored {mode} {L} {B} {grid}", y,
+                            sk.level_apply_factored_plain(xa, ba, lv, mode,
+                                                          omega), dt)
+        assert torch.equal(y, _factored_route(xa, ba, lv, mode, omega)), \
+            mode
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L,grid", FACTORED)
+def test_factored_level_kernel_matches_twin_and_route(dev, dtype, L, grid):
+    """level_apply_factored_cuda in each mode at the paths' body-factored
+    levels, within measure.check_close of its twin and torch.equal to the
+    card's route (kernel 2 and PyTorch's ops)."""
+    _check_factored(dev, dtype, L, 5, grid, 80)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L,B,grid", FACTORED_EDGES)
+def test_factored_level_kernel_edges(dev, dtype, L, B, grid):
+    _check_factored(dev, dtype, L, B, grid, 81)
+
+
+def test_factored_v_cycle_equals_the_route(dev):
+    """One lane-stacked V-cycle of the coarse step04 hierarchy, three
+    lanes, every level body-factored: through the level kernels
+    torch.equal to the route (route=True: kernel 2 and PyTorch's ops),
+    f32 and f64; 6 launches a level above the coarsest, kernel 2 there
+    never; restrict_cuda with the lanes' one coarse mask."""
+    from pelvistim_fem_tpu_torch.models.pressure import (build_pressure_spec,
+                                                         sigma_tables)
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    _, hier, _ = _coarse04(dev)
+    spec, _ = build_pressure_spec(coarse=True)
+    tabs = torch.as_tensor(sigma_tables(spec, [5e-5, 5e-3, 0.5]),
+                           device=dev)
+    rng = np.random.default_rng(82)
+    n = len(hier.levels)
+    for dt in (torch.float32, torch.float64):
+        h = hier.astype(dt)
+        pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, tabs.to(dt))
+                  for lv in h.levels]
+        B = torch.where(pieces[0][2], _rand(
+            rng, (3,) + tuple(h.levels[0].free.shape), dt, dev), 0.0)
+        want = tmg._fused_cycle(pieces, h, B, route=True)
+        sk.reset_launches()
+        assert torch.equal(tmg._fused_cycle(pieces, h, B), want)
+        assert sk.LAUNCHES["level_apply_factored_cuda"] == 4 * (n - 1) + 24
+        assert sk.LAUNCHES["restrict_cuda"] == n - 1
+        assert sk.LAUNCHES["prolong_add_cuda"] == n - 1
+        assert sk.LAUNCHES["batched_stencil_spmv_cuda"] == 0
+
+
+def test_factored_wrapper_counts_and_refuses(dev):
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    x, b, lv, mode, omega = measure.kernel_inputs(
+        "level_apply_factored_cuda", ("sweep", 5, (4, 9, 7, 5)),
+        torch.float32, dev, np.random.default_rng(83))
+    sk.reset_launches()
+    sk.level_apply_factored(x, b, lv, "sweep")
+    assert sk.LAUNCHES["level_apply_factored_cuda"] == 1
+    with pytest.raises(TypeError):
+        sk.level_apply_factored_cuda(x.double(), b.double(), lv, "sweep")
+    with pytest.raises(ValueError):
+        sk.level_apply_factored_cuda(x[:3].contiguous(), b, lv, "residual")
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.level_apply_factored_cuda(x.cpu(), b.cpu(), lv, "sweep")
+    with pytest.raises(ValueError, match="mode"):
+        sk.level_apply_factored_cuda(x, b, lv, "jacobi")
+    assert sk.LAUNCHES["level_apply_factored_cuda"] == 1

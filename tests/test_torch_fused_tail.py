@@ -307,8 +307,10 @@ def test_tail_equals_the_combined_level_route_on_card(dev):
     """On the coarse step04 hierarchy with 3 body-factored lanes, f32 and
     f64: the card's V-cycle (levels combined by combine_lanes_cuda from
     tail_start, one vcycle_tail_cuda launch, no kernel 2 below the tail)
-    is torch.equal to the level route over the same combined levels and
-    within check_vcycle_tail of the twin; a solve launches combine_lanes
+    is torch.equal to the level route over the same combined levels (the
+    levels above it by the body-factored level kernel, 4 launches a level
+    of it and kernel 2 none) and within check_vcycle_tail of the twin; a
+    solve launches combine_lanes
     once, kernel 2 at no tail level and the coarse CG never."""
     spec, _ = build_pressure_spec(coarse=True)
     scase, hier = assemble_lattice(spec, F64, device=dev)
@@ -334,7 +336,8 @@ def test_tail_equals_the_combined_level_route_on_card(dev):
         assert torch.equal(tmg._fused_cycle(pieces, h, b, tail_from=tf,
                                             tail=tail), want)
         assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
-        assert sk.LAUNCHES["batched_stencil_spmv_cuda"] == 2 * 2 * t
+        assert sk.LAUNCHES["batched_stencil_spmv_cuda"] == 0
+        assert sk.LAUNCHES["level_apply_factored_cuda"] == 4 * t
         bt = torch.where(pieces[t][2], torch.as_tensor(
             rng.standard_normal((3,) + tail.shapes[0]), dtype=dt,
             device=dev), 0.0)

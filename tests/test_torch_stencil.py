@@ -182,6 +182,9 @@ def test_cpu_tensors_take_the_twin():
     lv = sk.LevelOp(C, free)
     assert torch.equal(sk.level_apply(x, x, lv, "sweep"),
                        sk.level_apply_plain(x, x, lv, "sweep"))
+    flv = sk.FactoredLevelOp(coeff, sig, free[None])
+    assert torch.equal(sk.level_apply_factored(Xs, Xs, flv, "sweep"),
+                       sk.level_apply_factored_plain(Xs, Xs, flv, "sweep"))
     assert sk.LAUNCHES == {"stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_cuda": 0,
                            "batched_stencil_spmv_lminor_cuda": 0,
@@ -192,7 +195,8 @@ def test_cpu_tensors_take_the_twin():
                            "combine_lanes_cuda": 0,
                            "level_apply_cuda": 0,
                            "restrict_cuda": 0,
-                           "prolong_add_cuda": 0}
+                           "prolong_add_cuda": 0,
+                           "level_apply_factored_cuda": 0}
     with pytest.raises(ValueError, match="must lie on"):
         sk.stencil_spmv_cuda(x, C)
     with pytest.raises(ValueError, match="must lie on"):
@@ -207,6 +211,8 @@ def test_cpu_tensors_take_the_twin():
         sk.combine_lanes_cuda(coeff, sig)
     with pytest.raises(ValueError, match="must lie on"):
         sk.level_apply_cuda(x, x, lv, "sweep")
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.level_apply_factored_cuda(Xs, Xs, flv, "sweep")
 
 
 PTXAS_REPORT = """\
