@@ -39,12 +39,14 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 the 50 MB L2; the lane-major and lane-minor twins
                 against each other through a transpose; and a small
                 sweep solved on the card and on the CPU
-  3b. tail      the V-cycle tail kernel on the five hierarchies whose
+  3b. tail      the V-cycle tail kernel on six hierarchies whose
                 V-cycles take it (the step04 app's (55, 31, 19) lattice,
-                the megatet's, step02's padded 8-lane group, and two
+                the megatet's, step02's padded 8-lane group, and three
                 body-factored ones whose tail levels are combined a lane
-                by combine_lanes: the sweep's first 25-lane chunk and
-                the step04 app's 15 linear lanes): one V-cycle
+                by combine_lanes: the sweep's first 25-lane chunk, the
+                step04 app's 15 linear lanes and the array app's 8 basis
+                lanes; its 64 ensemble lanes are held by path parity):
+                one V-cycle
                 through the tail torch.equal to the level-by-level route
                 (kernel 1, PyTorch's ops, the coarse CG; tail_from =
                 len(levels)), in f32 and f64; the kernel against its twin
@@ -58,11 +60,13 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 and the body-factored level kernel (level_apply_factored
                 in its four modes, with restrict and prolong_add on the
                 lanes' one coarse mask) at every level above the tail of
-                the sweep's first 25-lane chunk and of the step04 app's
-                15 linear lanes, f32 and f64: each within tolerance of
+                the sweep's first 25-lane chunk, of the step04 app's 15
+                linear lanes and of the array app's 8 and 64 lanes, f32
+                and f64: each within tolerance of
                 its twin and torch.equal to the card's route (kernel 1, or
                 kernel 2, and PyTorch's ops); at the levels above the f32
-                tail timed cold and warm (the same inputs every launch, as
+                tail (the array's: its fine level) timed cold and warm
+                (the same inputs every launch, as
                 the path finds them in L2) beside the twin and the route
                 as one CUDA graph; one V-cycle through them torch.equal to
                 the route, 6 launches a level
@@ -108,11 +112,24 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 V-cycle at one body); lanes, rows, temperatures, t95 and
                 the nonlinear columns against the JAX package's anchors;
                 walls and launches per app phase
- 13. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
+ 13. array      the electrode-array design app (apps/run_array_opt
+                --full --robust 8 --pareto 5): 8 disc loads on one (71,
+                71, 24) lattice, 676,200 tets, 3 bodies, as one certified
+                8-lane body-factored solve, the lead vectors and the
+                Frank-Wolfe designs, then 8 conductivity samples x 8 loads
+                as one 64-lane solve and the robust design; the app's
+                checks, every lane certified (recomputed with the plain
+                twin), each lane's iterations inside the JAX package's
+                rounding envelope, the design's doses and limits against
+                its anchors
+ 14. smoke      the step03 smoke test (apps/smoke_test): one coarse
+                layered-ankle case through runner.solve_auto (kernel 1),
+                every check of the JAX app
+ 15. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
                 stencil (solve_bioheat_stencil, kernel 1) against the
                 element path (solve_bioheat): iterations within 3, T
                 within 1e-8 degC
- 14. probes     the dev SpMV probes' entry points at full size:
+ 16. probes     the dev SpMV probes' entry points at full size:
                 spmv_kernels_ab (the megatet stencil assembled in f32:
                 kernel 1, the 3-row plane-FMA probe and the bf16-coefficient
                 kernel, each against its twin, then timed) and
@@ -123,11 +140,12 @@ through its paths at the benchmark's full sizes, and imports no JAX:
 The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
-each of the paths 4-14 and read after it; each path must have launched
+each of the paths 4-16 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
-sweep, megatet, jacobi, step02 and step04 the V-cycle tail; the sweep,
-jacobi and step04 the lanes' combine; the megatet, step02 and step04 the
-level kernels, the sweep, jacobi and step04 the body-factored one, 6
+sweep, megatet, jacobi, step02, step04 and array the V-cycle tail; the
+sweep, jacobi, step04 and array the lanes' combine; the megatet, step02
+and step04 the level kernels, the sweep, jacobi, step04 and array the
+body-factored one, 6
 launches a V-cycle at each level above a tail and kernel 1, or kernel 2
 with more than one body, there never in that dtype), and every kernel
 but the coarse
@@ -327,6 +345,52 @@ STEP04_ROWS = {
             0.018659, 0.008379936218261719, 0.008403778076171875,
             11.62508460122992, 1.8467064869351764),
 }
+# run_array_opt --full --robust 8 --pareto 5 (seed 0) against the JAX
+# package's run of the same calls (dev/torch_port_anchors.py --only-array):
+# its lattice; each lane's MG iterations inside the reference's own
+# envelope, its least and largest count over five runs (the conductivities
+# of the basis and of the ensemble as given and moved by +-1 and +-2 f32
+# units in the last place); every count was the same in all five.  The
+# design's numbers within rtol 1e-5 of the anchors, each beside the
+# largest relative move the reference's own four moved runs made in it
+# (all below 1.3e-6); a number those runs moved by more than the
+# tolerance would be printed beside its anchor, not held.  The basis
+# lanes are the 8 loads under the nominal table; the ensemble's 64 lanes
+# are sample-major (8 samples x the 8 loads).
+ARRAY_GRID, ARRAY_K, ARRAY_S, ARRAY_TETS = (71, 71, 24), 8, 8, 676_200
+ARRAY_LANES = ARRAY_S * ARRAY_K
+ARRAY_ARGS = ["--full", "--robust", str(ARRAY_S), "--pareto", "5"]
+ARRAY_BASIS_ITERS = [33, 31, 33, 31, 32, 31, 32, 31]
+ARRAY_BASIS_LO = ARRAY_BASIS_HI = ARRAY_BASIS_ITERS
+ARRAY_ENSEMBLE_ITERS = [
+    33, 31, 33, 31, 32, 31, 32, 31, 34, 32, 34, 33, 33, 33, 33, 33,
+    34, 33, 34, 33, 33, 33, 33, 33, 34, 33, 34, 33, 34, 33, 34, 33,
+    35, 33, 35, 33, 34, 33, 34, 33, 35, 33, 35, 33, 34, 33, 34, 33,
+    33, 31, 33, 31, 32, 31, 32, 31, 34, 33, 34, 33, 33, 33, 33, 33]
+ARRAY_ENSEMBLE_LO = ARRAY_ENSEMBLE_HI = ARRAY_ENSEMBLE_ITERS
+ARRAY_RTOL = 1e-5
+# (anchor, the reference's largest relative move under the ulp moves)
+ARRAY_ANCHORS = {
+    "lead_w_Vpm_per_mA": (
+        [-0.4700062870979309, -0.4734245538711548, -0.4700063467025757,
+         -0.4634644687175751, -0.4706174433231354, -0.4743303954601288,
+         -0.4706174433231354, -0.4634644091129303], 3.86e-07),
+    "roi_E_optimized_Vpm": (1.8899221420288086, 2.52e-07),
+    "roi_E_best_single_Vpm": (0.5681095123291016, 4.20e-07),
+    "jlimit_Apm2": (7.570299911499023, 8.31e-07),
+    "robust.worst_dose_robust_Vpm": (2.40682053565979, 2.97e-07),
+    "robust.worst_dose_nominal_pattern_Vpm": (2.3056616158547194, 7.26e-07),
+    "robust.mean_dose_robust_Vpm": (3.623377561569214, 2.63e-07),
+    "pareto.roi_E_Vpm": (
+        [0.7450340986251831, 1.453331470489502, 1.8899221420288086,
+         1.895509958267212, 1.895509958267212], 1.28e-06),
+}
+# apps/smoke_test --device cuda: the JAX app's checks, in its order
+SMOKE_CHECKS = ["solution produced", "phi finite",
+                "max(phi) > 0 (current mode)", "J finite",
+                "E computable & finite", "flux_err < 5%",
+                "flux_err_consistent < 0.001", "I_active > 0",
+                "ROI mean |J| > 1e-6", "compliance_V finite & positive"]
 # kernel 1 with a lane axis: the two paths' fine-level shapes, timed, S = 1
 # at the megatet grid, timed against the 3-D call, and lane counts over
 # grids that end mid-block
@@ -575,7 +639,11 @@ def phase_parity(dev):
                 kernel, measure.input_copies(args, warm=True))
             turn = itertools.cycle(copies)
             call = measure.cuda_ms(lambda: kernel(*next(turn)))
-            pms = measure.cuda_ms(lambda: twin(*next(turn)))
+            # the coarse CG's plain loop takes ~36 ms a call: 5 timed calls
+            pms = measure.cuda_ms(
+                lambda: twin(*next(turn)),
+                **({"reps": 5, "warmup": 2} if name == "coarse_cg_cuda"
+                   else {}))
             line += (f" kernel {ms:.4f} ms cold, {warm:.4f} ms warm (one "
                      f"call with its wrapper {call:.4f} ms) plain "
                      f"{pms:.4f} ms")
@@ -608,6 +676,9 @@ def phase_parity(dev):
     # above its tail (timed with the Jacobi sweep's (15, 5, SWEEP_GRID))
     batched += [(JACOBI_LANES, 5, grid) for grid in
                 (STEP04_GRID, STEP04_LEVELS[0])]
+    # kernel 2 at the array's lattice, 3 bodies: the right-hand side of
+    # its 8 basis lanes and of its 64-lane ensemble
+    batched += [(ARRAY_K, 3, ARRAY_GRID), (ARRAY_LANES, 3, ARRAY_GRID)]
     lminor = edges + [(JACOBI_LANES, 5, SWEEP_GRID), (25, 5, SWEEP_GRID)]
     timed_lanes = [STEP02_LANES, STEP03_LANES, (1,) + MEGATET_GRID]
     lanes = [(5, 9, 7, 5), (3, 31, 16, 8), (1, 8, 7, 6)] + timed_lanes
@@ -618,7 +689,7 @@ def phase_parity(dev):
             run("stencil_spmv_cuda", dn, shape, shape in timed_lanes)
         for L, B, shape in batched:
             run("batched_stencil_spmv_cuda", dn, (L, B, shape),
-                L in (LANES_PER_CHUNK, JACOBI_LANES))
+                L in (LANES_PER_CHUNK, JACOBI_LANES, ARRAY_K, ARRAY_LANES))
         for L, B, shape in lminor:
             run("batched_stencil_spmv_lminor_cuda", dn, (L, B, shape),
                 L == JACOBI_LANES)
@@ -706,12 +777,19 @@ def tail_hierarchies(dev):
     step02's 8 cases padded into one (8, 67, 29, 8) group with a
     hierarchy a lane (its tables), as the app builds them ("stacks");
     then the body-factored sweeps ("bodies"): the sweep's (89, 41, 19)
-    lattice with its first chunk's 25 tables, and the step04 app's
-    lattice with its 15 contact levels' tables."""
+    lattice with its first chunk's 25 tables, the step04 app's lattice
+    with its 15 contact levels' tables, and the array app's (71, 71, 24)
+    lattice (3 bodies) with its 8 basis lanes' table and its ensemble's
+    64 lanes' tables."""
     import torch
     from pelvistim_fem_tpu_torch.apps import run_step02
     from pelvistim_fem_tpu_torch.device import resolve_device
+    from pelvistim_fem_tpu_torch.mesh import core
     from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
+    from pelvistim_fem_tpu_torch.models.array import (build_array_specs,
+                                                      default_array_params)
+    from pelvistim_fem_tpu_torch.ops.uq import (DEFAULT_GSD,
+                                                sample_sigma_tables)
     from pelvistim_fem_tpu_torch.models.pressure import (
         SWEEP_LANES, SWEEP_LANES_PER_CHUNK, build_pressure_spec,
         sigma_tables_for_sweep, sweep_spec)
@@ -745,6 +823,17 @@ def tail_hierarchies(dev):
     out["sweep"] = (hier, torch.as_tensor(
         tables[:SWEEP_LANES_PER_CHUNK], device=dev), "bodies")
     out["step04-linear"] = (hier04, tables04, "bodies")
+    specs, _, _ = build_array_specs(default_array_params(False))
+    scase, hier = assemble_lattice(specs[0], torch.float64, device=dev)
+    out["array"] = (hier, scase.sigma_table[None].expand(ARRAY_K, -1),
+                    "bodies")
+    samples = sample_sigma_tables(
+        np.asarray(specs[0].sigma_table),
+        {core.BODY_MUSCLE: DEFAULT_GSD["muscle"],
+         core.BODY_FAT: DEFAULT_GSD["fat"],
+         core.BODY_SKIN: DEFAULT_GSD["skin"]}, ARRAY_S, seed=0)
+    out["array-ensemble"] = (hier, torch.as_tensor(
+        samples, device=dev).repeat_interleave(ARRAY_K, dim=0), "bodies")
     return out
 
 
@@ -756,8 +845,10 @@ def phase_tail(dev, results, hiers):
     kernel), and from its first level the kernel
     torch.equal to that route and within check_vcycle_tail of its twin,
     timed (kernel, call, twin, the route as one CUDA graph) into
-    `results` as phase_parity's rows; then a hierarchy that fits whole,
-    f32 and f64.  Returns the levels each path's tail starts from."""
+    `results` as phase_parity's rows (the twin over 5 calls); then a
+    hierarchy that fits whole, f32 and f64.  The array's 64-lane
+    ensemble is left to phase_path_parity.  Returns the levels each
+    path's tail starts from."""
     import torch
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
     from pelvistim_fem_tpu_torch.ops.kernels import measure
@@ -778,6 +869,8 @@ def phase_tail(dev, results, hiers):
 
     starts = {}
     for name, (hier, sig, kind) in hiers.items():
+        if name == "array-ensemble":
+            continue
         for dn in ("float32", "float64"):
             dtype = getattr(torch, dn)
             h, sg = hier.astype(dtype), sig.to(dtype)
@@ -845,7 +938,9 @@ def phase_tail(dev, results, hiers):
             ms = measure.kernel_ms(kernel, copies)
             turn = itertools.cycle(copies)
             call = measure.cuda_ms(lambda: kernel(*next(turn)))
-            pms = measure.cuda_ms(lambda: twin(*next(turn)))
+            # the twin takes 25-45 ms a call: 5 timed calls
+            pms = measure.cuda_ms(lambda: twin(*next(turn)), reps=5,
+                                  warmup=2)
             graph = measure.kernel_ms(route, copies)
             was = "" if kind != "bodies" else (
                 ", the body-factored route it replaces (kernel 2, fixed_cg) "
@@ -882,7 +977,8 @@ def phase_levels(dev, results, hiers, covered):
     and f64, on the level's own stencil and mask, b masked as a V-cycle
     masks it: each of LEVEL_FUNCTIONS within measure.check_close of its
     twin and torch.equal to the card's route (kernel 1 and PyTorch's
-    ops); at the levels above the f32 tail timed cold (inputs rotated
+    ops); at the levels above the f32 tail (the array's hierarchies: at
+    their fine level) timed cold (inputs rotated
     through HBM) and warm (the same inputs every launch, as the path
     finds them in L2; WARM), beside its twin and the route as one CUDA
     graph, into `results` as phase_parity's rows.  Then one V-cycle
@@ -890,7 +986,8 @@ def phase_levels(dev, results, hiers, covered):
     level above the tail and none of kernel 1.  Likewise the
     body-factored level kernel (FACTORED_FUNCTIONS, the route kernel 2
     and PyTorch's ops) at the levels above the tail of the sweep's first
-    chunk and the step04 app's linear lanes, whose V-cycle (the tail's
+    chunk, the step04 app's linear lanes and the array app's basis and
+    ensemble lanes, whose V-cycle (the tail's
     levels combined a lane, as the solve does) launches kernel 2 never."""
     import torch
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
@@ -909,8 +1006,7 @@ def phase_levels(dev, results, hiers, covered):
     routes = {"level_apply_cuda": route_apply, FACTORED: route_factored,
               "restrict_cuda": sk.restrict_plain,
               "prolong_add_cuda": sk.prolong_add_plain}
-    for name in ("step04", "megatet", "step02", "sweep", "step04-linear"):
-        hier, sig, kind = hiers[name]
+    for name, (hier, sig, kind) in hiers.items():
         functions = FACTORED_FUNCTIONS if kind == "bodies" else \
             LEVEL_FUNCTIONS
         for dn in ("float32", "float64"):
@@ -923,7 +1019,8 @@ def phase_levels(dev, results, hiers, covered):
             h, sg = hier.astype(dtype), sig.to(dtype)
             grids = [tuple(lv.free.shape[-3:]) for lv in h.levels]
             t = tmg.tail_start(grids, dtype)
-            timed = tmg.tail_start(grids, torch.float32)
+            timed = 1 if name.startswith("array") else \
+                tmg.tail_start(grids, torch.float32)
             own, planes = [None] * len(grids), None
             if kind == "bodies":    # the tail levels combined, as solved
                 planes, own[t:] = tmg.combined_tail_levels(h, sg, t)
@@ -1212,7 +1309,8 @@ def phase_path_parity(dev, seen, covered, first):
 
 def true_residuals(scase, sig_tables, phi, grid_index):
     """Relative f64 residual ||free * (b - K x)|| / ||b_eff|| of each lane
-    of phi (L, N), recomputed with the plain PyTorch twin."""
+    of phi (L, N), recomputed with the plain PyTorch twin; the load
+    scase.b_neumann is shared, or each lane's where it is (L, X, Y, Z)."""
     import torch
     from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
         batched_stencil_spmv_plain
@@ -1224,14 +1322,15 @@ def true_residuals(scase, sig_tables, phi, grid_index):
     x = torch.zeros((L,) + shape, dtype=torch.float64, device=phi.device)
     x.view(L, -1)[:, grid_index] = phi.to(torch.float64)
     free = scase.free[None]
+    bn = scase.b_neumann if scase.b_neumann.dim() == 4 else \
+        scase.b_neumann[None]
     x = torch.where(free, x, scase.dirichlet[None].to(torch.float64))
-    r = torch.where(free, scase.b_neumann[None] -
-                    batched_stencil_spmv_plain(x, coeff, sig), 0.0)
+    r = torch.where(free, bn - batched_stencil_spmv_plain(x, coeff, sig),
+                    0.0)
     phi_d = torch.where(scase.free, 0.0, scase.dirichlet).to(torch.float64)
     Kd = batched_stencil_spmv_plain(phi_d.expand((L,) + shape).contiguous(),
                                     coeff, sig)
-    b = torch.where(free, scase.b_neumann[None] - Kd,
-                    scase.dirichlet[None])
+    b = torch.where(free, bn - Kd, scase.dirichlet[None])
     red = lambda a: torch.sqrt(torch.sum(a * a, dim=(1, 2, 3)))
     return red(r) / red(b)
 
@@ -1792,6 +1891,96 @@ def phase_step04(dev, gpu, outdir):
     return dict(wall_s=wall, phases=out["phases"], picard=picard)
 
 
+def phase_array(dev, gpu, outdir):
+    """apps/run_array_opt --full --robust 8 --pareto 5 on the card: the
+    app's own checks; 8/8 basis and 64/64 ensemble lanes at a true f64
+    residual <= 1e-8, recomputed with the plain twin; each lane's MG
+    iterations inside the reference's envelope; the design's numbers
+    against the JAX package's anchors (ARRAY_ANCHORS)."""
+    import dataclasses
+    from pelvistim_fem_tpu_torch.apps import run_array_opt
+    out, wall, _ = run_app(run_array_opt, ARRAY_ARGS + [
+        "--device", dev, "--outdir", str(outdir / "array")])
+    s = out["summary"]
+    if not out["ok"] or s["grid"] != list(ARRAY_GRID) or \
+            s["n_tets"] != ARRAY_TETS or s["K"] != ARRAY_K:
+        raise AssertionError(f"array: ok {out['ok']}, grid {s['grid']}, "
+                             f"{s['n_tets']} tets, K {s['K']}")
+    scase, loads, K = out["scase"], out["loads"], ARRAY_K
+    lanes = [("basis", out["basis"], loads,
+              scase.sigma_table[None].expand(K, -1), ARRAY_BASIS_LO,
+              ARRAY_BASIS_HI),
+             ("ensemble", out["ensemble"], loads.repeat(ARRAY_S, 1, 1, 1),
+              out["tables"].repeat_interleave(K, dim=0), ARRAY_ENSEMBLE_LO,
+              ARRAY_ENSEMBLE_HI)]
+    for name, r, lds, tabs, lo, hi in lanes:
+        phi = r.phi.reshape(-1, r.phi.shape[-1])
+        it = r.iterations.reshape(-1).cpu().numpy()
+        res = r.residual.reshape(-1).cpu().numpy()
+        L = len(lo)
+        if phi.shape[0] != L or not bool(r.converged.all()) or \
+                res.max() > TOL or not bool(phi.isfinite().all()):
+            raise AssertionError(f"array {name}: {int(r.converged.sum())}/"
+                                 f"{L} certified, max true residual "
+                                 f"{res.max():.3e}")
+        check = true_residuals(dataclasses.replace(scase, b_neumann=lds),
+                               tabs, phi, scase.grid_index).cpu()
+        if float(check.max()) > TOL * 1.01 or not np.allclose(
+                check.numpy(), res, rtol=1e-3, atol=1e-12):
+            raise AssertionError(f"array {name}: recomputed residuals "
+                                 f"disagree ({float(check.max()):.3e} vs "
+                                 f"{res.max():.3e})")
+        if (it < np.array(lo)).any() or (it > np.array(hi)).any():
+            raise AssertionError(f"array {name}: iterations {it.tolist()} "
+                                 f"outside the reference's envelope {lo} .. "
+                                 f"{hi}")
+        log(f"array {name}: {L}/{L} lanes certified, max true residual "
+            f"{res.max():.3e} (recomputed {float(check.max()):.3e}); MG "
+            f"iterations {it.tolist()}, each inside the reference's "
+            "envelope")
+
+    def value(key):
+        if key.startswith("robust."):
+            return s["robust"][key.split(".")[1]]
+        if key.startswith("pareto."):
+            return [row[key.split(".")[1]] for row in s["pareto"]]
+        return s[key]
+
+    for key, (want, spread) in ARRAY_ANCHORS.items():
+        got = np.asarray(value(key), np.float64)
+        rel = float(np.max(np.abs(got - np.asarray(want))
+                           / np.abs(np.asarray(want))))
+        held = spread <= ARRAY_RTOL
+        if held and not rel <= ARRAY_RTOL:
+            raise AssertionError(f"array: {key} {got.tolist()} against the "
+                                 f"anchor {want}: {rel:.3e} relative")
+        log(f"array: {key} within {rel:.2e} of the anchor (the reference's "
+            f"ulp moves {spread:.2e}; "
+            + ("held to 1e-5)" if held else "printed, not held)"))
+    rob = s["robust"]
+    log(f"array: ok; {ARRAY_K} basis solves {s['basis_wall_s']:.3f} s warm, "
+        f"{ARRAY_LANES}-lane ensemble {rob['ensemble_wall_s']:.3f} s warm, "
+        f"design {s['opt_wall_s']:.3f} s, robust design "
+        f"{rob['opt_wall_s']:.3f} s; app wall {wall:.4f} s on {gpu}")
+    return dict(wall_s=wall, basis_wall_s=s["basis_wall_s"],
+                ensemble_wall_s=rob["ensemble_wall_s"])
+
+
+def phase_smoke(dev, gpu):
+    """apps/smoke_test on the card: every check of the JAX app passes (the
+    app's exit code is 0 iff none fails)."""
+    from pelvistim_fem_tpu_torch.apps import smoke_test
+    out, wall, _ = run_app(smoke_test, ["--device", dev])
+    names = [name for name, _, _ in out["checks"]]
+    if out["failures"] or names != SMOKE_CHECKS:
+        raise AssertionError(f"smoke: checks {out['checks']}")
+    log(f"smoke: {len(names)}/{len(names)} checks pass (" + "; ".join(
+        f"{n} {d}" if d else n for n, _, d in out["checks"]) + "); "
+        f"{out['iterations']} iterations, certified residual "
+        f"{out['residual']:.3e}; app wall {wall:.4f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
 def phase_bioheat_stencil(dev, gpu):
     """On the step04 app's mesh in f64, the Pennes solve on the stencil
     (kernel 1) against the element path: iterations within 3, T within
@@ -1931,7 +2120,7 @@ def main():
     del hiers
     log(f"levels: done in {time.perf_counter() - t0:.1f} s")
 
-    # 4-14. the paths, each counted on its own
+    # 4-16. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
     first = {}
@@ -1996,6 +2185,11 @@ def main():
                                  "vcycle_tail_cuda", "combine_lanes_cuda",
                                  *LEVEL_NAMES, FACTORED],
                       phase_step04, dev, gpu, outdir)
+        array = path("array", ["batched_stencil_spmv_cuda",
+                               "vcycle_tail_cuda", "combine_lanes_cuda",
+                               FACTORED, *LEVEL_NAMES[1:]],
+                     phase_array, dev, gpu, outdir)
+        smoke = path("smoke", ["stencil_spmv_cuda"], phase_smoke, dev, gpu)
     t_apps = time.perf_counter() - t_apps
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
                 phase_bioheat_stencil, dev, gpu)
@@ -2117,7 +2311,8 @@ def main():
         f"{step01['wall_s']:.4f} s, step02 {step02['wall_s']:.4f} s, "
         f"serial check {step02s['wall_s']:.4f} s, step03 --batch "
         f"{step03['wall_s']:.4f} s, step04 --thermal --nonlinear "
-        f"{step04['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s; "
+        f"{step04['wall_s']:.4f} s, array {array['wall_s']:.4f} s, smoke "
+        f"{smoke['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s; "
         f"probes {probes['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Reference anchors of the step01 / step02 / step03-batch / step04 paths,
+"""Reference anchors of the step01 / step02 / step03-batch / step04 / array
+paths,
 computed with the JAX package on the CPU with x64 on (the numbers
 chip_smoke.py holds the PyTorch port's card run against).
 
     python dev/torch_port_anchors.py [--out anchors.json] [--skip-step03]
                                      [--coarse-step03] [--only-step04]
+                                     [--only-array [--array-eps N]]
+                                     [--array-fw-noise N]
 
 Prints one JSON object:
   step01   the five gate values of apps/run_step01 (box, solve_auto)
@@ -35,10 +38,24 @@ Prints one JSON object:
            tables and the tables with every conductivity moved by +-1
            and +-2 f32 units in the last place (2^-23, 2^-22 relative),
            with each of those ten sweeps' total over the lanes
+  array    (--only-array) apps/run_array_opt --full --robust 8 --pareto 5
+           (seed 0), call by call: the basis and ensemble MG iterations
+           and residuals, the lead vectors, the limit, the best single
+           channel, the designs' doses (nominal, pareto, robust); then
+           the same with every conductivity of the basis and of the
+           ensemble moved by +-1 and +-2 f32 units in the last place:
+           each lane's least and largest count over the five runs and
+           each number's largest relative move (~8 min)
+  array_fw_noise  (--array-fw-noise N) the design's doses at 400 steps
+           with every element of the lead vectors and J_skin moved by
+           -1, 0 or +1 f32 unit at random, N draws, on the tiny array
+           of tests/test_leadfield.py (K = 4) and at --full: each dose's
+           largest relative move
 """
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -316,13 +333,239 @@ def step04():
         nonlinear=lanes, wall_s=time.perf_counter() - t_start)
 
 
+ARRAY_EPS = (2.0 ** -23, -2.0 ** -23, 2.0 ** -22, -2.0 ** -22)
+
+
+def array_design(w, J_skin, *, budget=4.0, i_max=2.0, steps=400,
+                 pareto=5):
+    """run_array_opt's design from lead vectors (its jlimit=0 default):
+    j_limit, the best single channel, the Frank-Wolfe objective and the
+    pareto doses."""
+    from pelvistim_fem_tpu.ops.leadfield import optimize_pattern
+    w_np, J_np = np.asarray(w), np.asarray(J_skin)
+    K = len(w_np)
+    amp1 = min(i_max, budget)
+
+    def single_peak(k, amp):
+        J = amp * J_np[k]
+        return float(np.sqrt((J ** 2).sum(axis=1).max()))
+
+    j_limit = float(0.6 * min(single_peak(k, amp1) for k in range(K)))
+    best_single = 0.0
+    for k in range(K):
+        for s in (+1.0, -1.0):
+            e = s * amp1
+            pk = single_peak(k, abs(e))
+            val = float(w_np[k] * e * min(1.0, j_limit / pk))
+            best_single = max(best_single, val)
+    i_opt, info = optimize_pattern(w, J_skin, budget=budget, i_max=i_max,
+                                   j_limit=j_limit, steps=steps)
+    doses = []
+    for jl in np.logspace(np.log10(j_limit / 4), np.log10(4 * j_limit),
+                          pareto):
+        _, inf_p = optimize_pattern(w, J_skin, budget=budget, i_max=i_max,
+                                    j_limit=jl, steps=steps)
+        doses.append(float(inf_p["objective"]))
+    return dict(jlimit_Apm2=j_limit, roi_E_best_single_Vpm=best_single,
+                roi_E_optimized_Vpm=float(info["objective"]),
+                peak_J_skin_Apm2=float(info["peak_J_skin"]),
+                pattern_mA=np.asarray(i_opt).tolist(),
+                pareto_roi_E_Vpm=doses)
+
+
+def array(S=8, seed=0, n_eps=len(ARRAY_EPS)):
+    """apps/run_array_opt --full --robust 8 --pareto 5 (seed 0), its own
+    calls step by step (one solve each, not the app's warm-up and timed
+    pair), then the same with every conductivity of the basis and of the
+    ensemble moved by the f32 units of ARRAY_EPS[:n_eps]: each lane's
+    least and largest MG iteration count over those runs, and each dose's
+    largest relative move."""
+    from pelvistim_fem_tpu.mesh import core
+    from pelvistim_fem_tpu.models.array import (array_recipe,
+                                                build_array_specs,
+                                                default_array_params)
+    from pelvistim_fem_tpu.models.case import build_case
+    from pelvistim_fem_tpu.ops.lattice_assembly import assemble_lattice
+    from pelvistim_fem_tpu.ops.leadfield import (
+        lead_vectors, optimize_pattern_robust, solve_basis_ensemble_refined,
+        solve_basis_refined)
+    from pelvistim_fem_tpu.ops.uq import DEFAULT_GSD, sample_sigma_tables
+    t_start = time.perf_counter()
+    specs, params, meta = build_array_specs(default_array_params(False))
+    scase, hier = assemble_lattice(specs[0], jnp.float64)
+    loads = jnp.asarray(np.stack([s.b_neumann for s in specs]))
+    sigma_by_body = {
+        core.BODY_MUSCLE: params["sigma_Spm"]["muscle"],
+        core.BODY_FAT: params["sigma_Spm"]["fat"],
+        core.BODY_SKIN: params["sigma_Spm"]["skin"],
+    }
+    case = jax.device_put(build_case(
+        array_recipe(params, 0).mesh(), sigma_by_body, mode="current",
+        dtype=jnp.float32, injected_current_A=params["I_unit_A"],
+        to_device=False))
+    gsd = {core.BODY_MUSCLE: DEFAULT_GSD["muscle"],
+           core.BODY_FAT: DEFAULT_GSD["fat"],
+           core.BODY_SKIN: DEFAULT_GSD["skin"]}
+    nominal = np.asarray(specs[0].sigma_table, np.float64)
+    samples = sample_sigma_tables(nominal, gsd, S, seed=seed)
+    lead = dict(roi_center=meta["roi_center"], roi_r=meta["roi_r"],
+                target_dir=meta["target_dir"])
+
+    def run(eps):
+        sig = nominal.copy()
+        sig[1:] *= 1.0 + eps
+        tabs = samples.copy()
+        tabs[:, 1:] *= 1.0 + eps
+        out = solve_basis_refined(
+            dataclasses.replace(scase, sigma_table=jnp.asarray(sig)), hier,
+            loads, tol=1e-8)
+        w, J_skin, vol_roi = lead_vectors(case, out.phi.astype(jnp.float32),
+                                          **lead)
+        res = array_design(w, J_skin)
+        i_np = np.asarray(res["pattern_mA"])
+        ens = solve_basis_ensemble_refined(scase, hier, loads,
+                                           jnp.asarray(tabs), tol=1e-8)
+        w_sk, Jsk = [], []
+        for s in range(S):
+            ws, Js, _ = lead_vectors(
+                case, ens.phi[s].astype(jnp.float32),
+                sigma_table=jnp.asarray(samples[s], jnp.float32), **lead)
+            w_sk.append(ws)
+            Jsk.append(Js)
+        w_sk, Jsk = jnp.stack(w_sk), jnp.stack(Jsk)
+        i_rob, rinfo = optimize_pattern_robust(
+            w_sk, Jsk, budget=4.0, i_max=2.0, j_limit=res["jlimit_Apm2"],
+            steps=400, candidates=jnp.asarray([i_np], w_sk.dtype))
+        J_all = np.einsum("k,skmc->smc", i_np, np.asarray(Jsk))
+        pk_nom = float(np.sqrt((J_all ** 2).sum(axis=2).max()))
+        i_nom = i_np * min(1.0, res["jlimit_Apm2"] / max(pk_nom, 1e-30))
+        res.update(
+            lead_w_Vpm_per_mA=np.asarray(w).tolist(),
+            roi_vol_mm3=float(vol_roi) * 1e9,
+            basis_iterations=np.asarray(out.iterations).tolist(),
+            basis_residual=np.asarray(out.residual).tolist(),
+            basis_converged=bool(np.asarray(out.converged).all()),
+            ensemble_iterations=np.asarray(ens.iterations).reshape(-1)
+            .tolist(),
+            ensemble_residual_max=float(np.asarray(ens.residual).max()),
+            ensemble_converged=bool(np.asarray(ens.converged).all()),
+            worst_dose_robust_Vpm=float(rinfo["objective_worst"]),
+            worst_dose_nominal_pattern_Vpm=float(
+                (np.asarray(w_sk) @ i_nom).min()),
+            mean_dose_robust_Vpm=float(rinfo["objective_mean"]),
+            robust_peak_J_skin_Apm2=float(rinfo["peak_J_skin"]),
+            robust_pattern_mA=np.asarray(i_rob).tolist())
+        print(f"array eps {eps:+.3g} done, "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+        return res
+
+    base = run(0.0)
+    runs = [base] + [run(e) for e in ARRAY_EPS[:n_eps]]
+    its = {k: np.array([r[k] for r in runs])
+           for k in ("basis_iterations", "ensemble_iterations")}
+    spread = {}
+    for k, v in base.items():
+        if k.endswith("iterations") or k.endswith("residual") or \
+                not isinstance(v, (float, list)):
+            continue
+        a = np.asarray(v, np.float64)
+        d = max(float(np.max(np.abs(np.asarray(r[k], np.float64) - a)
+                             / np.maximum(np.abs(a), 1e-300)))
+                for r in runs[1:]) if len(runs) > 1 else 0.0
+        spread[k] = d
+    base.update(
+        grid=list(specs[0].grid_shape), n_tets=int(case.n_tets),
+        K=len(specs), S=S, seed=seed, eps=list(ARRAY_EPS[:n_eps]),
+        basis_envelope=[its["basis_iterations"].min(0).tolist(),
+                        its["basis_iterations"].max(0).tolist()],
+        ensemble_envelope=[its["ensemble_iterations"].min(0).tolist(),
+                           its["ensemble_iterations"].max(0).tolist()],
+        ulp_spread_rel=spread, wall_s=time.perf_counter() - t_start)
+    return base
+
+
+def array_fw_noise(tiny, draws):
+    """How far rounding noise moves run_array_opt's Frank-Wolfe design:
+    the nominal basis, lead vectors and limit of the --full array (or of
+    tests/test_leadfield.py's tiny one with K = 4), then the design and
+    the pareto doses at 400 steps with every element of w and J_skin
+    moved by -1, 0 or +1 f32 unit in the last place at random, `draws`
+    times; returns each dose's largest relative move."""
+    from pelvistim_fem_tpu.mesh import core
+    from pelvistim_fem_tpu.models.array import (array_recipe,
+                                                build_array_specs,
+                                                default_array_params)
+    from pelvistim_fem_tpu.models.case import build_case
+    from pelvistim_fem_tpu.ops.lattice_assembly import assemble_lattice
+    from pelvistim_fem_tpu.ops.leadfield import (lead_vectors,
+                                                 optimize_pattern,
+                                                 solve_basis_refined)
+    if tiny:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]
+                               / "tests"))
+        from test_leadfield import _tiny_params
+        params = _tiny_params()
+    else:
+        params = default_array_params(False)
+    specs, params, meta = build_array_specs(params)
+    scase, hier = assemble_lattice(specs[0], jnp.float64)
+    loads = jnp.asarray(np.stack([s.b_neumann for s in specs]))
+    out = solve_basis_refined(scase, hier, loads, tol=1e-8)
+    case = build_case(array_recipe(params, 0).mesh(), {
+        core.BODY_MUSCLE: params["sigma_Spm"]["muscle"],
+        core.BODY_FAT: params["sigma_Spm"]["fat"],
+        core.BODY_SKIN: params["sigma_Spm"]["skin"]}, mode="current",
+        dtype=jnp.float32, injected_current_A=params["I_unit_A"])
+    w, J, _ = lead_vectors(case, out.phi.astype(jnp.float32),
+                           roi_center=meta["roi_center"], roi_r=meta["roi_r"],
+                           target_dir=meta["target_dir"])
+    w, J = np.asarray(w), np.asarray(J)
+    j_limit = float(0.6 * min(np.sqrt(((2.0 * J[k]) ** 2).sum(1).max())
+                              for k in range(len(w))))
+    limits = [j_limit, *np.logspace(np.log10(j_limit / 4),
+                                    np.log10(4 * j_limit), 5)]
+    rng = np.random.default_rng(0)
+    doses = []
+    for d in range(draws + 1):
+        def noisy(a):
+            if not d:
+                return a
+            u = rng.choice([-1.0, 0.0, 1.0], size=a.shape) * 2.0 ** -23
+            return (a * (1.0 + u)).astype(np.float32)
+        ww, JJ = jnp.asarray(noisy(w)), jnp.asarray(noisy(J))
+        doses.append([float(optimize_pattern(ww, JJ, budget=4.0, i_max=2.0,
+                                             j_limit=x, steps=400)[1]
+                            ["objective"]) for x in limits])
+    doses = np.asarray(doses)
+    spread = np.abs(doses[1:] - doses[0]).max(0) / doses[0]
+    return dict(tiny=tiny, draws=draws, grid=list(specs[0].grid_shape),
+                lead_w=w.tolist(), doses=doses[0].tolist(),
+                spread_rel={"design": float(spread[0]),
+                            "pareto": spread[1:].tolist()})
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-step03", action="store_true")
     ap.add_argument("--coarse-step03", action="store_true")
     ap.add_argument("--only-step04", action="store_true")
+    ap.add_argument("--only-array", action="store_true")
+    ap.add_argument("--array-eps", type=int, default=len(ARRAY_EPS),
+                    help="perturbed runs of the array path (0-4)")
+    ap.add_argument("--array-fw-noise", type=int, default=0, metavar="N",
+                    help="only the design's spread over N noise draws, "
+                         "tiny and full")
     args = ap.parse_args()
+    if args.array_fw_noise:
+        print(json.dumps(dict(array_fw_noise=[
+            array_fw_noise(t, args.array_fw_noise) for t in (True, False)]),
+            indent=1))
+        return
+    if args.only_array:
+        print(json.dumps(dict(array=array(n_eps=args.array_eps)), indent=1))
+        return
     if args.only_step04:
         print(json.dumps(dict(step04=step04()), indent=1))
         return

@@ -36,12 +36,17 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     by level, body-factored levels uncombined, unless a `tail_from` is
     given.
 
-Three solvers: `solve_stencil_mg_refined` (one operator, the megatet
-leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked material
-sweep with body-factored coefficients, the step04 sweep leg) and
+Certified solvers: `solve_stencil_mg_refined` (one operator, the
+megatet leg), `batched_mg_solve_fused_refined[_chunked]` (lane-stacked
+material sweep with body-factored coefficients, the step04 sweep leg; a
+load per lane too, the lead-field basis), `batched_mg_solve_refined` (a
+sweep of sigma tables, each lane with its own load where given: the
+reference's vmapped per-lane solve, run body-factored here) and
 `batched_group_solve_mg_refined` (a geometry batch: per-lane operators,
 BCs and levels, step02).  All refine an f32 MG-CG inner solve against an
 f64 master operator until the TRUE f64 relative residual meets `tol`.
+Their uncertified twins `solve_stencil_mg` and `batched_mg_solve_fused`
+run the same MG-CG once in the case's dtype, to a recursive residual.
 """
 
 from __future__ import annotations
@@ -324,6 +329,32 @@ def make_v_cycle(hier: MGHierarchy, sigma_table, *, nu=2, omega=0.7,
     return apply
 
 
+def solve_stencil_mg(scase: StencilCase, hier: MGHierarchy,
+                     sigma_table=None, *, tol=1e-8, maxiter=2_000, nu=2,
+                     coarse_iters=24) -> SolveResult:
+    """MG-preconditioned CG on the stencil operator in the case's dtype,
+    uncertified: converged is the recursive relative residual meeting
+    `tol` (the returned residual).  phi in mesh node ordering."""
+    if sigma_table is None:
+        sigma_table = scase.sigma_table
+    sigma_table = sigma_table.to(scase.coeff.dtype)
+    _, _, b_eff = _operator(scase, sigma_table)
+    op = _masked_operator(scase, sigma_table)
+    M = make_v_cycle(hier.astype(scase.coeff.dtype), sigma_table, nu=nu,
+                     coarse_iters=coarse_iters)
+    free = scase.free
+
+    def Mp(r):
+        return torch.where(free, M(torch.where(free, r, 0.0)), r)
+
+    res = preconditioned_cg(op, b_eff, Mp,
+                            torch.where(free, 0.0, scase.dirichlet),
+                            tol=tol, maxiter=maxiter)
+    return SolveResult(phi=res.phi.reshape(-1)[scase.grid_index],
+                       iterations=res.iterations, residual=res.residual,
+                       converged=res.converged)
+
+
 def solve_stencil_mg_refined(scase: StencilCase, hier: MGHierarchy,
                              sigma_table=None, *, tol=1e-8,
                              inner_tol=3e-4, maxiter=2_000, nu=2,
@@ -508,7 +539,9 @@ def _fused_bc_pieces(scase, sig):
     The operator comes from scase.coeff, NOT hier.levels[0], so an f64
     master operator stays f64 beside an f32 hierarchy.  A stacked case
     (build_padded_group: a leading lane axis on coeff, free, dirichlet
-    and b_neumann) gives each lane its own operator and BCs."""
+    and b_neumann) gives each lane its own operator and BCs; a load
+    b_neumann (L, X, Y, Z) beside 3-D free and dirichlet gives each lane
+    its own load on the shared operator and BCs (the lead-field basis)."""
     L = sig.shape[0]
     op, _, freeb, raw, *_ = _fused_level_pieces(scase.coeff, scase.free,
                                                 sig)
@@ -521,6 +554,64 @@ def _fused_bc_pieces(scase, sig):
     return op, b_eff, x0, freeb
 
 
+def _fused_mg(scase, hier, sig, *, nu, omega, coarse_iters, tail_from):
+    """(op, M) of the lane-stacked MG-CG in the dtype of `sig` (L, T):
+    op the masked fine-level operator (one level-kernel call), M(r) the
+    projected V-cycle.  The V-cycle levels from tail_from on are one
+    vcycle_tail call (tail_from None: tail_start's level on the card,
+    none on the CPU; len(levels): none); body-factored levels from there
+    get the lanes' own stencils first, once here (combined_tail_levels);
+    the level kernels' arguments above the tail are made here too."""
+    dt = sig.dtype
+    op, _, freeb, *_ = _fused_level_pieces(scase.coeff.to(dt), scase.free,
+                                           sig)
+    hier = hier.astype(dt)
+    levels = hier.levels
+    n = len(levels)
+    if tail_from is None:
+        tail_from = tail_start([tuple(lv.free.shape[-3:]) for lv in levels],
+                               dt) if levels[0].coeff.is_cuda else n
+    planes, own = None, [None] * n
+    if levels[0].coeff.dim() == 5 and tail_from < n:
+        planes, own[tail_from:] = combined_tail_levels(hier, sig, tail_from)
+    pieces = [_fused_level_pieces(lv.coeff, lv.free, sig, C)
+              for lv, C in zip(levels, own)]
+    tail_from, tail = _fused_tail(pieces, hier, tail_from, nu, planes)
+    _make_level_args([p[5] for p in pieces], hier.transfers,
+                     min(tail_from, n - 1), omega)
+
+    def M(r):
+        rm = torch.where(freeb, r, 0.0)
+        z = _fused_cycle(pieces, hier, rm, nu=nu, omega=omega,
+                         coarse_iters=coarse_iters, tail_from=tail_from,
+                         tail=tail)
+        return torch.where(freeb, z, r)
+
+    return op, M
+
+
+def batched_mg_solve_fused(scase: StencilCase, hier: MGHierarchy,
+                           sigma_tables, *, tol=1e-8, maxiter=2_000, nu=2,
+                           omega=0.7, coarse_iters=24,
+                           tail_from=None) -> SolveResult:
+    """batched_mg_solve_fused_refined's uncertified twin: one lane-stacked
+    MG-CG in the case's dtype, lanes frozen on convergence; the returned
+    residual is each lane's true relative residual in that dtype.  The
+    same inputs (a load per lane included); phi (L, N) in mesh node
+    ordering."""
+    sig = sigma_tables.to(scase.coeff.dtype)
+    L = sig.shape[0]
+    _, b_eff, x0, _ = _fused_bc_pieces(scase, sig)
+    op, M = _fused_mg(scase, hier, sig, nu=nu, omega=omega,
+                      coarse_iters=coarse_iters, tail_from=tail_from)
+    x, k = _fused_pcg(op, b_eff, M, x0, tol=tol, maxiter=maxiter)
+    red = lambda a: torch.sqrt(torch.sum(a * a, dim=(1, 2, 3)))
+    bnorm = red(b_eff)
+    rel = red(b_eff - op(x)) / torch.where(bnorm > 0, bnorm, 1.0)
+    return SolveResult(phi=x.reshape(L, -1)[:, scase.grid_index],
+                       iterations=k, residual=rel, converged=rel <= tol)
+
+
 def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
                                    sigma_tables, x_init=None, *, tol=1e-8,
                                    inner_tol=3e-4, maxiter=2_000, nu=2,
@@ -531,46 +622,22 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     MG-CG inner sweeps + f64 fused residual correction, lanes frozen on
     convergence.
 
-    sigma_tables (L, T).  x_init: optional (L, X, Y, Z) f64 warm start
-    (Dirichlet slots must carry their lifted values).  scase/hier may be
-    any float dtype: the f64 master and f32 inner operators are both
-    derived here.  scase and every level of hier may carry a leading lane
-    axis (a geometry batch, batched_group_solve_mg_refined).  The V-cycle
-    levels from tail_from on are one vcycle_tail call (tail_from None:
-    tail_start's level on the card, none on the CPU; len(levels): none);
-    body-factored levels from there get the lanes' own stencils first,
-    once here (combined_tail_levels).  phi is returned (L, N) in mesh
-    node ordering."""
-    sc64, sc32 = scase.astype(torch.float64), scase.astype(torch.float32)
-    hier32 = hier.astype(torch.float32)
+    sigma_tables (L, T).  scase.b_neumann may be (L, X, Y, Z), a load per
+    lane on the shared operator (the lead-field basis).  x_init: optional
+    (L, X, Y, Z) f64 warm start (Dirichlet slots must carry their lifted
+    values).  scase/hier may be any float dtype: the f64 master and f32
+    inner operators are both derived here.  scase and every level of
+    hier may carry a leading lane axis (a geometry batch,
+    batched_group_solve_mg_refined).  The V-cycle's tail as _fused_mg.
+    phi is returned (L, N) in mesh node ordering."""
+    sc64 = scase.astype(torch.float64)
     sig64 = sigma_tables.to(torch.float64)
-    sig32 = sigma_tables.to(torch.float32)
     L = sigma_tables.shape[0]
 
-    op64, b64, x0, freeb = _fused_bc_pieces(sc64, sig64)
-    op32 = _fused_level_pieces(sc32.coeff, sc32.free, sig32)[0]
-    levels = hier32.levels
-    n = len(levels)
-    if tail_from is None:
-        tail_from = tail_start([tuple(lv.free.shape[-3:]) for lv in levels],
-                               torch.float32) \
-            if levels[0].coeff.is_cuda else n
-    planes, own = None, [None] * n
-    if levels[0].coeff.dim() == 5 and tail_from < n:
-        planes, own[tail_from:] = combined_tail_levels(hier32, sig32,
-                                                       tail_from)
-    pieces = [_fused_level_pieces(lv.coeff, lv.free, sig32, C)
-              for lv, C in zip(levels, own)]
-    tail_from, tail = _fused_tail(pieces, hier32, tail_from, nu, planes)
-    _make_level_args([p[5] for p in pieces], hier32.transfers,
-                     min(tail_from, n - 1), omega)
-
-    def M32(r):
-        rm = torch.where(freeb, r, 0.0)
-        z = _fused_cycle(pieces, hier32, rm, nu=nu, omega=omega,
-                         coarse_iters=coarse_iters, tail_from=tail_from,
-                         tail=tail)
-        return torch.where(freeb, z, r)
+    op64, b64, x0, _ = _fused_bc_pieces(sc64, sig64)
+    op32, M32 = _fused_mg(scase, hier, sigma_tables.to(torch.float32),
+                          nu=nu, omega=omega, coarse_iters=coarse_iters,
+                          tail_from=tail_from)
 
     def inner(r32, tol_k):
         return _fused_pcg(op32, r32, M32, torch.zeros_like(r32), tol=tol_k,
@@ -583,6 +650,22 @@ def batched_mg_solve_fused_refined(scase: StencilCase, hier: MGHierarchy,
     phi_nodes = x.reshape(L, -1)[:, scase.grid_index]
     return SolveResult(phi=phi_nodes, iterations=total_it, residual=rel,
                        converged=rel <= tol)
+
+
+def batched_mg_solve_refined(scase: StencilCase, hier: MGHierarchy,
+                             sigma_tables, *, tol=1e-8, inner_tol=3e-4,
+                             maxiter=2_000, nu=2, coarse_iters=24,
+                             max_refinements=8) -> SolveResult:
+    """Sweep of sigma tables (L, T) at TRUE f64-certified `tol`, each lane
+    with the load scase.b_neumann, or its own where that is (L, X, Y, Z).
+    The reference vmaps solve_stencil_mg_refined with each lane's combined
+    stencil; here the lanes run as one body-factored lane-stacked solve
+    (batched_mg_solve_fused_refined), which reads the bodies' coefficients
+    once for all lanes.  phi (L, N) in mesh node ordering."""
+    return batched_mg_solve_fused_refined(
+        scase, hier, sigma_tables, tol=tol, inner_tol=inner_tol,
+        maxiter=maxiter, nu=nu, coarse_iters=coarse_iters,
+        max_refinements=max_refinements)
 
 
 def batched_group_solve_mg_refined(stacked: StencilCase,
@@ -606,21 +689,29 @@ def batched_mg_solve_fused_refined_chunked(scase: StencilCase,
     """batched_mg_solve_fused_refined in lane chunks: memory stays
     O(lanes_per_chunk * G).  Every chunk has the same width (the last is
     padded with repeats of its last lane, then trimmed), so every chunk
-    runs the same kernel shapes.  Results are concatenated in lane
-    order."""
+    runs the same kernel shapes.  A load per lane (scase.b_neumann (L, X,
+    Y, Z)) is chunked and padded with the tables.  Results are
+    concatenated in lane order."""
     L = sigma_tables.shape[0]
     c = min(lanes_per_chunk, L)
+    loads = scase.b_neumann if scase.coeff.dim() == 5 and \
+        scase.b_neumann.dim() == 4 else None
+
+    def chunk_of(a, i):
+        a = a[i:i + c]
+        pad = c - a.shape[0]
+        return torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]) \
+            if pad else a
+
     outs = []
     for i in range(0, L, c):
-        chunk = sigma_tables[i:i + c]
-        xi = None if x_init is None else x_init[i:i + c]
-        pad = c - chunk.shape[0]
-        if pad:
-            chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1)])
-            if xi is not None:
-                xi = torch.cat(
-                    [xi, xi[-1:].expand((pad,) + tuple(xi.shape[1:]))])
-        r = batched_mg_solve_fused_refined(scase, hier, chunk, xi, **kw)
+        pad = c - min(c, L - i)
+        sc = scase if loads is None else dataclasses.replace(
+            scase, b_neumann=chunk_of(loads, i))
+        xi = None if x_init is None else chunk_of(x_init, i)
+        r = batched_mg_solve_fused_refined(sc, hier,
+                                           chunk_of(sigma_tables, i), xi,
+                                           **kw)
         if pad:
             r = SolveResult(*(getattr(r, f.name)[:c - pad]
                               for f in dataclasses.fields(r)))

@@ -15,14 +15,18 @@ one step03 --batch radius group's certified solve (r = 15 mm, 3 lanes,
 lattice: the thermal chain (16 f32 Pennes lanes, then 45 implicit-Euler
 steps of the driest level) and three Picard passes of the driest
 level's sigma_skin(|E|) fixed point (the app's law) with its final
-certified solve.  Their cases are built before, off the profile.  For
-each it
+certified solve; and the electrode-array design (run_array_opt --full):
+the 8 certified lead-field basis solves on (71, 71, 24), then the lead
+vectors and one 400-step Frank-Wolfe design, then the 64-lane
+conductivity ensemble (8 samples x 8 loads).  Their cases are built
+before, off the profile.  For each it
 prints the wall time, the summed device time of all kernels, their
 ratio (the device busy share; the rest is host time between launches),
 the number of kernel launches, and the kernels that take the most
-device time; for the megatet, step02's batch and the step04 nonlinear
-chain also the launches per MG-CG iteration (step02: over its longest
-lane's iterations, which the lanes' loop runs).
+device time; for the megatet, step02's batch, the step04 nonlinear
+chain and the array's two solves also the launches per MG-CG iteration
+(lane-stacked solves: over the longest lane's iterations, which the
+lanes' loop runs).
 """
 
 from __future__ import annotations
@@ -178,6 +182,7 @@ def main():
           f"{float(out['step03'].residual.max()):.3e}")
 
     _profile_step04(dev)
+    _profile_array(dev)
     return 0
 
 
@@ -225,6 +230,70 @@ def _profile_step04(dev):
     print(f"  inner iterations {int(out['nl'].inner_iters)} residual "
           f"{float(out['nl'].residual):.3e}")
     _per_iteration(n, int(out["nl"].inner_iters))
+
+
+def _profile_array(dev):
+    """run_array_opt --full's solves and design: the basis, the lead
+    vectors with one Frank-Wolfe design (the app's default limit, made
+    on the device), and the 64-lane ensemble of its --robust 8."""
+    import numpy as np
+    from pelvistim_fem_tpu_torch.mesh import core
+    from pelvistim_fem_tpu_torch.models.array import (array_recipe,
+                                                      build_array_specs,
+                                                      default_array_params)
+    from pelvistim_fem_tpu_torch.models.case import build_case
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
+    from pelvistim_fem_tpu_torch.ops.leadfield import (
+        lead_vectors, optimize_pattern, solve_basis_ensemble_refined,
+        solve_basis_refined)
+    from pelvistim_fem_tpu_torch.ops.uq import (DEFAULT_GSD,
+                                                sample_sigma_tables)
+    specs, params, meta = build_array_specs(default_array_params(False))
+    scase, hier = assemble_lattice(specs[0], torch.float64, device=dev)
+    loads = torch.as_tensor(np.stack([s.b_neumann for s in specs]),
+                            device=dev)
+    sig = {core.BODY_MUSCLE: params["sigma_Spm"]["muscle"],
+           core.BODY_FAT: params["sigma_Spm"]["fat"],
+           core.BODY_SKIN: params["sigma_Spm"]["skin"]}
+    case = build_case(array_recipe(params, 0).mesh(), sig, mode="current",
+                      dtype=torch.float32,
+                      injected_current_A=params["I_unit_A"], device=dev)
+    gsd = {core.BODY_MUSCLE: DEFAULT_GSD["muscle"],
+           core.BODY_FAT: DEFAULT_GSD["fat"],
+           core.BODY_SKIN: DEFAULT_GSD["skin"]}
+    tabs = torch.as_tensor(sample_sigma_tables(
+        np.asarray(specs[0].sigma_table), gsd, 8, seed=0), device=dev)
+    out = {}
+
+    def basis():
+        out["basis"] = solve_basis_refined(scase, hier, loads, tol=1e-8)
+
+    n = _profile("array_basis", basis)[2]
+    print(f"  iterations {out['basis'].iterations.tolist()} residual max "
+          f"{float(out['basis'].residual.max()):.3e}")
+    _per_iteration(n, int(out["basis"].iterations.max()))
+
+    def design():
+        w, J, _ = lead_vectors(case, out["basis"].phi.to(torch.float32),
+                               roi_center=meta["roi_center"],
+                               roi_r=meta["roi_r"],
+                               target_dir=meta["target_dir"])
+        j_limit = 0.6 * torch.amin(torch.sqrt(torch.amax(torch.sum(
+            (2.0 * J) ** 2, dim=-1), dim=-1)))
+        out["design"] = optimize_pattern(w, J, budget=4.0, i_max=2.0,
+                                         j_limit=j_limit, steps=400)
+
+    _profile("array_leads_design", design)
+    print(f"  objective {float(out['design'][1]['objective']):.6f} V/m")
+
+    def ensemble():
+        out["ens"] = solve_basis_ensemble_refined(scase, hier, loads, tabs,
+                                                  tol=1e-8)
+
+    n = _profile("array_ensemble_64", ensemble)[2]
+    print(f"  iterations max {int(out['ens'].iterations.max())} residual "
+          f"max {float(out['ens'].residual.max()):.3e}")
+    _per_iteration(n, int(out["ens"].iterations.max()))
 
 
 if __name__ == "__main__":

@@ -59,7 +59,7 @@ def solve_auto(case, mesh=None, *, tol=1e-8, maxiter=30_000, timer=None):
             f"solve_auto: a mesh without lattice provenance and "
             f"{case.n_nodes} nodes (>= {ELEMENT_JACOBI_MAX_NODES}) needs "
             "the AMG-preconditioned element solve (ops/amg.py), not ported "
-            "yet (ROADMAP queue 1 item 8)")
+            "yet (ROADMAP queue 1 item 5)")
     else:
         res = solve_case_refined(case, tol=tol, inner_tol=1e-6,
                                  maxiter=maxiter)

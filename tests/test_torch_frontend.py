@@ -154,6 +154,11 @@ import pelvistim_fem_tpu_torch.interop
 import pelvistim_fem_tpu_torch.ops.multigrid
 import pelvistim_fem_tpu_torch.roofline_probe
 import pelvistim_fem_tpu_torch.spmv_kernels_ab
+import pelvistim_fem_tpu_torch.apps.run_array_opt
+import pelvistim_fem_tpu_torch.apps.smoke_test
+import pelvistim_fem_tpu_torch.models.array
+import pelvistim_fem_tpu_torch.ops.leadfield
+import pelvistim_fem_tpu_torch.ops.uq
 spec, _ = build_pressure_spec(coarse=True)
 r = solve_lattice_mg_refined(spec, tol=1e-8, device="cpu")
 assert bool(r.converged) and float(r.residual) <= 1e-8, r
