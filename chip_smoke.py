@@ -15,7 +15,9 @@ through its paths at the benchmark's full sizes, and imports no JAX:
   3. parity     each CUDA kernel against its plain PyTorch twin, f32 and
                 f64 (the bf16-coefficient kernel: f32 x), at small shapes,
                 at the batched kernels' edges (grids that end mid-tile,
-                lane counts that fill no lane group, 1 and 8 bodies), at
+                lane counts that fill no lane group, 1 and 8 bodies), the
+                restriction's and "prolong_sweep"'s tiles cut by the
+                grid's end (torch.equal to the route too), at
                 the probes' edges (X = 1, grids that end mid-block, 3
                 lanes) and at the paths' shapes; the two probes at kernel
                 1's four timed shapes, with kernel 1's time minus the
@@ -54,8 +56,9 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 hierarchy that fits whole, f32 and f64; timed as the
                 kernels are, beside its twin and the level route it
                 replaces as one CUDA graph
-  3c. levels    the level kernels (level_apply in its four modes,
-                restrict, prolong_add) at every level above the tail of
+  3c. levels    the level kernels (level_apply in its four modes and
+                "prolong_sweep", restrict, prolong_add) at every level
+                above the tail of
                 the step04 app's, the megatet's and step02's hierarchies,
                 and the body-factored level kernel (level_apply_factored
                 in its four modes, with restrict and prolong_add on the
@@ -69,7 +72,7 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 (the same inputs every launch, as
                 the path finds them in L2) beside the twin and the route
                 as one CUDA graph; one V-cycle through them torch.equal to
-                the route, 6 launches a level
+                the route, 5 launches a level (6 a body-factored one)
   4. sweep      step04 contact sweep: rim-banded (89, 41, 19) lattice,
                 100 log-spaced contact conductivities, certified to a
                 1e-8 true f64 residual in chunks of 25 lanes; then the
@@ -412,10 +415,24 @@ COARSE_TIMED = [(5, 3, 3), (5, 4, 3), (8, 10, 5, 2), (16, 11, 11)]
 # counts, on grids of 105 points (no 16-byte loads) and of 120
 PROBE_ROW_P = [1, 2, 5, 27]
 PROBE_ROW_GRIDS = [(3, 5, 7), (4, 6, 5)]
+# the level kernels' tiles cut by the grid's end: restrict_cuda (mask
+# lanes, fine grid) on odd grids (rows of K = 5 entries) and even ones,
+# whose coarse grids end mid-tile, and level_apply_cuda "prolong_sweep"
+# (mode, mask lanes, grid), Z past one tile of 32
+TRANSFER_EDGES = [("restrict_cuda", (1, (9, 13, 37))),
+                  ("restrict_cuda", (1, (10, 8, 34))),
+                  ("restrict_cuda", (3, (3, 9, 13, 37))),
+                  ("restrict_cuda", (1, (3, 10, 8, 34))),
+                  ("level_apply_cuda", ("prolong_sweep", 1, (9, 13, 37))),
+                  ("level_apply_cuda", ("prolong_sweep", 1, (3, 10, 8, 34))),
+                  ("level_apply_cuda", ("prolong_sweep", 3, (3, 9, 13, 37)))]
 
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
 MULTIGRID = "pelvistim_fem_tpu/ops/multigrid.py"
+# level_apply's mode "prolong_sweep" (its own kernel) keeps its rows and
+# its kernels-line entry under this name
+PROLONG_SWEEP = "level_apply_cuda:prolong_sweep"
 REPLACES = {
     "stencil_spmv_cuda": f"{PALLAS}:326, {PALLAS}:75",
     "batched_stencil_spmv_cuda": f"{PALLAS}:410, {PALLAS}:202",
@@ -428,6 +445,7 @@ REPLACES = {
     "level_apply_cuda": f"{PALLAS}:326, {MULTIGRID}:425",
     "restrict_cuda": f"{MULTIGRID}:425",
     "prolong_add_cuda": f"{MULTIGRID}:425",
+    PROLONG_SWEEP: f"{PALLAS}:326, {MULTIGRID}:425",
     "level_apply_factored_cuda": f"{PALLAS}:410, {MULTIGRID}:797",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
@@ -461,6 +479,11 @@ LIBRARY_NOTE = {
                          "(F.interpolate takes uniform knots); "
                          "plain_graph_ms is the route it replaces as one "
                          "CUDA graph"),
+    PROLONG_SWEEP: ("no one PyTorch call prolongs on a graded lattice and "
+                    "runs a variable-coefficient 27-point stencil with a "
+                    "Jacobi sweep; plain_graph_ms is the route it "
+                    "replaces (prolong_add's ops, kernel 1 and PyTorch's "
+                    "ops) as one CUDA graph replay"),
     "level_apply_factored_cuda": (
         "no one PyTorch call runs a body-factored variable-coefficient "
         "27-point stencil with a Jacobi sweep; plain_graph_ms is the route "
@@ -470,15 +493,15 @@ LIBRARY_NOTE = {
 # the level kernels: each function held and timed at the levels above the
 # tail of the step04 app's, the megatet's and step02's hierarchies (the
 # first three kernels-line entries' main rows at step04's fine level)
-LEVEL_FUNCTIONS = [("level_apply_cuda", m) for m in
-                   ("sweep", "sweep0", "residual", "masked")] + \
-    [("restrict_cuda", None), ("prolong_add_cuda", None)]
+MODES = ("sweep", "sweep0", "residual", "masked")
+TRANSFERS = [("restrict_cuda", None), ("prolong_add_cuda", None)]
+LEVEL_FUNCTIONS = [("level_apply_cuda", m) for m in MODES] + \
+    [("level_apply_cuda", "prolong_sweep")] + TRANSFERS
 # the body-factored level kernel likewise, at the levels above the tail of
 # the sweep's first chunk and of the step04 app's linear lanes (its main
 # row: a sweep at the sweep's fine level, 25 lanes)
 FACTORED = "level_apply_factored_cuda"
-FACTORED_FUNCTIONS = [(FACTORED, m) for _, m in LEVEL_FUNCTIONS[:4]] + \
-    LEVEL_FUNCTIONS[4:]
+FACTORED_FUNCTIONS = [(FACTORED, m) for m in MODES] + TRANSFERS
 # device ms of the timed kernels with every launch on the same inputs
 # (L2 keeps what fits), by (kernel, dtype, shape)
 WARM = {}
@@ -606,6 +629,18 @@ def phase_parity(dev):
 
     level04 = step04_level(dev)
 
+    def transfer_edge(dn, name, shape):
+        """A level kernel at a tile edge: within tolerance of its twin
+        (run) and torch.equal to the card's route."""
+        args = measure.kernel_inputs(name, shape, getattr(torch, dn), dev,
+                                     rng)
+        run(name, dn, shape, False, args=args)
+        route = sk.restrict_plain(*args) if name == "restrict_cuda" else \
+            sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
+        if not torch.equal(getattr(sk, name)(*args), route):
+            raise AssertionError(f"{name} {shape} {dn}: not the route")
+        log(f"parity {name} {dn} {shape}: torch.equal to the route")
+
     def run(name, dn, shape, timed, library=None, args=None):
         """Hold kernel `name` against its twin at `shape` (on `args`, else
         random inputs); if `timed`, time kernel, call and twin (and
@@ -723,6 +758,8 @@ def phase_parity(dev):
                 args=args)
             if len(grids) == 1:
                 combine_identity(dn, shape, args)
+        for name, shape in TRANSFER_EDGES:
+            transfer_edge(dn, name, shape)
     for dn in ("float32", "float64"):
         for grid in PROBE_TIMED:
             k1 = results[("stencil_spmv_cuda", dn, grid)][1]
@@ -981,14 +1018,17 @@ def phase_levels(dev, results, hiers, covered):
     their fine level) timed cold (inputs rotated
     through HBM) and warm (the same inputs every launch, as the path
     finds them in L2; WARM), beside its twin and the route as one CUDA
-    graph, into `results` as phase_parity's rows.  Then one V-cycle
-    through them torch.equal to the route (route=True), with 6 launches a
-    level above the tail and none of kernel 1.  Likewise the
+    graph, into `results` as phase_parity's rows ("prolong_sweep" as
+    PROLONG_SWEEP's).  Then one V-cycle through them torch.equal to the
+    route (route=True), with 5 launches a level above the tail ("sweep0",
+    the residual, the restriction, "prolong_sweep", "sweep") and none of
+    kernel 1 or prolong_add.  Likewise the
     body-factored level kernel (FACTORED_FUNCTIONS, the route kernel 2
     and PyTorch's ops) at the levels above the tail of the sweep's first
     chunk, the step04 app's linear lanes and the array app's basis and
     ensemble lanes, whose V-cycle (the tail's
-    levels combined a lane, as the solve does) launches kernel 2 never."""
+    levels combined a lane, as the solve does) launches kernel 2 never
+    and takes 6 launches a level (prolong_add its own)."""
     import torch
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
     from pelvistim_fem_tpu_torch.ops.kernels import measure
@@ -1041,7 +1081,9 @@ def phase_levels(dev, results, hiers, covered):
                 b = torch.where(lv.free, rand(grid), 0.0)
                 xc = rand(lead + grids[l + 1])
                 for kname, mode in functions:
-                    if mode is not None:
+                    if mode == "prolong_sweep":
+                        args = (x, b, lv, mode, 0.7, xc, tt)
+                    elif mode is not None:
                         args = (None if mode == "sweep0" else x,
                                 None if mode == "masked" else b, lv, mode,
                                 0.7)
@@ -1078,9 +1120,11 @@ def phase_levels(dev, results, hiers, covered):
                                else {}))
                         graph = measure.kernel_ms(routes[kname], copies)
                         row = (err, ms, pms, shape, call, None, graph)
-                        results.setdefault((kname, dn), row)
-                        results[(kname, dn, shape)] = row
-                        WARM[(kname, dn, shape)] = warm
+                        rkey = PROLONG_SWEEP if mode == "prolong_sweep" \
+                            else kname
+                        results.setdefault((rkey, dn), row)
+                        results[(rkey, dn, shape)] = row
+                        WARM[(rkey, dn, shape)] = warm
                         line += (f"; kernel {ms:.4f} ms cold, {warm:.4f} ms "
                                  f"warm (one call with its wrapper "
                                  f"{call:.4f} ms) plain {pms:.4f} ms, the "
@@ -1114,16 +1158,18 @@ def phase_levels(dev, results, hiers, covered):
                 raise AssertionError(f"levels {name} {dn}: the V-cycle "
                                      "through the level kernels is not "
                                      "the route's")
+            per = 6 if kind == "bodies" else 5
             if counts != {apply: 4 * t, "restrict_cuda": t,
-                          "prolong_add_cuda": t, "stencil_spmv_cuda": 0,
+                          "prolong_add_cuda": t if per == 6 else 0,
+                          "stencil_spmv_cuda": 0,
                           "batched_stencil_spmv_cuda": 0,
                           "vcycle_tail_cuda": 1}:
                 raise AssertionError(f"levels {name} {dn}: launches of one "
                                      f"V-cycle {counts}, {t} levels above "
                                      "the tail")
             log(f"levels {name} {dn}: one V-cycle through the level kernels "
-                f"({t} levels above the tail, 6 launches each: {counts}) "
-                "torch.equal to the route")
+                f"({t} levels above the tail, {per} launches each: "
+                f"{counts}) torch.equal to the route")
 
 
 def signature(name, args):
@@ -1189,12 +1235,14 @@ def level_shape(name, shapes):
 
 def check_level_launches(seen):
     """Every level above a tail that runs the level kernels (Counter
-    `seen` of one path's launch signatures) took 6 launches a V-cycle (nu
-    = 2): "sweep0", the residual, the restriction and the prolongation
-    once, "sweep" twice, of level_apply or, for body-factored lanes,
-    level_apply_factored; and kernel 1, or kernel 2 with more than one
-    body, in that dtype at that grid never (in f64 at a fine grid they are
-    the CG's master apply and the right-hand side's)."""
+    `seen` of one path's launch signatures) took 5 launches a V-cycle (nu
+    = 2) of level_apply: "sweep0", the residual, the restriction,
+    "prolong_sweep" and "sweep" once, prolong_add never; or, for
+    body-factored lanes, 6 of level_apply_factored: "sweep0", the
+    residual, the restriction and the prolongation once, "sweep" twice;
+    and kernel 1, or kernel 2 with more than one body, in that dtype at
+    that grid never (in f64 at a fine grid they are the CG's master
+    apply and the right-hand side's)."""
     per_level = collections.defaultdict(collections.Counter)
     for (name, dn, shapes), n in seen.items():
         if name in LEVEL_KERNELS:
@@ -1206,21 +1254,26 @@ def check_level_launches(seen):
         V = c[(apply, "sweep0")]
         if not V:
             continue                   # only the CG's masked operator
+        own = apply == "level_apply_cuda"
         want = {(apply, "sweep0"): V, (apply, "residual"): V,
-                (apply, "sweep"): 2 * V,
-                ("restrict_cuda", None): V, ("prolong_add_cuda", None): V}
+                (apply, "sweep"): V if own else 2 * V,
+                (apply, "prolong_sweep"): V if own else 0,
+                ("restrict_cuda", None): V,
+                ("prolong_add_cuda", None): 0 if own else V}
         got = {k: c[k] for k in want}
         k1 = seen_count(seen, "stencil_spmv_cuda", dn, grid)
         k2 = sum(n for (k, d, shapes), n in seen.items()
                  if k == "batched_stencil_spmv_cuda" and d == dn and
                  shapes[0] == grid and shapes[1][0] > 1)
         if got != want or k1 or k2:
-            raise AssertionError(f"level {dn} {grid}: launches {got}, not 6 "
-                                 f"a V-cycle {want}; stencil_spmv_cuda "
+            raise AssertionError(f"level {dn} {grid}: launches {got}, not "
+                                 f"{5 if own else 6} a V-cycle {want}; "
+                                 "stencil_spmv_cuda "
                                  f"{k1} times, batched_stencil_spmv_cuda "
                                  f"{k2} times")
-        log(f"levels: {dn} {grid}: {V} V-cycles x 6 launches of {apply}, "
-            f"restrict_cuda and prolong_add_cuda, "
+        log(f"levels: {dn} {grid}: {V} V-cycles x {5 if own else 6} "
+            f"launches of {apply}, restrict_cuda"
+            f"{'' if own else ' and prolong_add_cuda'}, "
             f"{c[(apply, 'masked')]} masked applies (the CG's operator), "
             "stencil_spmv_cuda and batched_stencil_spmv_cuda 0 times")
 
@@ -2160,7 +2213,7 @@ def main():
                                     "combine_lanes_cuda", FACTORED,
                                     *LEVEL_NAMES[1:]], sweep_leg)
     mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda",
-                            *LEVEL_NAMES], phase_megatet, dev, gpu)
+                            *LEVEL_NAMES[:2]], phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda", "vcycle_tail_cuda",
                              "combine_lanes_cuda", FACTORED],
@@ -2174,7 +2227,7 @@ def main():
                       gpu, outdir)
         step02 = path("step02", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda", *LEVEL_NAMES],
+                                 "vcycle_tail_cuda", *LEVEL_NAMES[:2]],
                       phase_step02, dev, gpu, outdir, lanes=True)
         step02s = path("step02-serial", ["stencil_spmv_cuda"],
                        phase_step02_serial, dev, gpu, step02)
@@ -2200,8 +2253,12 @@ def main():
     phase_path_parity(dev, seen, covered, first)
     log(f"launches: {launches}")
     by_shape = {name: {} for name in launches}
+    by_shape[PROLONG_SWEEP] = {}
     for (name, dn, shapes), n in seen.most_common():
         by_shape[name][shape_key(name, dn, shapes)] = n
+        if name == "level_apply_cuda" and shapes[3] == "prolong_sweep":
+            by_shape[PROLONG_SWEEP][shape_key(name, dn, shapes)] = n
+    launches[PROLONG_SWEEP] = sum(by_shape[PROLONG_SWEEP].values())
     for name, n in launches.items():
         if n <= 0 and name != "coarse_cg_cuda":
             raise AssertionError(f"{name} never launched on the paths")
@@ -2250,11 +2307,13 @@ def main():
                           ("vcycle_tail_cuda", "float32", "float64"),
                           ("combine_lanes_cuda", "float32", "float64"),
                           ("level_apply_cuda", "float32", "float64"),
+                          (PROLONG_SWEEP, "float32", "float64"),
                           ("restrict_cuda", "float32", "float64"),
                           ("prolong_add_cuda", "float32", "float64"),
                           (FACTORED, "float32", "float64")):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
-        b_ms, b_by = measure.bound(name, shape, dn)
+        kname = name.split(":")[0]
+        b_ms, b_by = measure.bound(kname, shape, dn)
         entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=launches[name], launches_by_shape=by_shape[name],
@@ -2271,7 +2330,7 @@ def main():
             entry["other_dtype"] = dict(
                 dtype=alt, shape=str(a_shape), max_abs_err=a_err, ms=a_ms,
                 plain_ms=a_pms, call_ms=a_call,
-                bound_ms=measure.bound(name, a_shape, alt)[0],
+                bound_ms=measure.bound(kname, a_shape, alt)[0],
                 plain_graph_ms=a_graph,
                 warm_ms=WARM.get((name, alt, a_shape)))
         warm = entry["warm_ms"]
@@ -2286,7 +2345,7 @@ def main():
             if k != name or len(key) != 2 or o_shape == shape:
                 continue
             o_dn = key[0]
-            ob_ms, ob_by = measure.bound(name, o_shape, o_dn)
+            ob_ms, ob_by = measure.bound(kname, o_shape, o_dn)
             o_warm = WARM.get((name, o_dn, o_shape))
             other_rows.append(dict(
                 dtype=o_dn, shape=str(o_shape), max_abs_err=o_err, ms=o_ms,

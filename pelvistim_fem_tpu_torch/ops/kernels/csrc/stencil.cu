@@ -36,7 +36,9 @@
 //                              residual or the mask around it
 //   restrict, prolong_add   <- the transfers' per-axis gathers (the levels
 //                              that cycle_impl, multigrid.py:425-460, runs
-//                              as XLA fusions below FLAT_MIN_NODES)
+//                              as XLA fusions below FLAT_MIN_NODES); the
+//                              prolongation also folded into the first
+//                              post-sweep (level_apply "prolong_sweep")
 // and kernel 2's work at the body-factored levels above the tail:
 //   level_apply_factored    <- kernel 2 with the damped-Jacobi sweep, the
 //                              residual or the mask around it (the levels
@@ -54,7 +56,8 @@
 //   sum G_l), transfer tables                    [vcycle_tail]
 //   coeff (B, N), sig (L, B) -> C (L, N)         [combine_lanes]
 //   x, b, wd (S, X, Y, Z), C (S, 27, X, Y, Z), neighbour words (S or 1,
-//   X, Y, Z)                                     [level_apply]
+//   X, Y, Z); "prolong_sweep" also xc (S, G_c) and one transfer's tables
+//                                                [level_apply]
 //   x, b, wd (L, X, Y, Z), coeff (B, 27, X, Y, Z), sig (L, B), neighbour
 //   words (X, Y, Z)                              [level_apply_factored]
 //   r (S, G_f) -> rc (S, G_c), free (S or 1, G_c); x (S, G_f), xc (S, G_c);
@@ -912,6 +915,24 @@ __device__ __forceinline__ void ijk(int p, int n1, int n2, int* i, int* j,
   *i = q / n1;
 }
 
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^20 by a multiply-high and a
+// shift, three instructions instead of a division's ~20.  The magic
+// number m = floor(2^(32 + s) / d) - 2^32 + 1, s = ceil(log2 d), comes
+// from one double division, whose floor is exact here: the quotient's
+// fraction is 0 or at most 1 - 1 / d, far from the next integer for d <
+// 2^20 (no 64-bit integer division, a long software routine).
+struct FastDiv {
+  unsigned m, s;
+  __device__ explicit FastDiv(int d) {
+    s = 32 - __clz((unsigned)d - 1);
+    const double q = (double)(1ull << (32 + s)) / (double)d;
+    m = (unsigned)((unsigned long long)q - (1ull << 32) + 1);
+  }
+  __device__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, m) + (unsigned)n) >> s);
+  }
+};
+
 // One axis pass of the restriction R = P^T: out (o0, o1, o2) from `in`,
 // whose extent along axis a is nf; out[c] = sum_k in[idx[c, k]] wt[c, k]
 // in k order, acc = in_0 wt_0, then acc + in_k wt_k.  With `mask` (the
@@ -1134,17 +1155,22 @@ vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
 // run op by op, such a level took ~70 launches a V-cycle (kernel 1 five
 // times, the where/sub/mul/add of the sweeps, three axes of K
 // index_selects, multiplies and adds a transfer), at the launch floor.
-// Now a level takes 6 at nu = 2:
+// Now a level takes 5 at nu = 2 ("sweep0", "residual", restrict,
+// "prolong_sweep", "sweep"):
 //   level_apply_kernel   one mode a launch: a damped-Jacobi sweep x + wd (b
 //                        - op(x)); the first two sweeps from x = 0 (x and
 //                        its neighbours formed as wd b on the fly); the
 //                        residual b - op(x); op(x) alone (the CG's fine-level
 //                        operator); op(x) = free ? K xm : x, xm = free ? x : 0
-//   restrict_kernel      R r masked by the coarse level's free, all three
-//                        axis passes, a thread a coarse point
+//   level_prolong_sweep_kernel
+//                        the mode "prolong_sweep": a sweep on x + P xc, the
+//                        prolongation formed in a tile of shared memory
+//   restrict_kernel      R r masked by the coarse level's free, the three
+//                        axis passes on a tile of shared memory
 //   prolong_add_kernel   x + P xc, all three axis passes, a thread a fine
-//                        point
-// One thread a point, lanes on blockIdx.y, 32-bit indices (the launchers
+//                        point (the body-factored levels, and nu = 0)
+// level_apply_kernel and prolong_add_kernel take one thread a point,
+// lanes on blockIdx.y, 32-bit indices (the launchers
 // refuse S * 27 * G past INT_MAX).  Each point's neighbour word is made once
 // a hierarchy: bit o set where the neighbour along offset o lies in the grid
 // AND is free, bit 31 where the point is free; so a neighbour read is one
@@ -1154,16 +1180,21 @@ vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
 // apply is kernel 1's fma chain (apply_with), the rest PyTorch's single
 // roundings in its operand order (add_rn etc., as in the tail), the
 // transfers' partial sums per axis pass as restrict_axis / prolong_axis
-// form them (each pass's values are recomputed a point: cheap next to the
-// launches they replace).  Bound by device memory where the level is large
+// form them.  Bound by device memory where the level is large
 // (27 planes and a few vectors a point; warm in the 50 MB L2 on the path),
-// by the launch at the small levels: the design's gain is the ~64 launches
+// by the launch at the small levels: the design's gain is the ~65 launches
 // a level and V-cycle it removes.
 #ifndef PST_LEVEL_THREADS
 #define PST_LEVEL_THREADS 256
 #endif
 
-enum LevelMode { kSweep = 0, kSweep0 = 1, kResidual = 2, kMasked = 3 };
+enum LevelMode {
+  kSweep = 0,
+  kSweep0 = 1,
+  kResidual = 2,
+  kMasked = 3,
+  kProlongSweep = 4  // level_prolong_sweep_kernel
+};
 
 template <typename T, int Mode>
 __global__ void __launch_bounds__(PST_LEVEL_THREADS)
@@ -1201,73 +1232,209 @@ level_apply_kernel(const T* __restrict__ x, const T* __restrict__ b,
   }
 }
 
-// rc = free_c ? R r : 0 at coarse point q of lane blockIdx.y, m the
-// layout of a two-level tail (the fine level, the coarse level, the
-// transfer's tables as vcycle_tail_kernel reads them).  The three axis
-// passes of restrict_axis nested: the axis-2 sum over the axis-1 sums over
-// the axis-0 sums, each acc = in_0 wt_0, then acc + in_k wt_k in k order.
-// Up to K0 * K1 * K2 = 125 reads a point, so the point's axis-0 and axis-1
-// table entries go to registers first and those two loops are unrolled to
-// kLevelMaxK (the entries past K predicated off): the K0 * K1 reads of one
-// axis-2 entry are then all in flight at once, not one latency each.
+// rc = free_c ? R r : 0 of lane blockIdx.y, m the layout of a two-level
+// tail (the fine level, the coarse level, the transfer's tables as
+// vcycle_tail_kernel reads them), the three axis passes of restrict_axis
+// one after another on a tile of coarse points in shared memory:
+//   * A block takes a tile of coarse points of one lane (RsTile: the small
+//     or the large tile by the grid's size, PST_RS_LARGE_BLOCKS; Z cut
+//     evenly into tiles of at most PST_RS_TZ; the last tiles along x and
+//     y cut by the grid's end).  Every table entry of coarse knot c lies
+//     in [2 c - 2, 2 c + 2] along its axis (the every-other-knot
+//     coarsening of multigrid.Transfer, whose kernel tables point each
+//     padding entry at its row's last real entry and check this:
+//     _kernel_restrict_idx), so the tile's fine footprint is at most 2 t +
+//     3 knots an axis for t coarse ones (RsTile::foot).  The block copies
+//     that footprint of r into shared memory by cp.async, coalesced along
+//     z, with the tile's rows of the three tables, all in flight at once.
+//   * Then the passes in the route's order (restrict_axes), each value
+//     formed once a block by one thread, acc = in_0 wt_0, then acc +
+//     in_k wt_k in k order, a barrier between passes: pass 0 (footprint
+//     -> tile along x) into a second buffer, pass 1 (y) back into the
+//     first, pass 2 (z) masked into rc.  Each intermediate value is the
+//     one restrict_axes forms, so the result is the route's bit for bit.
+//     A value's coordinates in the tile come by FastDiv.
+// Bound by the launch and one round trip to device memory at the small
+// levels (then a chain of K <= 6 dependent adds a pass), by device memory
+// at the lane-stacked ones (r read once, the footprints' overlap from L2).
 constexpr int kLevelMaxK = 6;  // restriction entries a coarse knot at most
 
-template <typename T>
-__global__ void __launch_bounds__(PST_LEVEL_THREADS)
+#ifndef PST_RS_SMALL_TX
+#define PST_RS_SMALL_TX 2
+#endif
+#ifndef PST_RS_SMALL_TY
+#define PST_RS_SMALL_TY 4
+#endif
+#ifndef PST_RS_LARGE_TX
+#define PST_RS_LARGE_TX 4
+#endif
+#ifndef PST_RS_LARGE_TY
+#define PST_RS_LARGE_TY 8
+#endif
+#ifndef PST_RS_TZ
+#define PST_RS_TZ 16
+#endif
+#ifndef PST_RS_THREADS
+#define PST_RS_THREADS 256
+#endif
+// The large tile where its grid has this many blocks (lanes included, two
+// an SM), the small one below: fewer, larger tiles stage less of r again
+// at the lane-stacked levels; small tiles give a small level enough
+// blocks.
+#ifndef PST_RS_LARGE_BLOCKS
+#define PST_RS_LARGE_BLOCKS 264
+#endif
+
+// A tile of TX x TY x (at most) PST_RS_TZ coarse points: the coarse points
+// along axis a, their fine footprint at most, the first of axis a's rows
+// in the block's table buffers, and the block's buffers.
+template <int TX, int TY>
+struct RsTile {
+  __host__ __device__ static constexpr int tile(int a) {
+    return a == 0 ? TX : a == 1 ? TY : PST_RS_TZ;
+  }
+  __host__ __device__ static constexpr int foot(int a) {
+    return 2 * tile(a) + 3;
+  }
+  __host__ __device__ static constexpr int row(int a) {
+    return a == 0 ? 0 : a == 1 ? TX : TX + TY;
+  }
+  static constexpr int kIn = foot(0) * foot(1) * foot(2);  // r; pass 1's
+  static constexpr int kMid = TX * foot(1) * foot(2);      // pass 0's
+  static constexpr int kEntries = (TX + TY + PST_RS_TZ) * kLevelMaxK;
+  // dynamic shared memory, T values then ints
+  template <typename T>
+  static constexpr int smem() {
+    return (kIn + kMid + kEntries) * (int)sizeof(T) + kEntries * 4;
+  }
+};
+
+template <typename T, int TX, int TY>
+__global__ void __launch_bounds__(PST_RS_THREADS)
 restrict_kernel(const T* __restrict__ r, const int* __restrict__ itab,
                 const T* __restrict__ wtab,
                 const unsigned char* __restrict__ free_c, T* __restrict__ rc,
-                int free_stride, const __grid_constant__ TailMeta m) {
+                int free_stride, const __grid_constant__ TailMeta m, int tz) {
+  using Tile = RsTile<TX, TY>;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* s_in = reinterpret_cast<T*>(s_raw);
+  T* s_mid = s_in + Tile::kIn;
+  T* s_w = s_mid + Tile::kMid;
+  int* s_i = reinterpret_cast<int*>(s_w + Tile::kEntries);
   const TailLevel F = m.lv[0], Cl = m.lv[1];
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Cl.G) return;
-  r += blockIdx.y * F.G;
-  rc += blockIdx.y * Cl.G;
   const TailTransfer& tr = m.tr[0];
-  const int K0 = tr.K[0], K1 = tr.K[1], K2 = tr.K[2];
-  int ci, cj, ck;
-  ijk(q, Cl.Y, Cl.Z, &ci, &cj, &ck);
-  const int* t0 = itab + tr.ioff[0] + F.X + ci * K0;
-  const int* t1 = itab + tr.ioff[1] + F.Y + cj * K1;
-  const int* i2 = itab + tr.ioff[2] + F.Z + ck * K2;
-  const T* v0 = wtab + tr.woff[0] + 2 * F.X + ci * K0;
-  const T* v1 = wtab + tr.woff[1] + 2 * F.Y + cj * K1;
-  const T* w2 = wtab + tr.woff[2] + 2 * F.Z + ck * K2;
-  int o0[kLevelMaxK], o1[kLevelMaxK];  // offsets of the entries in r
-  T w0[kLevelMaxK], w1[kLevelMaxK];
+  const int nf[3] = {F.X, F.Y, F.Z}, nc[3] = {Cl.X, Cl.Y, Cl.Z};
+  // the tile (x slowest; tz <= PST_RS_TZ along z), its coarse rows c0[a]
+  // + [0, n[a]) and their fine footprint lo[a] + [0, f[a])
+  const int t1 = (Cl.Y + Tile::tile(1) - 1) / Tile::tile(1);
+  const int t2 = (Cl.Z + tz - 1) / tz;
+  const int tile[3] = {(int)blockIdx.x / (t1 * t2),
+                       (int)blockIdx.x / t2 % t1, (int)blockIdx.x % t2};
+  const int step[3] = {Tile::tile(0), Tile::tile(1), tz};
+  int c0[3], n[3], lo[3], f[3];
 #pragma unroll
-  for (int e = 0; e < kLevelMaxK; ++e) {
-    o0[e] = e < K0 ? t0[e] * F.Y * F.Z : 0;
-    w0[e] = e < K0 ? v0[e] : T(0);
-    o1[e] = e < K1 ? t1[e] * F.Z : 0;
-    w1[e] = e < K1 ? v1[e] : T(0);
+  for (int a = 0; a < 3; ++a) {
+    c0[a] = tile[a] * step[a];
+    n[a] = min(step[a], nc[a] - c0[a]);
+    lo[a] = max(0, 2 * c0[a] - 2);
+    f[a] = min(nf[a] - 1, 2 * (c0[a] + n[a] - 1) + 2) - lo[a] + 1;
   }
-  T a2 = T(0);
-  for (int e2 = 0; e2 < K2; ++e2) {
-    const T* plane = r + i2[e2];
-    T a1 = T(0);
+  // the coarse mask of this thread's first output, read first
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const FastDiv by_n1(n[1]), by_n2(n[2]);
+  const auto out_at = [&](int p, int* ij, int* c) {
+    *ij = by_n2.div(p);
+    *c = p - *ij * n[2];
+    const int i = by_n1.div(*ij), j = *ij - i * n[1];
+    return ((c0[0] + i) * Cl.Y + c0[1] + j) * Cl.Z + c0[2] + *c;
+  };
+  free_c += blockIdx.y * free_stride;
+  bool free_first = false;
+  if (tid < n[0] * n[1] * n[2]) {
+    int ij, c;
+    free_first = free_c[out_at(tid, &ij, &c)] != 0;
+  }
+  r += blockIdx.y * F.G;
+  // the tile's rows of the tables, axis a's from row Tile::row(a)
 #pragma unroll
-    for (int e1 = 0; e1 < kLevelMaxK; ++e1) {
-      if (e1 < K1) {
-        const T* row = plane + o1[e1];
-        T a0 = mul_rn(row[o0[0]], w0[0]);
-#pragma unroll
-        for (int e0 = 1; e0 < kLevelMaxK; ++e0) {
-          if (e0 < K0) a0 = add_rn(a0, mul_rn(row[o0[e0]], w0[e0]));
-        }
-        const T p1 = mul_rn(a0, w1[e1]);
-        a1 = e1 ? add_rn(a1, p1) : p1;
-      }
+  for (int a = 0; a < 3; ++a) {
+    const int K = tr.K[a];
+    for (int e = tid; e < n[a] * K; e += nt) {
+      const int c = e / K, at = (c0[a] + c) * K + e % K;
+      const int to = (Tile::row(a) + c) * kLevelMaxK + e % K;
+      cp_async_elem(s_i + to, itab + tr.ioff[a] + nf[a] + at);
+      cp_async_elem(s_w + to, wtab + tr.woff[a] + 2 * nf[a] + at);
     }
-    const T p2 = mul_rn(a1, w2[e2]);
-    a2 = e2 ? add_rn(a2, p2) : p2;
   }
-  rc[q] = free_c[blockIdx.y * free_stride + q] ? a2 : T(0);
+  // r's footprint (f0, f1, f2), z fastest
+  const int plane = f[1] * f[2];
+  const FastDiv by_plane(plane), by_f2(f[2]);
+  for (int e = tid; e < f[0] * plane; e += nt) {
+    const int i = by_plane.div(e), jk = e - i * plane;
+    const int j = by_f2.div(jk), k = jk - j * f[2];
+    cp_async_elem(s_in + e,
+                  r + ((lo[0] + i) * F.Y + lo[1] + j) * F.Z + lo[2] + k);
+  }
+  cp_async_wait_block();
+  // one axis's sum at a value: in(v) the input at footprint index v, (ix,
+  // w) the coarse knot's row
+  const auto pass = [](const int* ix, const T* w, int K, int lo_a,
+                       auto in) {
+    T acc = mul_rn(in(ix[0] - lo_a), w[0]);
+#pragma unroll
+    for (int e = 1; e < kLevelMaxK; ++e) {
+      if (e < K) acc = add_rn(acc, mul_rn(in(ix[e] - lo_a), w[e]));
+    }
+    return acc;
+  };
+  // pass 0: (n0, f1, f2) from (f0, f1, f2)
+  for (int p = tid; p < n[0] * plane; p += nt) {
+    const int c = by_plane.div(p), jk = p - c * plane;
+    s_mid[p] = pass(s_i + c * kLevelMaxK, s_w + c * kLevelMaxK, tr.K[0],
+                    lo[0], [&](int v) { return s_in[v * plane + jk]; });
+  }
+  __syncthreads();
+  // pass 1: (n0, n1, f2) from (n0, f1, f2)
+  for (int p = tid; p < n[0] * n[1] * f[2]; p += nt) {
+    const int ic = by_f2.div(p), k = p - ic * f[2];
+    const int i = by_n1.div(ic), c = ic - i * n[1];
+    const int row = (Tile::row(1) + c) * kLevelMaxK;
+    const T* in = s_mid + i * plane + k;
+    s_in[p] = pass(s_i + row, s_w + row, tr.K[1], lo[1],
+                   [&](int v) { return in[v * f[2]]; });
+  }
+  __syncthreads();
+  // pass 2: (n0, n1, n2) from (n0, n1, f2), masked, into rc
+  rc += blockIdx.y * Cl.G;
+  for (int p = tid; p < n[0] * n[1] * n[2]; p += nt) {
+    int ij, c;
+    const int q = out_at(p, &ij, &c);
+    const int row = (Tile::row(2) + c) * kLevelMaxK;
+    const T* in = s_in + ij * f[2];
+    const T acc = pass(s_i + row, s_w + row, tr.K[2], lo[2],
+                       [&](int v) { return in[v]; });
+    rc[q] = (p == tid ? free_first : free_c[q] != 0) ? acc : T(0);
+  }
+}
+
+// P xc at a fine point as prolong_axis forms it: along x, then y, then
+// z, each value in_s wl + in_(s+1) wr; at(cx, cy, cz) reads xc, (sx, lx,
+// rx) etc. the point's slots and weights along each axis.
+template <typename T, typename At>
+__device__ __forceinline__ T prolong_value(At at, int sx, int sy, int sz,
+                                           T lx, T rx, T ly, T ry, T lz,
+                                           T rz) {
+  const auto p0 = [&](int cy, int cz) {
+    return add_rn(mul_rn(at(sx, cy, cz), lx), mul_rn(at(sx + 1, cy, cz), rx));
+  };
+  const auto p1 = [&](int cz) {
+    return add_rn(mul_rn(p0(sy, cz), ly), mul_rn(p0(sy + 1, cz), ry));
+  };
+  return add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz));
 }
 
 // y = x + P xc at fine point q of lane blockIdx.y (layout as
-// restrict_kernel's): the axis-2 pass over two axis-1 values, each over two
-// axis-0 values, each in_s0 wl + in_(s0+1) wr, as prolong_axis forms them.
+// restrict_kernel's), a thread a point.
 template <typename T>
 __global__ void __launch_bounds__(PST_LEVEL_THREADS)
 prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
@@ -1282,22 +1449,194 @@ prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
   const TailTransfer& tr = m.tr[0];
   int i, j, k;
   ijk(q, F.Y, F.Z, &i, &j, &k);
-  const int sx = itab[tr.ioff[0] + i], sy = itab[tr.ioff[1] + j],
-            sz = itab[tr.ioff[2] + k];
   const T* w0 = wtab + tr.woff[0];
   const T* w1 = wtab + tr.woff[1];
   const T* w2 = wtab + tr.woff[2];
-  const T lx = w0[i], rx = w0[F.X + i], ly = w1[j], ry = w1[F.Y + j],
-          lz = w2[k], rz = w2[F.Z + k];
-  const int st = Cl.Y * Cl.Z;
-  const auto p0 = [&](int cy, int cz) {
-    const T* a = xc + sx * st + cy * Cl.Z + cz;
-    return add_rn(mul_rn(a[0], lx), mul_rn(a[st], rx));
+  const T p = prolong_value(
+      [&](int cx, int cy, int cz) {
+        return xc[(cx * Cl.Y + cy) * Cl.Z + cz];
+      },
+      itab[tr.ioff[0] + i], itab[tr.ioff[1] + j], itab[tr.ioff[2] + k],
+      w0[i], w0[F.X + i], w1[j], w1[F.Y + j], w2[k], w2[F.Z + k]);
+  y[q] = add_rn(x[q], p);
+}
+
+// level_apply's mode "prolong_sweep" (kProlongSweep): the prolongation
+// and its add folded into the first post-smoothing sweep,
+//   y = x' + wd (b - op(x')),  x' = x + P xc,
+// op as level_apply_kernel's, x' formed as prolong_add_kernel forms it
+// (prolong_value), so y is prolong_add then "sweep" bit for bit; P xc is
+// never written to device memory and read back, and the level's V-cycle
+// takes one launch fewer.  A block takes a tile of PST_PS_TX x ty x tz
+// points of one lane, one point a thread (tz <= PST_PS_TZ cuts Z evenly,
+// ty fills the block), in one round trip to device memory:
+//   * Each thread first loads its point's 27 coefficients, word, b and wd
+//     into registers; meanwhile the block copies by cp.async, coalesced
+//     along z, x on the tile and its halo of one point (clipped to the
+//     grid), the coarse footprint of xc that the halo's interpolation
+//     reads (the slot of fine knot f is min(f / 2, nc - 2), the
+//     every-other-knot coarsening of multigrid.Transfer, which
+//     _kernel_restrict_idx checks) and the halo's slots and weights.
+//   * Then x' on the tile and halo, in shared memory (the 8-term
+//     interpolation recomputed on the halo), and each point's apply,
+//     kernel 1's fma chain in its order on its registers' coefficients
+//     and its neighbours' x' (0 for a neighbour that is not free, as the
+//     neighbour words say), the sweep in PyTorch's roundings.
+// Bound as "sweep" is: by device memory at the megatet's fine level, by
+// the launch and the round trip at the small levels.  (The form without
+// shared memory, x' of each neighbour formed on the fly, a thread a
+// point, took 1.2-2.2x the time: PERF.md.)
+#ifndef PST_PS_TX
+#define PST_PS_TX 2
+#endif
+#ifndef PST_PS_TZ
+#define PST_PS_TZ 32
+#endif
+#ifndef PST_PS_THREADS
+#define PST_PS_THREADS 128
+#endif
+static_assert(PST_PS_THREADS % 32 == 0 &&
+                  PST_PS_TX * PST_PS_TZ <= PST_PS_THREADS,
+              "a prolong_sweep block is whole warps, a point a thread");
+
+// Shared memory of a prolong_sweep block with tile (ty, tz): the halo's
+// x' (tile + 2 an axis), the coarse footprint (at most h / 2 + 3 an axis
+// for a halo of h), the halo's slots, left and right weights an axis.
+struct PsSmem {
+  int h[3], c[3];
+  __host__ __device__ PsSmem(int ty, int tz)
+      : h{PST_PS_TX + 2, ty + 2, tz + 2},
+        c{h[0] / 2 + 3, h[1] / 2 + 3, h[2] / 2 + 3} {}
+  __host__ __device__ int values() const {
+    return h[0] * h[1] * h[2] + c[0] * c[1] * c[2] + 2 * (h[0] + h[1] + h[2]);
+  }
+  __host__ __device__ int bytes(int elem) const {
+    return values() * elem + 4 * (h[0] + h[1] + h[2]);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(PST_PS_THREADS)
+level_prolong_sweep_kernel(const T* __restrict__ x, const T* __restrict__ xc,
+                           const T* __restrict__ b, const T* __restrict__ C,
+                           const T* __restrict__ wd,
+                           const unsigned* __restrict__ words,
+                           const int* __restrict__ itab,
+                           const T* __restrict__ wtab, T* __restrict__ y,
+                           int word_stride, const __grid_constant__ TailMeta m,
+                           int ty, int tz) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const TailLevel F = m.lv[0], Cl = m.lv[1];
+  const TailTransfer& tr = m.tr[0];
+  const int G = F.G, lane = blockIdx.y;
+  x += lane * G;
+  xc += lane * Cl.G;
+  const int nf[3] = {F.X, F.Y, F.Z}, nc[3] = {Cl.X, Cl.Y, Cl.Z};
+  const int nty = (F.Y + ty - 1) / ty, ntz = (F.Z + tz - 1) / tz;
+  const int t0[3] = {(int)blockIdx.x / (nty * ntz) * PST_PS_TX,
+                     (int)blockIdx.x / ntz % nty * ty,
+                     (int)blockIdx.x % ntz * tz};
+  const int tn[3] = {min(PST_PS_TX, F.X - t0[0]), min(ty, F.Y - t0[1]),
+                     min(tz, F.Z - t0[2])};
+  // the thread's point, its loads first
+  const int tid = threadIdx.x;
+  const bool mine = tid < tn[0] * tn[1] * tn[2];
+  const PsSmem sm(ty, tz);
+  const int H1 = sm.h[1], H2 = sm.h[2];
+  int q = 0, s = 0;
+  unsigned nb = 0;
+  T bq = T(0), wq = T(0), cr[27];
+  if (mine) {
+    const int a = tid / (tn[1] * tn[2]), c = tid / tn[2] % tn[1],
+              d = tid % tn[2];
+    q = ((t0[0] + a) * F.Y + t0[1] + c) * F.Z + t0[2] + d;
+    s = ((a + 1) * H1 + c + 1) * H2 + d + 1;
+    nb = words[lane * word_stride + q];
+    bq = b[lane * G + q];
+    wq = wd[lane * G + q];
+#pragma unroll
+    for (int o = 0; o < 27; ++o) cr[o] = C[(27 * lane + o) * G + q];
+  }
+  // the halo [h0, h0 + hn) clipped to the grid (at xs offset h0 - t0 + 1)
+  // and its coarse footprint [c0, c0 + cn)
+  int h0[3], hn[3], c0[3], cn[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    h0[a] = max(t0[a] - 1, 0);
+    hn[a] = min(t0[a] + tn[a], nf[a] - 1) - h0[a] + 1;
+    c0[a] = min(h0[a] / 2, nc[a] - 2);
+    cn[a] = min((h0[a] + hn[a] - 1) / 2, nc[a] - 2) + 2 - c0[a];
+  }
+  T* xs = reinterpret_cast<T*>(s_raw);
+  T* xcs = xs + sm.h[0] * H1 * H2;
+  T* wl = xcs + sm.c[0] * sm.c[1] * sm.c[2];  // per axis h[a] left weights,
+  T* wr = wl + sm.h[0] + H1 + H2;             // right weights
+  int* sl = reinterpret_cast<int*>(wr + sm.h[0] + H1 + H2);  // slots
+  const int ho[3] = {0, sm.h[0], sm.h[0] + H1};  // axis a's table offset
+  const int nt = blockDim.x;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    for (int e = tid; e < hn[a]; e += nt) {
+      const int f = h0[a] + e;
+      cp_async_elem(sl + ho[a] + e, itab + tr.ioff[a] + f);
+      cp_async_elem(wl + ho[a] + e, wtab + tr.woff[a] + f);
+      cp_async_elem(wr + ho[a] + e, wtab + tr.woff[a] + nf[a] + f);
+    }
+  }
+  // x on the halo (at xs offset h0 - t0 + 1), xc's footprint, z fastest
+  const int hp = hn[1] * hn[2], cp = cn[1] * cn[2];
+  const FastDiv by_hp(hp), by_hz(hn[2]), by_cp(cp), by_cz(cn[2]);
+  const int ho0 = ((h0[0] - t0[0] + 1) * H1 + h0[1] - t0[1] + 1) * H2 +
+                  h0[2] - t0[2] + 1;
+  const auto halo = [&](int e, int* i, int* j, int* k) {
+    *i = by_hp.div(e);
+    const int jk = e - *i * hp;
+    *j = by_hz.div(jk);
+    *k = jk - *j * hn[2];
   };
-  const auto p1 = [&](int cz) {
-    return add_rn(mul_rn(p0(sy, cz), ly), mul_rn(p0(sy + 1, cz), ry));
-  };
-  y[q] = add_rn(x[q], add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz)));
+  for (int e = tid; e < hn[0] * hp; e += nt) {
+    int i, j, k;
+    halo(e, &i, &j, &k);
+    cp_async_elem(xs + ho0 + (i * H1 + j) * H2 + k,
+                  x + ((h0[0] + i) * F.Y + h0[1] + j) * F.Z + h0[2] + k);
+  }
+  for (int e = tid; e < cn[0] * cp; e += nt) {
+    const int i = by_cp.div(e), jk = e - i * cp;
+    const int j = by_cz.div(jk), k = jk - j * cn[2];
+    cp_async_elem(xcs + e,
+                  xc + ((c0[0] + i) * Cl.Y + c0[1] + j) * Cl.Z + c0[2] + k);
+  }
+  cp_async_wait_block();
+  // x' = x + P xc on the halo, in place
+  for (int e = tid; e < hn[0] * hp; e += nt) {
+    int i, j, k;
+    halo(e, &i, &j, &k);
+    const int ix = ho[0] + i, iy = ho[1] + j, iz = ho[2] + k;
+    const T p = prolong_value(
+        [&](int cx, int cy, int cz) {
+          return xcs[(cx * cn[1] + cy) * cn[2] + cz];
+        },
+        sl[ix] - c0[0], sl[iy] - c0[1], sl[iz] - c0[2], wl[ix], wr[ix],
+        wl[iy], wr[iy], wl[iz], wr[iz]);
+    T* at = xs + ho0 + (i * H1 + j) * H2 + k;
+    *at = add_rn(*at, p);
+  }
+  __syncthreads();
+  if (!mine) return;
+  const T xq = xs[s];
+  T ax = xq;
+  if (nb & kCgFree) {
+    ax = T(0);
+#pragma unroll
+    for (int o = 0; o < 27; ++o) {
+      const T pv = (nb >> o & 1u)
+                       ? xs[s + ((o / 9 - 1) * H1 + o / 3 % 3 - 1) * H2 +
+                            o % 3 - 1]
+                       : T(0);
+      ax = fma(cr[o], pv, ax);
+    }
+  }
+  y[lane * G + q] = add_rn(xq, mul_rn(wq, sub_rn(bq, ax)));
 }
 
 // ── kernel 2's work at the levels above the tail ─────────────────────────
@@ -1903,22 +2242,61 @@ bool transfer_meta(const int* meta, int S, TailMeta* m) {
          level_lanes_fit(m->lv[0].G, S);
 }
 
+// restrict_kernel with tiles of TX x TY coarse points, Z cut evenly into
+// tiles of at most PST_RS_TZ; the grid's blocks (tiles x lanes) in
+// *blocks.
+template <typename T, int TX, int TY>
+int launch_restrict_tile(const void* r, const void* itab, const void* wtab,
+                         const void* free_c, void* rc, const TailMeta& m,
+                         int S, int free_lanes, bool run, long long* blocks,
+                         cudaStream_t stream) {
+  using Tile = RsTile<TX, TY>;
+  const TailLevel Cl = m.lv[1];
+  const int ntz = (Cl.Z + PST_RS_TZ - 1) / PST_RS_TZ;
+  const int tz = (Cl.Z + ntz - 1) / ntz;
+  const long long tiles = (long long)((Cl.X + Tile::tile(0) - 1) /
+                                      Tile::tile(0)) *
+                          ((Cl.Y + Tile::tile(1) - 1) / Tile::tile(1)) * ntz;
+  *blocks = tiles * S;
+  if (!run) return 0;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  constexpr int smem = Tile::template smem<T>();
+  static_assert(smem <= kMaxSmem, "the restriction's tile must fit an SM");
+  const auto kernel = restrict_kernel<T, TX, TY>;
+  static std::atomic<unsigned> opted{0};
+  const cudaError_t err = allow_smem(kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)tiles, S), PST_RS_THREADS, smem, stream>>>(
+      (const T*)r, (const int*)itab, (const T*)wtab,
+      (const unsigned char*)free_c, (T*)rc, free_lanes == 1 ? 0 : Cl.G, m,
+      tz);
+  return (int)cudaGetLastError();
+}
+
+// The large tile where its grid has PST_RS_LARGE_BLOCKS blocks, else the
+// small one.
 template <typename T>
 int launch_restrict(const void* r, const void* itab, const void* wtab,
                     const void* free_c, void* rc, const int* meta, int S,
                     int free_lanes, void* stream) {
   TailMeta m;
   if (!transfer_meta(meta, S, &m) || !(free_lanes == 1 || free_lanes == S) ||
-      std::max(m.tr[0].K[0], m.tr[0].K[1]) > kLevelMaxK) {
+      std::max({m.tr[0].K[0], m.tr[0].K[1], m.tr[0].K[2]}) > kLevelMaxK) {
     return (int)cudaErrorInvalidValue;
   }
   if (S == 0) return 0;
-  const int G = m.lv[1].G;
-  restrict_kernel<T><<<level_grid(G, S), PST_LEVEL_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-      (const T*)r, (const int*)itab, (const T*)wtab,
-      (const unsigned char*)free_c, (T*)rc, free_lanes == 1 ? 0 : G, m);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  constexpr int LX = PST_RS_LARGE_TX, LY = PST_RS_LARGE_TY;
+  constexpr int SX = PST_RS_SMALL_TX, SY = PST_RS_SMALL_TY;
+  long long blocks = 0;
+  launch_restrict_tile<T, LX, LY>(r, itab, wtab, free_c, rc, m, S,
+                                  free_lanes, false, &blocks, st);
+  if (blocks >= PST_RS_LARGE_BLOCKS) {
+    return launch_restrict_tile<T, LX, LY>(r, itab, wtab, free_c, rc, m, S,
+                                           free_lanes, true, &blocks, st);
+  }
+  return launch_restrict_tile<T, SX, SY>(r, itab, wtab, free_c, rc, m, S,
+                                         free_lanes, true, &blocks, st);
 }
 
 template <typename T>
@@ -1931,6 +2309,44 @@ int launch_prolong_add(const void* x, const void* xc, const void* itab,
   prolong_add_kernel<T><<<level_grid(m.lv[0].G, S), PST_LEVEL_THREADS, 0,
                           (cudaStream_t)stream>>>(
       (const T*)x, (const T*)xc, (const int*)itab, (const T*)wtab, (T*)y, m);
+  return (int)cudaGetLastError();
+}
+
+// S lanes with their own stencils in level_apply's mode "prolong_sweep":
+// meta the transfer's layout (as launch_prolong_add's), the neighbour
+// words as launch_level_apply's.  The tile: PST_PS_TX x ty x tz points,
+// Z cut evenly into tiles of at most PST_PS_TZ, ty as many rows as the
+// block's threads hold.
+template <typename T>
+int launch_level_prolong_sweep(const void* x, const void* xc, const void* b,
+                               const void* C, const void* wd,
+                               const void* words, const void* itab,
+                               const void* wtab, void* y, const int* meta,
+                               int S, int word_lanes, void* stream) {
+  TailMeta m;
+  if (!transfer_meta(meta, S, &m) || !(word_lanes == 1 || word_lanes == S)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (S == 0) return 0;
+  const TailLevel F = m.lv[0];
+  const int ntz = (F.Z + PST_PS_TZ - 1) / PST_PS_TZ;
+  const int tz = (F.Z + ntz - 1) / ntz;
+  const int ty = std::max(1, std::min(F.Y, PST_PS_THREADS / (PST_PS_TX * tz)));
+  const long long tiles = (long long)((F.X + PST_PS_TX - 1) / PST_PS_TX) *
+                          ((F.Y + ty - 1) / ty) * ntz;
+  const int smem = PsSmem(ty, tz).bytes((int)sizeof(T));
+  if (tiles > INT_MAX || smem > kMaxSmem) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const auto kernel = level_prolong_sweep_kernel<T>;
+  static std::atomic<unsigned> opted{0};
+  const cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)tiles, S), PST_PS_THREADS, smem,
+           (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)xc, (const T*)b, (const T*)C, (const T*)wd,
+      (const unsigned*)words, (const int*)itab, (const T*)wtab, (T*)y,
+      word_lanes == 1 ? 0 : F.G, m, ty, tz);
   return (int)cudaGetLastError();
 }
 
@@ -2185,6 +2601,25 @@ int pst_prolong_add_f64(const void* x, const void* xc, const void* itab,
                         const void* wtab, void* y, const int* meta, int S,
                         void* stream) {
   return launch_prolong_add<double>(x, xc, itab, wtab, y, meta, S, stream);
+}
+
+int pst_level_prolong_sweep_f32(const void* x, const void* xc, const void* b,
+                                const void* C, const void* wd,
+                                const void* words, const void* itab,
+                                const void* wtab, void* y, const int* meta,
+                                int S, int word_lanes, void* stream) {
+  return launch_level_prolong_sweep<float>(x, xc, b, C, wd, words, itab, wtab,
+                                           y, meta, S, word_lanes, stream);
+}
+
+int pst_level_prolong_sweep_f64(const void* x, const void* xc, const void* b,
+                                const void* C, const void* wd,
+                                const void* words, const void* itab,
+                                const void* wtab, void* y, const int* meta,
+                                int S, int word_lanes, void* stream) {
+  return launch_level_prolong_sweep<double>(x, xc, b, C, wd, words, itab,
+                                            wtab, y, meta, S, word_lanes,
+                                            stream);
 }
 
 int pst_level_apply_factored_f32(const void* x, const void* b,

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    DIAG_OFFSET, LEVEL_MODES, FactoredLevelOp, LevelOp, VcycleTail, coarse_cg_plain,
+    DIAG_OFFSET, FactoredLevelOp, LevelOp, VcycleTail, coarse_cg_plain,
     make_vcycle_tail, vcycle_tail_plain)
 
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
@@ -129,7 +129,9 @@ def work(name, shape, dtype):
     the mode's vectors, x b wd y ("sweep"), b wd y ("sweep0"), x b y
     ("residual"), x y ("masked"), and FL neighbour words of 4 bytes a
     point; 54 operations of the apply, 3 of a sweep, 1 more for "sweep0"'s
-    wd b and the residual's subtraction), (mode, B, (L, X, Y, Z)) for
+    wd b and the residual's subtraction; "prolong_sweep": a sweep's and
+    prolong_add_cuda's, their x and y counted once), (mode, B, (L, X, Y,
+    Z)) for
     level_apply_factored_cuda (L lanes sharing B bodies' coefficients:
     the B * 27 planes once, sigma, per point and lane the mode's vectors
     as level_apply's, one word of 4 bytes a point; operations per point
@@ -143,6 +145,11 @@ def work(name, shape, dtype):
     es = 4 if dtype == "float32" else 8
     vecs = {"sweep": 4, "sweep0": 3, "residual": 3, "masked": 2}
     mode_ops = {"sweep": 3, "sweep0": 4, "residual": 1, "masked": 0}
+    if name == "level_apply_cuda" and shape[0] == "prolong_sweep":
+        S, G = _lanes_points(shape[2])
+        sweep = work(name, ("sweep",) + tuple(shape[1:]), dtype)
+        pro = work("prolong_add_cuda", (shape[2],), dtype)
+        return sweep[0] + pro[0] - 2 * S * G * es, sweep[1] + pro[1]
     if name == "level_apply_cuda":
         mode, FL, grid = shape
         S, G = _lanes_points(grid)
@@ -340,7 +347,9 @@ def kernel_inputs(name, shape, dtype, device, rng):
     too); vcycle_tail_cuda tail_inputs; combine_lanes_cuda coeff (B, 27
     * points) of the levels `shapes` packed, and positive sigma (L, B);
     level_apply_cuda (x, b, a LevelOp of a random stencil and a mask free
-    on 85% of the points, FL of them, its words and wd made, mode, 0.7);
+    on 85% of the points, FL of them, its words and wd made, mode, 0.7;
+    "prolong_sweep" then xc and the tables of multigrid.Transfer on
+    unit-spaced knots);
     level_apply_factored_cuda likewise with a FactoredLevelOp of B bodies'
     random coefficients, their centre ones 27 + |N(0, 1)| (the Jacobi
     diagonal of positive sigma then far from 0, as a level's: near 0, wd
@@ -377,7 +386,11 @@ def kernel_inputs(name, shape, dtype, device, rng):
             < 0.85, device=device))
         lv.neighbour_words()
         lv.wd(0.7)
-        return rand(grid), rand(grid), lv, mode, 0.7
+        if mode != "prolong_sweep":
+            return rand(grid), rand(grid), lv, mode, 0.7
+        x, xc, tt = kernel_inputs("prolong_add_cuda", (grid,), dtype, device,
+                                  rng)
+        return x, rand(grid), lv, mode, 0.7, xc, tt
     if name == "level_apply_factored_cuda":
         mode, B, grid = shape
         grid = tuple(grid)

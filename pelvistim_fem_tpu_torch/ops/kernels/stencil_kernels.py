@@ -89,8 +89,11 @@ TransferTables to its next level, each made once a hierarchy:
                                        sweep from x = wd b (two sweeps from
                                        x = 0); "residual": b - op(x);
                                        "masked": op(x) = where(free, K
-                                       where(free, x, 0), x); x and b 3-D,
-                                       or S lanes each with its own stencil
+                                       where(free, x, 0), x);
+                                       "prolong_sweep" (with xc, tt): the
+                                       sweep on x + P xc, prolong_add then
+                                       "sweep"; x and b 3-D, or S lanes
+                                       each with its own stencil
       CUDA: level_apply_cuda
       twin: level_apply_plain
   restrict(r, tt, free_c)              where(free_c, R r, 0)
@@ -110,7 +113,7 @@ TransferTables to its next level, each made once a hierarchy:
 
 and the same phase where the lanes share body-factored coefficients
 (a FactoredLevelOp: coeff, sig, one mask, made once a solve), with
-restrict and prolong_add as above:
+restrict and prolong_add as above (no "prolong_sweep" there):
 
   level_apply_factored(x, b, lv, mode, omega)
                                        level_apply's modes with op(x) =
@@ -172,9 +175,12 @@ LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "restrict_cuda": 0, "prolong_add_cuda": 0,
             "level_apply_factored_cuda": 0}
 
-# level_apply's and level_apply_factored's modes (LevelMode in
-# csrc/stencil.cu)
-LEVEL_MODES = {"sweep": 0, "sweep0": 1, "residual": 2, "masked": 3}
+# level_apply's modes (LevelMode in csrc/stencil.cu), and those of
+# level_apply_factored
+LEVEL_MODES = {"sweep": 0, "sweep0": 1, "residual": 2, "masked": 3,
+               "prolong_sweep": 4}
+FACTORED_MODES = {m: LEVEL_MODES[m] for m in
+                  ("sweep", "sweep0", "residual", "masked")}
 
 # The tail kernel's limits (kTailMaxLevels, kMaxSmem and the coarse CG's
 # most points a lane in csrc/stencil.cu; pst_tail_max_levels,
@@ -537,11 +543,15 @@ class LevelOp:
 @dataclasses.dataclass(frozen=True, eq=False)
 class TransferTables:
     """One transfer's tables (multigrid.Transfer.kernel_tables): pro and
-    res as prolong_axes and restrict_axes take them; `packed`, made once
-    at first use, the kernels' arguments (_pack_transfers of this transfer
-    alone: its int and float tables and its layout)."""
+    res as prolong_axes and restrict_axes take them; kernel_idx, per axis
+    res's idx with each padding entry pointed at its row's last real
+    entry (multigrid._kernel_restrict_idx), as restrict_kernel reads
+    them; `packed`, made once at first use, the level kernels' arguments
+    (_pack_transfers of this transfer alone, with kernel_idx for res's
+    idx: its int and float tables and its layout)."""
     pro: tuple
     res: tuple
+    kernel_idx: tuple
 
     @property
     def shape(self):
@@ -552,14 +562,20 @@ class TransferTables:
     @functools.cached_property
     def packed(self):
         w = self.res[0][1]
-        return _pack_transfers([self.pro], [self.res], self.shape, w.device,
+        res = [(idx, wt) for idx, (_, wt) in zip(self.kernel_idx, self.res)]
+        return _pack_transfers([self.pro], [res], self.shape, w.device,
                                w.dtype)
 
 
-def _level_mode(name, mode):
-    if mode not in LEVEL_MODES:
+def _level_mode(name, mode, modes=LEVEL_MODES):
+    if mode not in modes:
         raise ValueError(f"{name}: mode {mode!r}, one of "
-                         f"{', '.join(LEVEL_MODES)}")
+                         f"{', '.join(modes)}")
+
+
+def _prolong_args(name, xc, tt):
+    if xc is None or tt is None:
+        raise ValueError(f"{name}: mode 'prolong_sweep' takes xc and tt")
 
 
 def _level_phase(name, x, b, lv, mode, omega, apply):
@@ -568,7 +584,7 @@ def _level_phase(name, x, b, lv, mode, omega, apply):
     x) and wd = lv.wd(omega): mode "sweep" x + wd (b - op(x)); "sweep0"
     that sweep from x = wd b (x not read); "residual" b - op(x); "masked"
     op(x) (b not read)."""
-    _level_mode(name, mode)
+    _level_mode(name, mode, FACTORED_MODES)
     if mode == "sweep0":
         x = lv.wd(omega) * b
     ax = torch.where(lv.free, apply(torch.where(lv.free, x, 0.0)), x)
@@ -579,10 +595,17 @@ def _level_phase(name, x, b, lv, mode, omega, apply):
     return x + lv.wd(omega) * (b - ax)
 
 
-def level_apply_plain(x, b, lv, mode, omega=0.7, spmv=stencil_spmv_plain):
+def level_apply_plain(x, b, lv, mode, omega=0.7, xc=None, tt=None,
+                      spmv=stencil_spmv_plain):
     """One phase of a V-cycle level op by op (_level_phase) on lv, a
-    LevelOp, with apply spmv(., lv.C).  spmv=stencil_spmv gives the card's
-    route (kernel 1 and PyTorch's ops), the default the plain twin."""
+    LevelOp, with apply spmv(., lv.C); mode "prolong_sweep" is
+    prolong_add_plain(x, xc, tt) then "sweep".  spmv=stencil_spmv gives
+    the card's route (kernel 1 and PyTorch's ops), the default the plain
+    twin."""
+    _level_mode("level_apply_plain", mode)
+    if mode == "prolong_sweep":
+        _prolong_args("level_apply_plain", xc, tt)
+        x, mode = prolong_add_plain(x, xc, tt), "sweep"
     return _level_phase("level_apply_plain", x, b, lv, mode, omega,
                         lambda xm: spmv(xm, lv.C))
 
@@ -809,6 +832,9 @@ def build(extra_flags=()) -> ctypes.CDLL:
             fn.restype = i
             fn = getattr(lib, f"pst_level_apply_factored_{dt}")
             fn.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
+            fn.restype = i
+            fn = getattr(lib, f"pst_level_prolong_sweep_{dt}")
+            fn.argtypes = [ptr] * 10 + [i, i, ptr]
             fn.restype = i
         lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
         lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
@@ -1041,12 +1067,15 @@ def _dims_combine_lanes(coeff, sig):
             (sig.shape[0],) + tuple(coeff.shape[1:]))
 
 
-def _dims_level_apply(x, b, lv, mode, omega=0.7):
+def _dims_level_apply(x, b, lv, mode, omega=0.7, xc=None, tt=None):
     name = "level_apply_cuda"
     _level_mode(name, mode)
+    if mode == "prolong_sweep":
+        _prolong_args(name, xc, tt)
     x = b if mode == "sweep0" else x
     b = x if mode == "masked" else b
-    wd = lv.wd(omega) if mode in ("sweep", "sweep0") else x
+    wd = lv.wd(omega) if mode in ("sweep", "sweep0", "prolong_sweep") \
+        else x
     _check(name, x.dtype, x.device, x=x, b=b, C=lv.C, wd=wd)
     words = lv.neighbour_words()
     _check(name, torch.int32, x.device, (torch.int32,), words=words)
@@ -1057,14 +1086,23 @@ def _dims_level_apply(x, b, lv, mode, omega=0.7):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, b "
                          f"{tuple(b.shape)}, wd {tuple(wd.shape)}, mask "
                          f"{lv.shape}")
-    return ((x, b, lv.C, wd, words),
-            (S, words.shape[0], LEVEL_MODES[mode], X, Y, Z),
-            f"pst_level_apply_{_SUFFIX[x.dtype]}")
+    if mode != "prolong_sweep":
+        return ((x, b, lv.C, wd, words),
+                (S, words.shape[0], LEVEL_MODES[mode], X, Y, Z),
+                f"pst_level_apply_{_SUFFIX[x.dtype]}")
+    _, Ip, Wp, layout = _transfer_args(name, x, tt, (X, Y, Z))
+    _check(name, x.dtype, x.device, xc=xc)
+    if tuple(xc.shape) != tuple(x.shape[:-3]) + tt.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, xc "
+                         f"{tuple(xc.shape)}")
+    return ((x, xc, b, lv.C, wd, words, Ip, Wp),
+            (ctypes.addressof(layout), S, words.shape[0]),
+            f"pst_level_prolong_sweep_{_SUFFIX[x.dtype]}")
 
 
 def _dims_level_apply_factored(x, b, lv, mode, omega=0.7):
     name = "level_apply_factored_cuda"
-    _level_mode(name, mode)
+    _level_mode(name, mode, FACTORED_MODES)
     x = b if mode == "sweep0" else x
     b = x if mode == "masked" else b
     wd = lv.wd(omega) if mode in ("sweep", "sweep0") else x
@@ -1155,7 +1193,7 @@ def launch(name, *args, extra_flags=()):
     (vcycle_tail_smem), the lanes' combine 1..8 bodies and L times the
     elements of a body within an int, the level kernels at most 65535
     lanes and S * 27 * points within an int (the restriction at most 6
-    entries a coarse knot on axes 0 and 1), the body-factored level kernel
+    entries a coarse knot), the body-factored level kernel
     as the batched kernels; the launch raises otherwise."""
     tensors, dims, entry, *out_shape = _DIMS[name](*args)
     lib = build(extra_flags)
@@ -1258,12 +1296,13 @@ def combine_lanes_cuda(coeff, sig):
     return C
 
 
-def level_apply_cuda(x, b, lv, mode, omega=0.7):
+def level_apply_cuda(x, b, lv, mode, omega=0.7, xc=None, tt=None):
     """CUDA kernel for level_apply_plain's function (kernel 1's fma order,
     PyTorch's roundings): x, b (X, Y, Z) or (S, X, Y, Z), contiguous, of
     lv's dtype (float32 or float64) and on its device; x may be None in
-    mode "sweep0", b in mode "masked"."""
-    y = launch("level_apply_cuda", x, b, lv, mode, omega)
+    mode "sweep0", b in mode "masked"; in mode "prolong_sweep" xc on the
+    coarse grid of tt, the transfer's TransferTables."""
+    y = launch("level_apply_cuda", x, b, lv, mode, omega, xc, tt)
     LAUNCHES["level_apply_cuda"] += 1
     return y
 
@@ -1363,13 +1402,14 @@ def combine_lanes(coeff, sig):
     return combine_lanes_plain(coeff, sig)
 
 
-def level_apply(x, b, lv, mode, omega=0.7):
-    """One phase of a V-cycle level on lv (level_apply_plain's modes): the
-    CUDA kernel for a level on a CUDA device, the plain twin on the
-    CPU."""
+def level_apply(x, b, lv, mode, omega=0.7, xc=None, tt=None):
+    """One phase of a V-cycle level on lv (level_apply_plain's modes; xc
+    and tt those of "prolong_sweep"): the CUDA kernel for a level on a
+    CUDA device, the plain twin on the CPU."""
+    args = (x, b, lv, mode, omega) + ((xc, tt) if xc is not None else ())
     if lv.C.is_cuda:
-        return level_apply_cuda(x, b, lv, mode, omega)
-    return level_apply_plain(x, b, lv, mode, omega)
+        return level_apply_cuda(*args)
+    return level_apply_plain(*args)
 
 
 def restrict(r, tt, free_c):

@@ -23,9 +23,11 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
     level with its own combined stencil, LevelOp) or level_apply_factored
     (lanes that share body-factored coefficients, FactoredLevelOp),
     restrict or prolong_add (_level_cycle), one launch on the card: 6 a
-    level at nu = 2.  The level's Jacobi diagonal and neighbour words and
-    the transfer's tables (Transfer.kernel_tables) are made once a
-    hierarchy (a solve for body-factored lanes).
+    level at nu = 2; 5 at a LevelOp's, whose prolongation is folded into
+    its first post-sweep (level_apply "prolong_sweep").  The level's
+    Jacobi diagonal and neighbour words and the transfer's tables
+    (Transfer.kernel_tables) are made once a hierarchy (a solve for
+    body-factored lanes).
   * The tail: on the card, the levels from the first one whose stencils,
     with every coarser level's, fit one SM's shared memory (tail_start)
     run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
@@ -105,6 +107,31 @@ def _restrict_table(slot, wl, nc):
     return idx, wt
 
 
+def _kernel_restrict_idx(slot, idx):
+    """idx (nc, K) of _restrict_table with each padding entry (k at or
+    past its row's count of real entries: coarse c takes the fine knots
+    with slot c and with slot + 1 = c) pointed at its row's last real
+    entry instead of fine knot 0: its term is still in * 0, a zero, so
+    every sum is the same, and a coarse knot's entries stay near it, as
+    restrict_kernel's tiles need.  Raises unless the transfer is the
+    every-other-knot coarsening that restrict_kernel and level_apply's
+    "prolong_sweep" take: every entry of coarse knot c in [2 c - 2, 2 c
+    + 2], and fine knot f's slot min(f // 2, nc - 2)."""
+    nc, K = idx.shape
+    count = np.bincount(slot, minlength=nc) + \
+        np.bincount(slot + 1, minlength=nc)
+    last = idx[np.arange(nc), count - 1]
+    kidx = np.where(np.arange(K)[None] < count[:, None], idx, last[:, None])
+    c2 = 2 * np.arange(nc)[:, None]
+    f = np.arange(len(slot))
+    if not (((kidx >= c2 - 2) & (kidx <= c2 + 2)).all()
+            and np.array_equal(slot, np.minimum(f // 2, nc - 2))):
+        raise ValueError("_kernel_restrict_idx: not an every-other-knot "
+                         "coarsening (a coarse knot's entries past two "
+                         "fine knots of its own, or a slot past f // 2)")
+    return kidx
+
+
 class Transfer:
     """Trilinear prolongation / restriction between one lattice and its
     every-other-knot coarsening.  Both apply to (..., X, Y, Z) tensors
@@ -149,10 +176,14 @@ class Transfer:
 
     def kernel_tables(self, device, dtype) -> TransferTables:
         """The tables as the level kernels take them (made once per
-        (device, dtype))."""
+        (device, dtype)), the restriction's padding re-pointed
+        (_kernel_restrict_idx)."""
         key = (torch.device(device), dtype)
         if key not in self._tables:
-            self._tables[key] = TransferTables(*self._tensors(*key))
+            kidx = tuple(torch.as_tensor(_kernel_restrict_idx(s, idx),
+                                         device=key[0])
+                         for s, (idx, _) in zip(self.slots, self.tables))
+            self._tables[key] = TransferTables(*self._tensors(*key), kidx)
         return self._tables[key]
 
     def prolong(self, xc):
@@ -198,9 +229,11 @@ def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
     pre-smoothing (nu >= 2: a "sweep0" call and nu - 2 sweeps; else x = wd
     b, or zeros at nu = 0 with zero_start), the residual, its restriction
     masked by free_c, the prolongation of coarser's result added, nu
-    sweeps: max(1, nu - 1) + 3 + nu launches on the card at nu >= 1.
-    route: the route the kernels repeat bit for bit (kernel 1, or kernel 2
-    for a FactoredLevelOp, and PyTorch's ops)."""
+    sweeps: max(1, nu - 1) + 3 + nu launches on the card at nu >= 1 for a
+    FactoredLevelOp, one fewer for a LevelOp, whose prolongation and first
+    sweep are one "prolong_sweep" call.  route: the route the kernels
+    repeat bit for bit (kernel 1, or kernel 2 for a FactoredLevelOp, and
+    PyTorch's ops)."""
     factored = isinstance(lv, FactoredLevelOp)
     if route:
         apply = functools.partial(level_apply_factored_plain,
@@ -219,8 +252,11 @@ def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
     for _ in range(nu - 2):
         x = apply(x, b, lv, "sweep", omega)
     r = apply(x, b, lv, "residual", omega)
-    x = up(x, coarser(down(r, tt, free_c)), tt)
-    for _ in range(nu):
+    xc = coarser(down(r, tt, free_c))
+    fold = nu >= 1 and not factored     # the first post-sweep prolongs
+    x = apply(x, b, lv, "prolong_sweep", omega, xc, tt) if fold \
+        else up(x, xc, tt)
+    for _ in range(nu - fold):
         x = apply(x, b, lv, "sweep", omega)
     return x
 

@@ -5,6 +5,7 @@ the V-cycle tail kernel and of the level kernels, timed on a CUDA card.
     python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tail
     python -m pelvistim_fem_tpu_torch.profile_kernels --levels # levels
     python -m pelvistim_fem_tpu_torch.profile_kernels --factored
+    python -m pelvistim_fem_tpu_torch.profile_kernels --transfers
 
 Builds the kernel library once per variant of the tile constants of
 csrc/stencil.cu (-D flags; all builds at once, each in _build/ under its
@@ -40,6 +41,15 @@ paths' tails (FACTORED: the sweep's three at 25 lanes, step04's two at
 15, 5 bodies), first held against the twin and torch.equal to the card's
 route (kernel 2 and PyTorch's ops); kernel 2 is timed cold and warm
 beside it.
+
+The transfers (`restrict_cuda`; `level_apply_cuda` in mode
+"prolong_sweep") are built at each of TRANSFER_VARIANTS (the
+restriction's tile of coarse points and threads, -DPST_RS_*; the
+prolong_sweep tile and threads, -DPST_PS_*) and timed cold and warm at
+the paths' shapes
+(RESTRICTS, PROLONG_SWEEPS), each build first held torch.equal to the
+route; prolong_add then "sweep" (the two launches "prolong_sweep"
+replaces) are timed beside it.
 """
 
 from __future__ import annotations
@@ -163,7 +173,7 @@ def print_usage(variants):
 # the level kernels' block sizes, and the grids above the paths' tails:
 # the step04 app's two, the megatet's three, step02's 8-lane fine level
 LEVEL_THREADS = (128, 256, 512)
-LEVELS = [(55, 31, 19), (28, 16, 10), (112, 68, 41), (56, 34, 21),
+LEVELS = [(55, 31, 19), (28, 16, 10), (112, 68, 41), (57, 35, 21),
           (29, 18, 11), (8, 67, 29, 8)]
 
 
@@ -238,7 +248,7 @@ def time_factored(gpu):
     for dn in ("float32", "float64"):
         dtype = getattr(torch, dn)
         for L, grid in FACTORED:
-            for mode in sk.LEVEL_MODES:
+            for mode in sk.FACTORED_MODES:
                 shape = (mode, 5, (L,) + grid)
                 args = measure.kernel_inputs(name, shape, dtype, "cuda",
                                              rng)
@@ -265,6 +275,89 @@ def time_factored(gpu):
                   f" / {measure.kernel_ms(k2, measure.input_copies(xs, warm=True)):.4f}"
                   f"  {dn} L={L} {grid} bound "
                   f"{measure.bound('batched_stencil_spmv_cuda', (L, 5, grid), dn)[0]:.6f}")
+            torch.cuda.empty_cache()
+
+
+# the transfers' builds: the restriction's small and large tiles
+# (coarse points x, y), the grid's blocks from which it takes the large
+# one, and its threads; "prolong_sweep"'s tile (fine points x, z at most)
+# and threads.  Defaults (csrc/stencil.cu): rs small (2, 4), large (4,
+# 8), from 264 blocks, 256 threads; ps (2, 32, 128)
+def transfer_flags(rs=None, ps=None):
+    flags = []
+    for pre, names, v in (("RS", ("SMALL_TX", "SMALL_TY", "LARGE_TX",
+                                  "LARGE_TY", "LARGE_BLOCKS", "THREADS"),
+                           rs),
+                          ("PS", ("TX", "TZ", "THREADS"), ps)):
+        if v is not None:
+            flags += [f"-DPST_{pre}_{n}={x}" for n, x in zip(names, v)]
+    return tuple(flags)
+
+
+TRANSFER_VARIANTS = {
+    "default": transfer_flags(),
+    "small": transfer_flags((2, 4, 4, 8, 1 << 30, 256), (1, 32, 128)),
+    "large": transfer_flags((2, 4, 4, 8, 0, 256), (2, 32, 64)),
+    "t3": transfer_flags((2, 4, 4, 4, 264, 256), (4, 32, 256)),
+    "t4": transfer_flags((2, 4, 4, 8, 264, 128), (2, 16, 128)),
+    "t5": transfer_flags((1, 4, 4, 8, 264, 256), (2, 32, 256)),
+}
+# (mask lanes, fine grid) of the paths' restrictions: the step04 app's
+# two levels, the megatet's three, step02's 8 lanes, the sweep's 25
+# lanes and the array's 64 at their fine levels (one coarse mask); and
+# the levels of level_apply "prolong_sweep" (those with their own
+# stencils)
+RESTRICTS = [(1, (55, 31, 19)), (1, (28, 16, 10)), (1, (112, 68, 41)),
+             (1, (57, 35, 21)), (1, (29, 18, 11)), (8, (8, 67, 29, 8)),
+             (1, (25, 89, 41, 19)), (1, (64, 71, 71, 24))]
+PROLONG_SWEEPS = [(1, g) for g in LEVELS[:5]] + [(8, LEVELS[5])]
+
+
+def time_transfers(gpu):
+    """restrict_cuda and level_apply_cuda "prolong_sweep" at each of
+    TRANSFER_VARIANTS on RESTRICTS and PROLONG_SWEEPS, f32 and f64, cold
+    / warm, each build held torch.equal to the route; beside
+    "prolong_sweep", prolong_add then "sweep" of the default build."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    for v, fl in TRANSFER_VARIANTS.items():
+        for k, u in sorted(sk.ptxas_usage(fl).items()):
+            if k.startswith(("restrict", "level_prolong_sweep")):
+                print(f"  {v:8s} {k:36s} {u['registers']:4d} regs "
+                      f"{u['spill_bytes']:5d} B spilled")
+    print(f"transfers' device ms cold / warm by build "
+          f"{list(TRANSFER_VARIANTS)}; {gpu}")
+    rng = np.random.default_rng(4)
+    for dn in ("float32", "float64"):
+        dtype = getattr(torch, dn)
+        jobs = [("restrict_cuda", s) for s in RESTRICTS] + \
+            [("level_apply_cuda", ("prolong_sweep", FL, g))
+             for FL, g in PROLONG_SWEEPS]
+        for name, shape in jobs:
+            args = measure.kernel_inputs(name, shape, dtype, "cuda", rng)
+            route = sk.restrict_plain(*args) if name == "restrict_cuda" \
+                else sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
+            cold = measure.input_copies(args)
+            warm = measure.input_copies(args, warm=True)
+            cells = []
+            for v, fl in TRANSFER_VARIANTS.items():
+                def kernel(*a, _fl=fl):
+                    return sk.launch(name, *a, extra_flags=_fl)
+                if not torch.equal(kernel(*args), route):
+                    raise AssertionError(f"{v} {name} {shape} {dn}: not "
+                                         "the route")
+                cells.append(f"{measure.kernel_ms(kernel, cold):.4f} / "
+                             f"{measure.kernel_ms(kernel, warm):.4f}")
+            if name == "level_apply_cuda":      # the two launches replaced
+                pa = [(c[0], c[5], c[6]) for c in cold]
+                sw = [(c[0], c[1], c[2], "sweep", c[4]) for c in cold]
+                pa_ms = measure.kernel_ms(sk.prolong_add_cuda, pa)
+                sw_ms = measure.kernel_ms(sk.level_apply_cuda, sw)
+                cells.append(f"prolong_add {pa_ms:.4f} + sweep {sw_ms:.4f}")
+            b_ms = measure.bound(name, shape, dn)[0]
+            print(f"  {'   '.join(cells)}  {name} {dn} {shape} bound "
+                  f"{b_ms:.6f}")
+            del cold
             torch.cuda.empty_cache()
 
 
@@ -313,6 +406,8 @@ def main(argv=None):
                     help="only the level kernels' block sizes")
     ap.add_argument("--factored", action="store_true",
                     help="only the body-factored level kernel")
+    ap.add_argument("--transfers", action="store_true",
+                    help="only the restriction and prolong_sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
@@ -322,12 +417,15 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(gpu)
-    every = not (args.tail or args.levels or args.factored)
+    every = not (args.tail or args.levels or args.factored or
+                 args.transfers)
     builds = [()]
     if args.tail or every:
         builds += [tail_flags(t) for t in TAIL_THREADS]
     if args.levels or every:
         builds += [level_flags(t) for t in LEVEL_THREADS]
+    if args.transfers or every:
+        builds += list(TRANSFER_VARIANTS.values())
     if every:
         builds += list(VARIANTS.values())
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -342,6 +440,8 @@ def main(argv=None):
         time_levels(gpu)
     if args.factored or every:
         time_factored(gpu)
+    if args.transfers or every:
+        time_transfers(gpu)
     return 0
 
 

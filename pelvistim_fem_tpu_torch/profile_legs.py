@@ -1,6 +1,7 @@
 """Device-time breakdown of the port's paths on a CUDA card.
 
-    python -m pelvistim_fem_tpu_torch.profile_legs
+    python -m pelvistim_fem_tpu_torch.profile_legs          # every leg
+    python -m pelvistim_fem_tpu_torch.profile_legs --mg     # MG legs only
 
 Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
 contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
@@ -26,11 +27,14 @@ the number of kernel launches, and the kernels that take the most
 device time; for the megatet, step02's batch, the step04 nonlinear
 chain and the array's two solves also the launches per MG-CG iteration
 (lane-stacked solves: over the longest lane's iterations, which the
-lanes' loop runs).
+lanes' loop runs).  `--mg` profiles only the multigrid legs: the sweep
+chunk, the megatet, step02's batch (its hierarchy built unprofiled), the
+step04 nonlinear passes and the array's basis and ensemble.
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -68,7 +72,11 @@ def _per_iteration(launches, iterations):
           f"({launches} / {iterations})")
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mg", action="store_true",
+                    help="only the multigrid legs")
+    mg = ap.parse_args(argv).mg
     if not torch.cuda.is_available():
         raise SystemExit("profile_legs: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,20 +110,23 @@ def main():
     it = out["sweep"].iterations.cpu().numpy()
     print(f"  iterations max {it.max()} mean {it.mean():.2f}")
 
-    case, _ = build_pressure_case(params, dtype=torch.float32, device=dev)
+    if not mg:
+        case, _ = build_pressure_case(params, dtype=torch.float32,
+                                      device=dev)
 
-    def extraction():
-        out["rows"] = extract_results_batched(
-            case, out["sweep"].phi.float(), params,
-            sigma_tables=tabs.float(),
-            sigma_contacts=[float(v) for v in tabs[:, 4].cpu()])
+        def extraction():
+            out["rows"] = extract_results_batched(
+                case, out["sweep"].phi.float(), params,
+                sigma_tables=tabs.float(),
+                sigma_contacts=[float(v) for v in tabs[:, 4].cpu()])
 
-    _profile("extraction", extraction)
+        _profile("extraction", extraction)
 
     levels = params["pressure_sweep"]["sigma_contact_Spm"]
     jtabs = torch.as_tensor(sigma_tables(spec, levels), device=dev)
 
-    for route, lane_minor in (("lane_minor", True), ("lane_major", False)):
+    for route, lane_minor in () if mg else (("lane_minor", True),
+                                            ("lane_major", False)):
         def jacobi(lane_minor=lane_minor):
             out["jacobi"] = batched_stencil_solve_fused(
                 scase, jtabs, tol=1e-8, maxiter=30_000,
@@ -162,33 +173,38 @@ def main():
         out["step02"] = batched_group_solve_mg_refined(
             stacked, out["bhier"], tol=1e-8, maxiter=30_000)
 
-    _profile("step02_hierarchy", step02_hierarchy)
+    if mg:
+        step02_hierarchy()
+    else:
+        _profile("step02_hierarchy", step02_hierarchy)
     n = _profile("step02_batch", step02_batch)[2]
     print(f"  iterations {out['step02'].iterations.tolist()}")
     _per_iteration(n, int(out["step02"].iterations.max()))
 
-    p3 = default_params("step03_ankle_layers")
-    scase3, stack3, cases3, _ = build_t_fat_group(
-        p3, p3["layers"]["t_fat_sweep"], 0.015, dtype=torch.float64,
-        device=dev)
-    tabs3 = torch.stack([c.sigma_table for c in cases3])
+    if not mg:
+        p3 = default_params("step03_ankle_layers")
+        scase3, stack3, cases3, _ = build_t_fat_group(
+            p3, p3["layers"]["t_fat_sweep"], 0.015, dtype=torch.float64,
+            device=dev)
+        tabs3 = torch.stack([c.sigma_table for c in cases3])
 
-    def step03_group():
-        out["step03"] = batched_geometry_solve_refined(
-            scase3, stack3, tabs3, tol=1e-8, maxiter=30_000)
+        def step03_group():
+            out["step03"] = batched_geometry_solve_refined(
+                scase3, stack3, tabs3, tol=1e-8, maxiter=30_000)
 
-    _profile("step03_group_r15", step03_group)
-    print(f"  iterations {out['step03'].iterations.tolist()} residual max "
-          f"{float(out['step03'].residual.max()):.3e}")
+        _profile("step03_group_r15", step03_group)
+        print(f"  iterations {out['step03'].iterations.tolist()} residual "
+              f"max {float(out['step03'].residual.max()):.3e}")
 
-    _profile_step04(dev)
-    _profile_array(dev)
+    _profile_step04(dev, mg)
+    _profile_array(dev, mg)
     return 0
 
 
-def _profile_step04(dev):
-    """The step04 app's thermal chain and three Picard passes of its
-    nonlinear chain, on the app's lattice at its defaults."""
+def _profile_step04(dev, mg=False):
+    """The step04 app's thermal chain (not with mg) and three Picard
+    passes of its nonlinear chain, on the app's lattice at its
+    defaults."""
     from pelvistim_fem_tpu_torch.apps.run_step04 import (
         skin_law, step04_thermal_tables)
     from pelvistim_fem_tpu_torch.models.pressure import (
@@ -216,7 +232,8 @@ def _profile_step04(dev):
         bh.solve_bioheat_transient(case, b, q[1], T[0], dt_s=60.0,
                                    n_steps=45, tol=1e-7)
 
-    _profile("step04_thermal", thermal)
+    if not mg:
+        _profile("step04_thermal", thermal)
 
     law = skin_law(tables[0], amp=4.0, e0=2000.0, w=500.0)
     dev64 = spec_device_arrays(spec, f64, dev)
@@ -232,10 +249,11 @@ def _profile_step04(dev):
     _per_iteration(n, int(out["nl"].inner_iters))
 
 
-def _profile_array(dev):
+def _profile_array(dev, mg=False):
     """run_array_opt --full's solves and design: the basis, the lead
     vectors with one Frank-Wolfe design (the app's default limit, made
-    on the device), and the 64-lane ensemble of its --robust 8."""
+    on the device; not with mg), and the 64-lane ensemble of its
+    --robust 8."""
     import numpy as np
     from pelvistim_fem_tpu_torch.mesh import core
     from pelvistim_fem_tpu_torch.models.array import (array_recipe,
@@ -283,8 +301,9 @@ def _profile_array(dev):
         out["design"] = optimize_pattern(w, J, budget=4.0, i_max=2.0,
                                          j_limit=j_limit, steps=400)
 
-    _profile("array_leads_design", design)
-    print(f"  objective {float(out['design'][1]['objective']):.6f} V/m")
+    if not mg:
+        _profile("array_leads_design", design)
+        print(f"  objective {float(out['design'][1]['objective']):.6f} V/m")
 
     def ensemble():
         out["ens"] = solve_basis_ensemble_refined(scase, hier, loads, tabs,

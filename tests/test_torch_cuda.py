@@ -113,12 +113,13 @@ def test_kernels_spill_no_registers(dev):
     1-8 points a thread with its coefficients in shared or device
     memory, the V-cycle tail in both dtypes, the lanes' combine at
     every dtype and body count, and the level kernels: level_apply in
-    its four modes, restrict and prolong_add, in both dtypes; the
+    its four modes and its "prolong_sweep" kernel, restrict at its two
+    tiles and prolong_add, in both dtypes; the
     body-factored level kernel at every dtype and body count, from x and
     from zero) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 * 8 + 2 * 4 + 2 + 2 + 2 * 8 * 2, sorted(usage)
+        + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2, sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
@@ -126,8 +127,10 @@ def test_kernels_spill_no_registers(dev):
             "coarse_cg_kernel<double,8,0>", "vcycle_tail_kernel<float>",
             "vcycle_tail_kernel<double>", "combine_lanes_kernel<float,5>",
             "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
-            "level_apply_kernel<double,3>", "restrict_kernel<float>",
-            "prolong_add_kernel<double>",
+            "level_apply_kernel<double,3>", "restrict_kernel<float,2,4>",
+            "restrict_kernel<double,4,8>", "prolong_add_kernel<double>",
+            "level_prolong_sweep_kernel<float>",
+            "level_prolong_sweep_kernel<double>",
             "level_apply_factored_kernel<float,5,4,64,0>",
             "level_apply_factored_kernel<double,5,2,32,1>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
@@ -623,7 +626,8 @@ def test_level_kernels_match_twin_and_route(dev, dtype, kind):
     level_apply_cuda in each mode within measure.check_close of its twin
     (the f32 / f64 tolerances with atol relative to max|twin|: a sweep
     scales the apply's rounding by omega / diag, up to ~1e6 here) and
-    torch.equal to the card's route (kernel 1 and PyTorch's ops);
+    torch.equal to the card's route (kernel 1 and PyTorch's ops; mode
+    "prolong_sweep": prolong_add's ops, then the sweep's);
     restrict_cuda and prolong_add_cuda torch.equal to their twins (the
     route's own ops)."""
     from pelvistim_fem_tpu_torch.ops.kernels import measure
@@ -636,16 +640,18 @@ def test_level_kernels_match_twin_and_route(dev, dtype, kind):
         shape = tuple(lv.C.shape[:-4]) + tuple(lv.C.shape[-3:])
         x = _rand(rng, shape, dt, dev)
         b = torch.where(lv.free, _rand(rng, shape, dt, dev), 0.0)
-        for mode in sk.LEVEL_MODES:
-            y = sk.level_apply_cuda(x, b, lv, mode)
-            measure.check_close(f"level {l} {mode}", y,
-                                sk.level_apply_plain(x, b, lv, mode), dt)
-            assert torch.equal(y, sk.level_apply_plain(
-                x, b, lv, mode, spmv=sk.stencil_spmv_cuda)), (l, mode)
         tt = h.transfers[l].kernel_tables(dev, dt)
+        xc = _rand(rng, shape[:-3] + tuple(nxt.C.shape[-3:]), dt, dev)
+        for mode in sk.LEVEL_MODES:
+            args = (x, b, lv, mode, 0.7) + (
+                (xc, tt) if mode == "prolong_sweep" else ())
+            y = sk.level_apply_cuda(*args)
+            measure.check_close(f"level {l} {mode}", y,
+                                sk.level_apply_plain(*args), dt)
+            assert torch.equal(y, sk.level_apply_plain(
+                *args, spmv=sk.stencil_spmv_cuda)), (l, mode)
         assert torch.equal(sk.restrict_cuda(b, tt, nxt.free),
                            sk.restrict_plain(b, tt, nxt.free))
-        xc = _rand(rng, shape[:-3] + tuple(nxt.C.shape[-3:]), dt, dev)
         assert torch.equal(sk.prolong_add_cuda(x, xc, tt),
                            sk.prolong_add_plain(x, xc, tt))
 
@@ -654,8 +660,9 @@ def test_v_cycles_through_the_level_kernels_equal_the_route(dev):
     """One V-cycle with the levels above the tail through the level
     kernels torch.equal to the route (route=True), f32 and f64, for one
     operator (make_v_cycle) and two lanes with their own stencils and
-    masks (_fused_cycle); 6 launches a level above the tail, kernel 1
-    never; the CG's masked operator torch.equal to _operator's."""
+    masks (_fused_cycle); 5 launches a level above the tail (the
+    prolongation in "prolong_sweep"), kernel 1 never; the CG's masked
+    operator torch.equal to _operator's."""
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
     from pelvistim_fem_tpu_torch.ops import stencil as tst
     rng = np.random.default_rng(61)
@@ -672,7 +679,7 @@ def test_v_cycles_through_the_level_kernels_equal_the_route(dev):
         assert sk.LAUNCHES["stencil_spmv_cuda"] == 0
         assert sk.LAUNCHES["level_apply_cuda"] == 4 * t
         assert sk.LAUNCHES["restrict_cuda"] == t
-        assert sk.LAUNCHES["prolong_add_cuda"] == t
+        assert sk.LAUNCHES["prolong_add_cuda"] == 0
         levels, st = _level_hierarchy(hier, tabs, dt, "lanes", rng, dev)
         sig = tabs.to(dt)
         pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sig)
@@ -703,10 +710,15 @@ def test_level_wrappers_count_and_refuse(dev):
     xc = torch.zeros(tt.shape[1], device=dev)
     sk.reset_launches()
     sk.level_apply(x, b, lv, "sweep")
+    sk.level_apply(x, b, lv, "prolong_sweep", 0.7, xc, tt)
     sk.restrict(r, tt, free_c)
     sk.prolong_add(x, xc, tt)
     assert (sk.LAUNCHES["level_apply_cuda"], sk.LAUNCHES["restrict_cuda"],
-            sk.LAUNCHES["prolong_add_cuda"]) == (1, 1, 1)
+            sk.LAUNCHES["prolong_add_cuda"]) == (2, 1, 1)
+    with pytest.raises(ValueError, match="takes xc and tt"):
+        sk.level_apply_cuda(x, b, lv, "prolong_sweep")
+    with pytest.raises(ValueError):
+        sk.level_apply_cuda(x, b, lv, "prolong_sweep", 0.7, xc[:2], tt)
     with pytest.raises(TypeError):
         sk.level_apply_cuda(x.double(), b.double(), lv, "sweep")
     with pytest.raises(ValueError):
@@ -720,7 +732,7 @@ def test_level_wrappers_count_and_refuse(dev):
     with pytest.raises(TypeError):
         sk.restrict_cuda(r, tt, free_c.float())
     assert (sk.LAUNCHES["level_apply_cuda"], sk.LAUNCHES["restrict_cuda"],
-            sk.LAUNCHES["prolong_add_cuda"]) == (1, 1, 1)
+            sk.LAUNCHES["prolong_add_cuda"]) == (2, 1, 1)
 
 
 # ── the body-factored level kernel ──────────────────────────────────────
@@ -745,7 +757,7 @@ def _check_factored(dev, dtype, L, B, grid, seed):
     x, b, lv, _, omega = measure.kernel_inputs(
         "level_apply_factored_cuda", ("sweep", B, (L,) + grid), dt, dev,
         np.random.default_rng(seed))
-    for mode in sk.LEVEL_MODES:
+    for mode in sk.FACTORED_MODES:
         xa = None if mode == "sweep0" else x
         ba = None if mode == "masked" else b
         y = sk.level_apply_factored_cuda(xa, ba, lv, mode, omega)

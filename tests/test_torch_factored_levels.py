@@ -257,7 +257,7 @@ def test_cuda_wrapper_refuses_cpu_tensors(coarse04):
     x = torch.zeros((tabs.shape[0],) + tuple(hier.levels[0].free.shape),
                     dtype=F64)
     before = sk.LAUNCHES["level_apply_factored_cuda"]
-    for mode in sk.LEVEL_MODES:
+    for mode in sk.FACTORED_MODES:
         with pytest.raises(ValueError, match="must lie on"):
             sk.level_apply_factored_cuda(x, x, lv, mode)
     for fn in (sk.level_apply_factored_plain, sk.level_apply_factored_cuda):

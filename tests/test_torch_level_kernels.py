@@ -255,12 +255,14 @@ def test_cycle_impl_equals_the_route_before_the_dinv_hoist(coarse04, dtype,
                                      B, nu, zero_start=True))
 
 
-@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("nu", [0, 1, 2, 3])
 def test_a_level_takes_its_launches(coarse04, monkeypatch, nu):
     """Per V-cycle, each level above the coarsest calls the dispatch
-    max(1, nu - 1) + 3 + nu times (one launch each on the card):
-    level_apply max(0, nu - 2) + 2 + nu ("sweep0" once at nu >= 2; the
-    residual; nu - 2 and nu sweeps), restrict and prolong_add once."""
+    max(1, nu - 1) + 2 + nu times at nu >= 1 (one launch each on the
+    card): level_apply max(0, nu - 2) + 2 + nu ("sweep0" once at nu >=
+    2; the residual; nu - 2 sweeps, then "prolong_sweep", the
+    prolongation with the first post-sweep, and nu - 1 sweeps), restrict
+    once; prolong_add only at nu = 0, once."""
     hier, tabs = coarse04
     calls = []
     for name in ("level_apply", "restrict", "prolong_add"):
@@ -279,11 +281,14 @@ def test_a_level_takes_its_launches(coarse04, monkeypatch, nu):
     above = n - 1
     per = {("level_apply", "sweep0"): int(nu >= 2),
            ("level_apply", "residual"): 1,
-           ("level_apply", "sweep"): max(0, nu - 2) + nu,
-           ("restrict", None): 1, ("prolong_add", None): 1}
+           ("level_apply", "sweep"): max(0, nu - 2) + max(0, nu - 1),
+           ("level_apply", "prolong_sweep"): int(nu >= 1),
+           ("restrict", None): 1, ("prolong_add", None): int(nu == 0)}
     got = {k: calls.count(k) for k in per}
     assert got == {k: v * above for k, v in per.items()}
-    assert len(calls) == (max(1, nu - 1) + 3 + nu) * above - (nu < 2) * above
+    assert len(calls) == sum(per.values()) * above
+    if nu:
+        assert sum(per.values()) == max(1, nu - 1) + 2 + nu - (nu < 2)
 
 
 def test_v_cycle_through_the_level_dispatch_matches_reference_f64():
