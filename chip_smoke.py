@@ -128,11 +128,29 @@ through its paths at the benchmark's full sizes, and imports no JAX:
  14. smoke      the step03 smoke test (apps/smoke_test): one coarse
                 layered-ankle case through runner.solve_auto (kernel 1),
                 every check of the JAX app
- 15. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
+ 15. adapt      run_step03 --adapt 2 on the step03 anchor at its default
+                resolution ((55, 31, 19), 167,104 tets): ZZ estimate,
+                every axis regraded at the same cell count, certified
+                stencil solves (kernel 1); rel, flux_err and the knots
+                against the JAX package's anchors
+ 16. adapt-local  run_step03 --adapt-local 2 (theta 0.5): Doerfler
+                marking, Maubach bisection and certified AMG-CG solves
+                (plain PyTorch ops on the card; no kernel of this repo),
+                each true residual recomputed with the element operator;
+                cycle 0 against the anchors, later cycles printed beside
+                them; hierarchy build time and levels per cycle
+ 17. imported   the anchor case with its lattice stripped and its bcids
+                scrambled, written to a .msh, an Elmer DB and a VTU, read
+                back and solved by solve_imported (AMG) against the
+                lattice path's solve (kernel 1); meshtool inspect and
+                convert, crossval_elmer twice
+ 18. zz-grid    lattice_zz_error on the sweep's spec at one lane against
+                the element path's zz_error_indicators on its Case, f64
+ 19. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
                 stencil (solve_bioheat_stencil, kernel 1) against the
                 element path (solve_bioheat): iterations within 3, T
                 within 1e-8 degC
- 16. probes     the dev SpMV probes' entry points at full size:
+ 20. probes     the dev SpMV probes' entry points at full size:
                 spmv_kernels_ab (the megatet stencil assembled in f32:
                 kernel 1, the 3-row plane-FMA probe and the bf16-coefficient
                 kernel, each against its twin, then timed) and
@@ -143,7 +161,7 @@ through its paths at the benchmark's full sizes, and imports no JAX:
 The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
-each of the paths 4-16 and read after it; each path must have launched
+each of the paths 4-20 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
 sweep, megatet, jacobi, step02, step04 and array the V-cycle tail; the
 sweep, jacobi, step04 and array the lanes' combine; the megatet, step02
@@ -388,6 +406,114 @@ ARRAY_ANCHORS = {
         [0.7450340986251831, 1.453331470489502, 1.8899221420288086,
          1.895509958267212, 1.895509958267212], 1.28e-06),
 }
+# run_step03 --adapt 2 and --adapt-local 2 (theta 0.5) on the step03
+# anchor at its default resolution (the step04 app's lattice, STEP04_GRID),
+# against the JAX package's own calls of the same loops
+# (dev/torch_port_anchors.py --only-adapt, 64 s on the CPU).  --adapt, per
+# cycle: tets, the certified stencil solve's iterations (printed, not held:
+# the f32 Jacobi inner passes follow rounding), rel and flux_err; the
+# knots of the adapted cycles, each axis as (xs, ys, zs) to 12 digits, held
+# to 1e-9 of the axis length or 4x the largest knot move the reference's
+# own loop makes under one f32 unit on every conductivity
+# (ADAPT_KNOT_SPREAD, same script), whichever is larger.
+# --adapt-local, per cycle: tets, the AMG-CG iterations, rel, flux_err,
+# peak_J_skin_no_elec, and the Doerfler marks' count and sha1 (of
+# np.packbits) that make the next cycle's mesh.
+ADAPT_KEEP_Z = [0.0, 0.0335, 0.0385, 0.04, 0.0405]
+ADAPT_CYCLES = [
+    dict(tets=167104, iterations=1338, rel=0.18522639838597632,
+         flux_err=0.0106),
+    dict(tets=163450, iterations=1686, rel=0.14156605928210123,
+         flux_err=0.0113),
+    dict(tets=164016, iterations=1903, rel=0.1427474124212219,
+         flux_err=0.008661),
+]
+ADAPT_KNOT_SPREAD = [0.0, 5.710177701049683e-11, 2.4388458266799695e-09]
+ADAPT_KNOTS = [
+    (
+        (0, 0.00317090371839, 0.00430773149993, 0.00527381256472,
+         0.00621830195625, 0.00726449788382, 0.00835150172361,
+         0.0094796550534, 0.0106905398342, 0.0118404250011,
+         0.0130165604772, 0.0141951452445, 0.015368897956, 0.0165429660951,
+         0.0177102588481, 0.018755695372, 0.0198412945818, 0.0209733382636,
+         0.0220136747822, 0.0230298841158, 0.0239770757869,
+         0.0248325129096, 0.0257873142317, 0.0270392221796,
+         0.0304207832803, 0.0411682431164, 0.0500497708513,
+         0.0527998333511, 0.0539698817141, 0.0547849463979,
+         0.0555522145041, 0.0563023515499, 0.0571655590854,
+         0.0580454799072, 0.0589383981391, 0.0599208348424,
+         0.0609257513857, 0.0618565332459, 0.0628370878858,
+         0.0638455746724, 0.0648744996155, 0.0659037113439,
+         0.0669181168363, 0.0679136985095, 0.0688440864276,
+         0.0698276047791, 0.0708499172378, 0.0717512944187, 0.072641529205,
+         0.0735213154284, 0.0742856732956, 0.0750386916533,
+         0.0758759450987, 0.0769519122622, 0.08),
+        (0, 0.0255459782894, 0.0320508440626, 0.0335813571564,
+         0.0343866910696, 0.0351800102613, 0.0359349556129,
+         0.0367382931965, 0.0376092543582, 0.0384981871402,
+         0.0394113239582, 0.0404232347355, 0.0413752088941,
+         0.0423166692564, 0.043302337211, 0.0442976842436, 0.0452967055521,
+         0.0462962086563, 0.0472779132166, 0.048222198677, 0.0491125320646,
+         0.0500863388056, 0.0510445249037, 0.0519237063922,
+         0.0527872530249, 0.0536412164915, 0.0543687960931,
+         0.0551087587004, 0.0559298226851, 0.0570244132334, 0.06),
+        (0, 0.00688199578456, 0.0137639915691, 0.0206459873537,
+         0.0275279831383, 0.0335, 0.0353893302777, 0.0370090469187, 0.0385,
+         0.0387312928395, 0.0389625856789, 0.0391647069882, 0.039361198829,
+         0.039544571758, 0.039696381172, 0.039848190586, 0.04, 0.04025,
+         0.0405),
+    ),
+    (
+        (0, 0.00372452067578, 0.00474036655394, 0.00551792840657,
+         0.0063443890916, 0.00733211586174, 0.00837035385694,
+         0.00948497818013, 0.0107271876919, 0.0118737812617,
+         0.0130831556497, 0.0143131049306, 0.0155470713078,
+         0.0167564624603, 0.0179121191483, 0.019018163985, 0.0201249107158,
+         0.0212374868768, 0.0222462690039, 0.0231433059729,
+         0.0240042479135, 0.0247284393986, 0.025483921535, 0.0267349492423,
+         0.0336687302211, 0.0501293760733, 0.0533804179791,
+         0.0544051968679, 0.0550577705998, 0.0556475151331,
+         0.0562599801786, 0.0570149041738, 0.0577928135584,
+         0.0585960469934, 0.0594668319359, 0.0604150906419,
+         0.0613604164429, 0.0622937770335, 0.0632791775699,
+         0.0642906254638, 0.0653116620828, 0.0663236322596,
+         0.0673080896458, 0.0682578224919, 0.0691887017032,
+         0.0701490347551, 0.0710936412133, 0.0719341370964,
+         0.0727540157896, 0.0735353061499, 0.0741596956716,
+         0.0747655191242, 0.0754243677084, 0.0763763620405, 0.08),
+        (0, 0.0266819058343, 0.0329633650863, 0.0343629194449,
+         0.0349929973315, 0.0356078337112, 0.0362748388893,
+         0.0370350942675, 0.0378568939484, 0.0387033217184,
+         0.0395958254775, 0.0405919256005, 0.0415341617257,
+         0.0424961234856, 0.0434704422842, 0.0444592337206,
+         0.0454558298899, 0.0464446815607, 0.047416524825, 0.0483466583177,
+         0.0492643781169, 0.0502264410241, 0.0511415876136,
+         0.0519402594396, 0.0527648228807, 0.0535341180639,
+         0.0541690202009, 0.0547632233696, 0.0554118393875,
+         0.0563718878579, 0.06),
+        (0, 0.00558333333333, 0.0111666666667, 0.01675, 0.0223333333333,
+         0.0279166666667, 0.0335, 0.0363655171693, 0.0385, 0.038790328906,
+         0.0390541333714, 0.0392835370692, 0.0394834636145,
+         0.0396429750291, 0.0397760032558, 0.0398935647158, 0.04,
+         0.0402051022201, 0.0405),
+    ),
+]
+ADAPT_LOCAL_CYCLES = [
+    dict(tets=167104, iterations=28, rel=0.1852263983756703,
+         flux_err=0.0106, peak_J=43.187425,
+         marked=683,
+         marks_sha1="8bf5d6a3a8eb0a3c7ad32c762eb602036ba7476a"),
+    dict(tets=168600, iterations=28, rel=0.17267352208028985,
+         flux_err=0.00865, peak_J=41.295931,
+         marked=1154,
+         marks_sha1="861d6d671004c2c1ebca04c7c505bcdd8ca652a8"),
+    dict(tets=171156, iterations=28, rel=0.15583002860658185,
+         flux_err=0.004718, peak_J=57.785997,
+         marked=1823,
+         marks_sha1="02d3a17f4ee0123fd941de2d2cdbac94f270a4ec"),
+]
+# the zz-grid path's lane of the sweep (the middle contact conductivity)
+ZZ_LANE = 50
 # apps/smoke_test --device cuda: the JAX app's checks, in its order
 SMOKE_CHECKS = ["solution produced", "phi finite",
                 "max(phi) > 0 (current mode)", "J finite",
@@ -2034,6 +2160,278 @@ def phase_smoke(dev, gpu):
     return dict(wall_s=wall)
 
 
+def _allocation(knots, keep):
+    """Cells per kept segment of a knot vector."""
+    k = np.asarray(knots)
+    edges = np.unique(np.concatenate([[k[0], k[-1]], keep]))
+    return np.histogram(0.5 * (k[1:] + k[:-1]), bins=edges)[0].tolist()
+
+
+def phase_adapt(dev, gpu, outdir):
+    """apps/run_step03 --adapt 2 on the card (kernel 1 carries every
+    certified solve): each cycle certified, rel within rtol 1e-5 and
+    flux_err within 1e-5 of the JAX anchors, each adapted knot vector
+    within 1e-9 of its axis length of the anchors' (or 4x the reference's
+    own spread under one f32 unit, where that is larger) wherever the
+    cells per kept segment agree (an allocation that differs is
+    printed)."""
+    from pelvistim_fem_tpu_torch.apps import run_step03
+    out, wall, _ = run_app(run_step03, ["--adapt", "2", "--device", dev,
+                                        "--outdir", str(outdir / "adapt")])
+    cycles = out["cycles"]
+    if out["exit"] != 0 or len(cycles) != len(ADAPT_CYCLES):
+        raise AssertionError(f"adapt: exit {out['exit']}, "
+                             f"{len(cycles)} cycles")
+    keeps = ((), (), ADAPT_KEEP_Z)
+    for i, (c, a) in enumerate(zip(cycles, ADAPT_CYCLES)):
+        if not c["residual"] <= TOL or c["grid"] != STEP04_GRID or \
+                abs(c["rel"] - a["rel"]) > 1e-5 * a["rel"] or \
+                abs(c["flux_err"] - a["flux_err"]) > 1e-5:
+            raise AssertionError(f"adapt cycle {i}: {c['grid']} true "
+                                 f"residual {c['residual']:.3e}, rel "
+                                 f"{c['rel']!r} (anchor {a['rel']!r}), "
+                                 f"flux_err {c['flux_err']!r} (anchor "
+                                 f"{a['flux_err']!r})")
+        off = []
+        for ax, (k, keep) in enumerate(zip(c["knots"], keeps)):
+            want = ADAPT_KNOTS[i - 1][ax] if i else None
+            if want is None:
+                continue
+            got_a, want_a = _allocation(k, keep), _allocation(want, keep)
+            if got_a != want_a:
+                log(f"adapt cycle {i} axis {'xyz'[ax]}: cells per kept "
+                    f"segment {got_a}, the anchors' {want_a}: knots not "
+                    "held")
+                continue
+            d = float(np.abs(np.asarray(k) - want).max()
+                      / (want[-1] - want[0]))
+            if len(k) != len(want) or not d <= max(
+                    1e-9, 4 * ADAPT_KNOT_SPREAD[i]):
+                raise AssertionError(f"adapt cycle {i} axis {'xyz'[ax]}: "
+                                     f"knots {d:.3e} of the axis off the "
+                                     "anchors'")
+            off.append(d)
+        log(f"adapt cycle {i}: {c['tets']:,} tets (anchor {a['tets']:,}), "
+            f"true residual {c['residual']:.3e}, {c['iterations']} "
+            f"iterations (anchor {a['iterations']}), rel {c['rel']:.8f} "
+            f"(anchor {a['rel']:.8f}), flux_err {c['flux_err']} (anchor "
+            f"{a['flux_err']})"
+            + (f", knots within {max(off):.3e} of the axis" if off else "")
+            + f"; {c['wall_s']:.3f} s")
+    log(f"adapt: app wall {wall:.4f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
+def phase_adapt_local(dev, gpu, outdir):
+    """apps/run_step03 --adapt-local 2 (theta 0.5) on the card, every
+    solve on the AMG element path: each certified, its true f64 residual
+    recomputed with the plain element operator <= 1e-8; cycle 0 (the
+    reference's mesh) within 2 AMG-CG iterations of the anchor and rel,
+    flux_err, peak_J_skin_no_elec as --adapt's; later cycles printed
+    beside the anchors, their tets held where the Doerfler marks that
+    made them agree; the app's own gate (no growth above 10%)."""
+    import hashlib
+
+    import torch
+    from pelvistim_fem_tpu_torch.apps import run_step03
+    from pelvistim_fem_tpu_torch.ops.solve import _case_operator
+    out, wall, _ = run_app(run_step03, [
+        "--adapt-local", "2", "--theta", "0.5", "--device", dev,
+        "--outdir", str(outdir / "adapt_local")])
+    cycles = out["cycles"]
+    if out["exit"] != 0 or len(cycles) != len(ADAPT_LOCAL_CYCLES):
+        raise AssertionError(f"adapt-local: exit {out['exit']}, "
+                             f"{len(cycles)} cycles")
+    same_marks = True
+    for i, (c, a) in enumerate(zip(cycles, ADAPT_LOCAL_CYCLES)):
+        op, _, b = _case_operator(c["case"], c["case"].sigma_table)
+        r = torch.where(c["case"].free_mask, b - op(c["phi"]), 0.0)
+        bf = torch.where(c["case"].free_mask, b, 0.0)
+        true = float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(bf))
+        if not (c["residual"] <= TOL and true <= TOL):
+            raise AssertionError(f"adapt-local cycle {i}: residual "
+                                 f"{c['residual']:.3e}, recomputed "
+                                 f"{true:.3e}")
+        if i == 0 and (abs(c["iterations"] - a["iterations"]) > 2 or
+                       abs(c["rel"] - a["rel"]) > 1e-5 * a["rel"] or
+                       abs(c["flux_err"] - a["flux_err"]) > 1e-5 or
+                       abs(c["peak_J_skin_no_elec"] - a["peak_J"])
+                       > 1e-5 * a["peak_J"] or c["tets"] != a["tets"]):
+            raise AssertionError(f"adapt-local cycle 0: {c} against the "
+                                 f"anchors {a}")
+        if i and same_marks and c["tets"] != a["tets"]:
+            raise AssertionError(f"adapt-local cycle {i}: {c['tets']} "
+                                 f"tets from the anchors' marks, not "
+                                 f"{a['tets']}")
+        marks = c.get("marked")
+        if marks is not None:
+            sha = hashlib.sha1(np.packbits(marks)).hexdigest()
+            same_marks = sha == a["marks_sha1"]
+        log(f"adapt-local cycle {i}: {c['tets']:,} tets (anchor "
+            f"{a['tets']:,}), {c['iterations']} AMG-CG iterations (anchor "
+            f"{a['iterations']}), true residual {c['residual']:.3e} "
+            f"(recomputed {true:.3e}), rel {c['rel']:.8f} (anchor "
+            f"{a['rel']:.8f}), flux_err {c['flux_err']} (anchor "
+            f"{a['flux_err']}), peak_J_skin_no_elec "
+            f"{c['peak_J_skin_no_elec']} (anchor {a['peak_J']})"
+            + ("" if marks is None else
+               f"; {int(marks.sum())} marked (anchor {a['marked']}), "
+               f"{'the same' if same_marks else 'other'} marks")
+            + f"; amg: {len(c['amg_sizes'])} levels {c['amg_sizes']}, "
+            f"built in {c['amg_build_s']:.3f} s; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in c["phases"].items()))
+    log(f"adapt-local: app wall {wall:.4f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
+def phase_imported(dev, gpu, outdir):
+    """The step03 anchor case with its lattice stripped and its bcids
+    scrambled (1 -> 7, 2 -> 9), written by the port's writers to a Gmsh
+    .msh, an Elmer mesh DB and a VTU, read back by read_mesh_any and
+    solved by solve_imported on the card (AMG): each phi within 1e-7
+    max|phi| of the lattice path's solve of the same case (kernel 1),
+    each row within rtol 1e-5 (flux_err 1e-5); meshtool inspect and
+    convert once; crossval_elmer without a result VTU (it writes its
+    own) and then against it (relative L2 <= 5e-10: the VTU keeps 10
+    significant digits)."""
+    import dataclasses
+
+    import torch
+    from pelvistim_fem_tpu_torch.apps import crossval_elmer, meshtool
+    from pelvistim_fem_tpu_torch.mesh.io_elmer import write_elmer_mesh
+    from pelvistim_fem_tpu_torch.mesh.io_msh import write_msh2
+    from pelvistim_fem_tpu_torch.models.ankle import build_layered_case
+    from pelvistim_fem_tpu_torch.models.imported import solve_imported
+    from pelvistim_fem_tpu_torch.ops.metrics import extract_results
+    from pelvistim_fem_tpu_torch.runner import solve_auto
+    from pelvistim_fem_tpu_torch.utils.sif import export_elmer_case
+    from pelvistim_fem_tpu_torch.utils.vtu import write_vtu
+    t_start = time.perf_counter()
+    d = outdir / "imported"
+    d.mkdir()
+    case, params, mesh = build_layered_case(dtype=torch.float64,
+                                            with_mesh=True, device=dev)
+    if mesh.lattice.grid_shape != STEP04_GRID or \
+            case.n_tets != STEP04_TETS:
+        raise AssertionError(f"imported: the anchor is "
+                             f"{mesh.lattice.grid_shape}, {case.n_tets} "
+                             "tets")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = solve_auto(case, mesh, tol=TOL)
+    ref_row = extract_results(case, ref.phi, params, verbose=False)
+    bc = mesh.face_bcid.copy()
+    bc[bc == 1], bc[bc == 2] = 7, 9
+    m = dataclasses.replace(mesh, face_bcid=bc, lattice=None)
+    t0 = time.perf_counter()
+    write_elmer_mesh(m, d / "elmer_mesh")
+    write_msh2(m, d / "mesh.msh")
+    write_vtu(d / "mesh.vtu", m, cell_data={"GeometryIds": np.concatenate(
+        [m.tet_body, m.face_bcid + 100]).astype(np.int32)},
+        include_boundary=True)
+    t_write = time.perf_counter() - t0
+    scale = float(ref.phi.abs().max())
+    for src in ("elmer_mesh", "mesh.msh", "mesh.vtu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            c, res, row, _ = solve_imported(d / src, params, verbose=False,
+                                            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dphi = float((res.phi - ref.phi).abs().max()) / scale
+        worst = max(abs(row[k] - ref_row[k]) / abs(ref_row[k])
+                    for k in STEP03_KEYS)
+        if not (bool(res.converged) and float(res.residual) <= TOL and
+                dphi <= 1e-7 and worst <= 1e-5 and
+                abs(row["flux_err"] - ref_row["flux_err"]) <= 1e-5 and
+                res.phi.device.type == torch.device(dev).type):
+            raise AssertionError(f"imported {src}: residual "
+                                 f"{float(res.residual):.3e}, phi "
+                                 f"{dphi:.3e} max|phi| off the lattice "
+                                 f"path's, rows {worst:.3e}")
+        log(f"imported {src}: {int(res.iterations)} AMG-CG iterations, "
+            f"true residual {float(res.residual):.3e}; phi within "
+            f"{dphi:.3e} max|phi| of the lattice path's "
+            f"({int(ref.iterations)} iterations), rows "
+            f"({', '.join(STEP03_KEYS)}) within {worst:.3e}, flux_err "
+            f"{row['flux_err']} ({ref_row['flux_err']}); amg: "
+            f"{len(res.amg.levels)} levels {res.amg.sizes}, built in "
+            f"{res.amg.build_s:.3f} s; read + "
+            f"build + solve + rows {wall:.3f} s")
+    info, _, _ = run_app(meshtool, ["inspect", str(d / "mesh.msh")])
+    run_app(meshtool, ["convert", str(d / "mesh.msh"),
+                       str(d / "converted.vtu")])
+    back, _, _ = run_app(meshtool, ["inspect", str(d / "converted.vtu")])
+    if (info["tets"], info["nodes"]) != (STEP04_TETS, STEP04_NODES) or \
+            (back["tets"], back["nodes"]) != (STEP04_TETS, STEP04_NODES):
+        raise AssertionError(f"imported: meshtool inspect {info}, after "
+                             f"convert {back}")
+    export_elmer_case(case, m, d / "case")
+    first, _, _ = run_app(crossval_elmer, [str(d / "case"), "--device",
+                                           dev])
+    second, _, text = run_app(crossval_elmer, [str(d / "case"), "--device",
+                                               dev])
+    if not first["wrote"] or second["exit"] != 0 or \
+            not second["potential_rel_l2"] <= 5e-10 or \
+            not second["Jmag_rel_l2"] <= 5e-10:
+        raise AssertionError(f"imported: crossval_elmer {second}")
+    wall = time.perf_counter() - t_start
+    log(f"imported: meshtool inspect {info['nodes']} nodes {info['tets']} "
+        f"tets, radius ratio min {info['radius_ratio_min']:.3f}, min "
+        f"dihedral {info['min_dihedral']:.1f} deg, {info['slivers']} "
+        f"slivers; convert -> VTU -> inspect the same; crossval_elmer "
+        f"potential rel-L2 {second['potential_rel_l2']:.3e}, |J| "
+        f"{second['Jmag_rel_l2']:.3e}; writers {t_write:.3f} s; wall "
+        f"{wall:.3f} s on {gpu}")
+    return dict(wall_s=wall)
+
+
+def phase_zz_grid(dev, gpu, sweep):
+    """lattice_zz_error on the sweep's (89, 41, 19) spec at one lane's
+    sigma, against zz_error_indicators on its 361,920-tet Case in f64:
+    per cell eta^2 within 1e-10 of the largest, rel within 1e-12."""
+    import torch
+    from pelvistim_fem_tpu_torch.models.pressure import build_pressure_case
+    from pelvistim_fem_tpu_torch.ops.estimate import (zz_error_indicators,
+                                                      zz_global_error)
+    from pelvistim_fem_tpu_torch.ops.stencil_estimate import \
+        lattice_zz_error
+    lane = ZZ_LANE
+    spec, tab = sweep["spec"], sweep["tables"][lane]
+    phi = sweep["phi"][lane]
+    t0 = time.perf_counter()
+    out = lattice_zz_error(spec, phi, tab.cpu().numpy(), device=dev)
+    eta2 = out["eta2_cells"].cpu().numpy()
+    t_grid = time.perf_counter() - t0
+    case, _ = build_pressure_case(sweep["params"], dtype=torch.float64,
+                                  device=dev)
+    t0 = time.perf_counter()
+    eta_e = zz_error_indicators(case, phi, tab).cpu().numpy()
+    _, rel_e = zz_global_error(case, phi, tab)
+    t_elem = time.perf_counter() - t0
+    # kept tet r -> its lattice cell (cell-major, class-minor, carving
+    # keeps the order)
+    keep = np.asarray(spec.body6).transpose(1, 2, 3, 0).reshape(-1) > 0
+    if keep.sum() != case.n_tets or case.n_tets != SWEEP_TETS:
+        raise AssertionError(f"zz-grid: {keep.sum()} kept slots, "
+                             f"{case.n_tets} tets")
+    cell = np.repeat(np.arange(keep.size // 6), 6)[keep]
+    want = np.bincount(cell, weights=eta_e ** 2,
+                       minlength=eta2.size).reshape(eta2.shape)
+    d = float(np.abs(eta2 - want).max() / want.max())
+    d_rel = abs(float(out["rel"]) - float(rel_e)) / float(rel_e)
+    if not (d <= 1e-10 and d_rel <= 1e-12 and np.isfinite(eta2).all()):
+        raise AssertionError(f"zz-grid: cells {d:.3e} of the largest off "
+                             f"the element path, rel {d_rel:.3e}")
+    log(f"zz-grid: sweep lane {lane} (sigma_contact "
+        f"{float(tab[4]):.3e} S/m) on {spec.grid_shape}: rel "
+        f"{float(out['rel']):.10f} (element path {float(rel_e):.10f}, "
+        f"{d_rel:.2e} apart), per-cell eta^2 within {d:.2e} of the "
+        f"largest; grid {t_grid:.4f} s, element path {t_elem:.4f} s on "
+        f"{gpu}")
+    return dict(wall_s=t_grid + t_elem)
+
+
 def phase_bioheat_stencil(dev, gpu):
     """On the step04 app's mesh in f64, the Pennes solve on the stencil
     (kernel 1) against the element path: iterations within 3, T within
@@ -2173,7 +2571,7 @@ def main():
     del hiers
     log(f"levels: done in {time.perf_counter() - t0:.1f} s")
 
-    # 4-16. the paths, each counted on its own
+    # 4-20. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
     first = {}
@@ -2243,7 +2641,14 @@ def main():
                                FACTORED, *LEVEL_NAMES[1:]],
                      phase_array, dev, gpu, outdir)
         smoke = path("smoke", ["stencil_spmv_cuda"], phase_smoke, dev, gpu)
+        adapt = path("adapt", ["stencil_spmv_cuda"], phase_adapt, dev, gpu,
+                     outdir)
+        adapt_local = path("adapt-local", [], phase_adapt_local, dev, gpu,
+                           outdir)
+        imported = path("imported", ["stencil_spmv_cuda"], phase_imported,
+                        dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
+    zz = path("zz-grid", [], phase_zz_grid, dev, gpu, sweep)
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
                 phase_bioheat_stencil, dev, gpu)
     probes = path("probes", ["stencil_spmv_cuda", "stencil_spmv_bf16c_cuda",
@@ -2371,8 +2776,11 @@ def main():
         f"serial check {step02s['wall_s']:.4f} s, step03 --batch "
         f"{step03['wall_s']:.4f} s, step04 --thermal --nonlinear "
         f"{step04['wall_s']:.4f} s, array {array['wall_s']:.4f} s, smoke "
-        f"{smoke['wall_s']:.4f} s; bioheat-stencil {heat['wall_s']:.4f} s; "
-        f"probes {probes['wall_s']:.4f} s")
+        f"{smoke['wall_s']:.4f} s, adapt {adapt['wall_s']:.4f} s, "
+        f"adapt-local {adapt_local['wall_s']:.4f} s, imported "
+        f"{imported['wall_s']:.4f} s; zz-grid {zz['wall_s']:.4f} s; "
+        f"bioheat-stencil {heat['wall_s']:.4f} s; probes "
+        f"{probes['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,7 @@ chip_smoke.py holds the PyTorch port's card run against).
                                      [--coarse-step03] [--only-step04]
                                      [--only-array [--array-eps N]]
                                      [--array-fw-noise N]
+                                     [--only-adapt [--adapt-cycles N]]
 
 Prints one JSON object:
   step01   the five gate values of apps/run_step01 (box, solve_auto)
@@ -51,6 +52,15 @@ Prints one JSON object:
            -1, 0 or +1 f32 unit at random, N draws, on the tiny array
            of tests/test_leadfield.py (K = 4) and at --full: each dose's
            largest relative move
+  adapt    (--only-adapt) apps/run_step03 --adapt N and --adapt-local N
+           (theta 0.5) at the default resolution, their own calls cycle
+           by cycle: per cycle the tets, the knot vectors (--adapt), the
+           certified iterations and residual, the estimate (eta, rel),
+           flux_err and peak_J_skin_no_elec, and for --adapt-local the
+           Doerfler-marked count and the sha1 of the packed marks; and
+           (knot_spread) per --adapt cycle the largest knot move, over
+           two runs with every conductivity moved by +-1 f32 unit, in
+           its axis length (~2 min)
 """
 
 import argparse
@@ -545,6 +555,95 @@ def array_fw_noise(tiny, draws):
                             "pareto": spread[1:].tolist()})
 
 
+def _adapt_inputs(coarse):
+    from pelvistim_fem_tpu.models.ankle import layered_model_inputs
+    from pelvistim_fem_tpu.utils.config import default_params
+    return layered_model_inputs(default_params("step03_ankle_layers"),
+                                coarse=coarse)
+
+
+def adapt(coarse=False, cycles=2, sigma_scale=1.0):
+    """run_step03's run_adapt, call by call: per cycle (tets, grid, knots,
+    iterations, residual, eta, rel, flux_err); sigma_scale multiplies
+    every conductivity (the spread rounding leaves in the knots)."""
+    from pelvistim_fem_tpu.mesh.generate import layered_slab_recipe
+    from pelvistim_fem_tpu.models.case import build_case
+    from pelvistim_fem_tpu.ops.estimate import (adapt_recipe,
+                                                zz_error_indicators,
+                                                zz_global_error)
+    from pelvistim_fem_tpu.ops.metrics import extract_results
+    from pelvistim_fem_tpu.runner import solve_auto
+    (Lx, Ly, Lz), rk, sigma_by_body, bc_kwargs, meta_extra, p = \
+        _adapt_inputs(coarse)
+    sigma_by_body = {b: s * sigma_scale for b, s in sigma_by_body.items()}
+    recipe = layered_slab_recipe(Lx, Ly, Lz, **rk)
+    keep_z = [0.0]
+    for _b, t, _h in rk["layers"]:
+        keep_z.append(keep_z[-1] + t)
+    if rk.get("contact_t", 0.0) > 0:
+        keep_z.append(Lz + rk["contact_t"])
+    out = []
+    for cycle in range(cycles + 1):
+        mesh = recipe.mesh()
+        case = build_case(mesh, sigma_by_body, meta_extra=meta_extra,
+                          **bc_kwargs)
+        with contextlib.redirect_stdout(sys.stderr):   # its solve line
+            res = solve_auto(case, mesh, tol=1e-8)
+        eta = zz_error_indicators(case, res.phi)
+        eta_g, rel = (float(v) for v in zz_global_error(case, res.phi))
+        row = extract_results(case, res.phi, p, verbose=False)
+        out.append(dict(
+            tets=int(mesh.n_tets), grid=list(mesh.lattice.grid_shape),
+            knots=[np.asarray(k, np.float64).tolist()
+                   for k in (recipe.xs, recipe.ys, recipe.zs)],
+            iterations=int(np.asarray(res.iterations)),
+            residual=float(np.asarray(res.residual)), eta=eta_g, rel=rel,
+            flux_err=float(row["flux_err"])))
+        if cycle < cycles:
+            recipe = adapt_recipe(recipe, case, mesh, eta, keep_z=keep_z)
+    return dict(coarse=coarse, keep_z=keep_z, cycles=out)
+
+
+def adapt_local(coarse=False, cycles=2, theta=0.5):
+    """run_step03's run_adapt_local, call by call: per cycle (tets, nodes,
+    iterations, residual, eta, rel, flux_err, peak_J_skin_no_elec, the
+    marked count and the sha1 of the packed marks)."""
+    import hashlib
+
+    from pelvistim_fem_tpu.mesh.generate import layered_slab_recipe
+    from pelvistim_fem_tpu.mesh.refine import BisectionMesh, mark_doerfler
+    from pelvistim_fem_tpu.models.case import build_case
+    from pelvistim_fem_tpu.ops.estimate import (zz_error_indicators,
+                                                zz_global_error)
+    from pelvistim_fem_tpu.ops.metrics import extract_results
+    from pelvistim_fem_tpu.runner import solve_auto
+    (Lx, Ly, Lz), rk, sigma_by_body, bc_kwargs, meta_extra, p = \
+        _adapt_inputs(coarse)
+    bm = BisectionMesh.from_recipe(layered_slab_recipe(Lx, Ly, Lz, **rk))
+    out = []
+    for cycle in range(cycles + 1):
+        mesh = bm.mesh()
+        case = build_case(mesh, sigma_by_body, meta_extra=meta_extra,
+                          **bc_kwargs)
+        with contextlib.redirect_stdout(sys.stderr):
+            res = solve_auto(case, mesh, tol=1e-8)
+        eta = np.asarray(zz_error_indicators(case, res.phi))
+        eta_g, rel = (float(v) for v in zz_global_error(case, res.phi))
+        row = extract_results(case, res.phi, p, verbose=False)
+        marked = mark_doerfler(eta, theta=theta)
+        out.append(dict(
+            tets=int(mesh.n_tets), nodes=int(mesh.n_nodes),
+            iterations=int(np.asarray(res.iterations)),
+            residual=float(np.asarray(res.residual)), eta=eta_g, rel=rel,
+            flux_err=float(row["flux_err"]),
+            peak_J_skin_no_elec=float(row["peak_J_skin_no_elec"]),
+            marked=int(marked.sum()),
+            marks_sha1=hashlib.sha1(np.packbits(marked)).hexdigest()))
+        if cycle < cycles:
+            bm = bm.refine(marked)
+    return dict(coarse=coarse, theta=theta, cycles=out)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -557,7 +656,31 @@ def main():
     ap.add_argument("--array-fw-noise", type=int, default=0, metavar="N",
                     help="only the design's spread over N noise draws, "
                          "tiny and full")
+    ap.add_argument("--only-adapt", action="store_true")
+    ap.add_argument("--adapt-cycles", type=int, default=2)
     args = ap.parse_args()
+    if args.only_adapt:
+        t0 = time.perf_counter()
+        res = dict(adapt=adapt(cycles=args.adapt_cycles),
+                   adapt_local=adapt_local(cycles=args.adapt_cycles))
+        # the spread one f32 unit on every conductivity leaves in the
+        # adapted knots: per cycle the largest move of a knot over the
+        # +-1 ulp runs, relative to its axis length
+        spread = [0.0] * (args.adapt_cycles + 1)
+        for eps in (2.0 ** -23, -2.0 ** -23):
+            moved = adapt(cycles=args.adapt_cycles, sigma_scale=1 + eps)
+            for i, (c, b) in enumerate(zip(moved["cycles"],
+                                           res["adapt"]["cycles"])):
+                for k, kb in zip(c["knots"], b["knots"]):
+                    if len(k) == len(kb):
+                        spread[i] = max(spread[i], float(
+                            np.abs(np.subtract(k, kb)).max()
+                            / (kb[-1] - kb[0])))
+        res["adapt"]["knot_spread"] = spread
+        print(f"adapt anchors in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+        print(json.dumps(res, indent=1))
+        return
     if args.array_fw_noise:
         print(json.dumps(dict(array_fw_noise=[
             array_fw_noise(t, args.array_fw_noise) for t in (True, False)]),

@@ -147,3 +147,64 @@ def compact(nodes: np.ndarray, tets: np.ndarray, *extra_index_arrays):
     for arr in extra_index_arrays:
         out.append(remap[arr].astype(np.int32))
     return tuple(out)
+
+
+def tet_quality(nodes: np.ndarray, tets: np.ndarray):
+    """Per-tet shape quality for mesh inspection (imported meshes can
+    carry slivers that wreck an iterative solver's conditioning).
+
+    Returns dict with:
+      radius_ratio  (M,)  3 r_in / r_circ in (0, 1]; 1 = regular tet
+      min_dihedral  (M,)  smallest dihedral angle [deg] (regular: 70.53;
+                          Kuhn lattice tets: 45)
+    Exactly degenerate tets (coplanar or duplicate nodes) report 0.
+    """
+    p = nodes[tets]                                  # (M, 4, 3)
+    v = p[:, 1:] - p[:, :1]                          # (M, 3, 3)
+    vol = np.abs(np.einsum("mi,mi->m", v[:, 0],
+                           np.cross(v[:, 1], v[:, 2]))) / 6.0
+
+    # inradius: 3 V / total face area
+    faces = [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)]
+    fa = []
+    normals = []
+    for a, b, c in faces:
+        n = np.cross(p[:, b] - p[:, a], p[:, c] - p[:, a])
+        ln = np.linalg.norm(n, axis=1)
+        fa.append(0.5 * ln)
+        normals.append(n / np.maximum(ln, 1e-300)[:, None])
+    area_sum = np.sum(fa, axis=0)
+    r_in = 3.0 * vol / np.maximum(area_sum, 1e-300)
+
+    # circumradius from the circumcentre system
+    # 2 (p_i - p_0) . c = |p_i|^2 - |p_0|^2; degenerate tets get the
+    # identity so the batched solve cannot raise
+    A = 2.0 * v                                      # (M, 3, 3)
+    det = np.einsum("mi,mi->m", A[:, 0], np.cross(A[:, 1], A[:, 2]))
+    edge = np.linalg.norm(v, axis=2).max(axis=1)
+    ok = np.abs(det) > 1e-14 * np.maximum(edge, 1e-300) ** 3
+    A_safe = np.where(ok[:, None, None], A,
+                      np.eye(3)[None, :, :])
+    rhs = (np.einsum("mij,mij->mi", p[:, 1:], p[:, 1:])
+           - np.einsum("mj,mj->m", p[:, 0], p[:, 0])[:, None])
+    c = np.linalg.solve(A_safe, rhs[..., None])[..., 0]
+    r_circ = np.linalg.norm(c - p[:, 0], axis=1)
+    radius_ratio = np.where(ok, 3.0 * r_in / np.maximum(r_circ, 1e-300),
+                            0.0)
+
+    # dihedral angles: the interior angle between two faces is pi minus
+    # the angle between their outward normals (oriented against the
+    # centroid first)
+    cen = p.mean(axis=1)
+    for k, (a, b, cc) in enumerate(faces):
+        fc = (p[:, a] + p[:, b] + p[:, cc]) / 3.0
+        sgn = np.sign(np.einsum("mi,mi->m", normals[k], fc - cen))
+        normals[k] = normals[k] * np.where(sgn == 0, 1.0, sgn)[:, None]
+    min_dih = np.full(len(tets), np.pi)
+    for i in range(4):
+        for j in range(i + 1, 4):
+            cosd = -np.einsum("mi,mi->m", normals[i], normals[j])
+            ang = np.arccos(np.clip(cosd, -1.0, 1.0))
+            min_dih = np.minimum(min_dih, ang)
+    return {"radius_ratio": radius_ratio,
+            "min_dihedral": np.where(ok, np.degrees(min_dih), 0.0)}

@@ -122,15 +122,14 @@ def solve_basis_case_refined(case, loads, *, amg=None, tol=1e-8,
                              max_refinements=4) -> SolveResult:
     """K certified element-path solves of one Case with K Neumann loads
     (K, N): lead fields on a mesh without a lattice.  The K lanes are one
-    lane-stacked Jacobi-PCG inner solve in f32, refined against the f64
-    element operator to a TRUE f64 residual (solve.refine_lanes; the
-    settings of solve.solve_case_refined).  The AMG-preconditioned form
-    (amg=) needs ops/amg, not ported yet: it raises."""
+    lane-stacked f32 inner solve, refined against the f64 operator to a
+    TRUE f64 residual per lane (solve.refine_lanes): Jacobi-PCG inner
+    passes with the settings given (those of solve.solve_case_refined),
+    or, with amg (ops/amg.build_amg), AMG-CG inner passes with the
+    settings of amg.solve_case_amg_refined."""
     if amg is not None:
-        raise NotImplementedError(
-            "solve_basis_case_refined: the AMG-preconditioned element "
-            "solve (ops/amg.py) is not ported yet (ROADMAP queue 1 item 5); "
-            "pass amg=None for the Jacobi-PCG form")
+        from pelvistim_fem_tpu_torch.ops.amg import solve_case_amg_refined
+        return solve_case_amg_refined(case, amg, tol=tol, loads=loads)
     f32, f64 = torch.float32, torch.float64
     case64, case32 = _case_astype(case, f64), _case_astype(case, f32)
     loads = torch.as_tensor(loads, dtype=f64, device=case.nodes.device)

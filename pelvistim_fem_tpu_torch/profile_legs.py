@@ -2,6 +2,7 @@
 
     python -m pelvistim_fem_tpu_torch.profile_legs          # every leg
     python -m pelvistim_fem_tpu_torch.profile_legs --mg     # MG legs only
+    python -m pelvistim_fem_tpu_torch.profile_legs --amg    # AMG legs only
 
 Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
 contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
@@ -29,7 +30,15 @@ chain and the array's two solves also the launches per MG-CG iteration
 (lane-stacked solves: over the longest lane's iterations, which the
 lanes' loop runs).  `--mg` profiles only the multigrid legs: the sweep
 chunk, the megatet, step02's batch (its hierarchy built unprofiled), the
-step04 nonlinear passes and the array's basis and ensemble.
+step04 nonlinear passes and the array's basis and ensemble.  `--amg`
+profiles only the AMG element path on the step03 anchor at its default
+resolution ((55, 31, 19), 167,104 tets): run_step03.run_adapt_local
+with --adapt-local 0, i.e. the app's first cycle (mesh, case, the
+hierarchy's host build, the certified AMG-CG solve, the ZZ estimate and
+the rows), the solve alone (with the launches per AMG-CG iteration), and
+one imported solve of the anchor written as an Elmer mesh DB with its
+lattice stripped (read, detect, build, solve, rows); with the
+hierarchy's build time and levels.
 """
 
 from __future__ import annotations
@@ -76,13 +85,20 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mg", action="store_true",
                     help="only the multigrid legs")
-    mg = ap.parse_args(argv).mg
+    ap.add_argument("--amg", action="store_true",
+                    help="only the AMG element-path legs")
+    args = ap.parse_args(argv)
+    mg = args.mg
     if not torch.cuda.is_available():
         raise SystemExit("profile_legs: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = "cuda:0"
+    if args.amg:
+        print(torch.cuda.get_device_name(0))
+        _profile_amg(dev)
+        return 0
 
     from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
     from pelvistim_fem_tpu_torch.models.pressure import (
@@ -199,6 +215,66 @@ def main(argv=None):
     _profile_step04(dev, mg)
     _profile_array(dev, mg)
     return 0
+
+
+def _profile_amg(dev):
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from pelvistim_fem_tpu_torch.apps import run_step03
+    from pelvistim_fem_tpu_torch.mesh.generate import layered_slab_recipe
+    from pelvistim_fem_tpu_torch.mesh.io_elmer import write_elmer_mesh
+    from pelvistim_fem_tpu_torch.mesh.refine import BisectionMesh
+    from pelvistim_fem_tpu_torch.models.ankle import layered_model_inputs
+    from pelvistim_fem_tpu_torch.models.imported import solve_imported
+    from pelvistim_fem_tpu_torch.ops.amg import (build_amg,
+                                                 solve_case_amg_refined)
+
+    out = {}
+
+    def cycle():
+        out["cycle"] = run_step03.run_adapt_local(run_step03.parse_args(
+            ["--adapt-local", "0", "--device", dev]))["cycles"][0]
+
+    _profile("adapt_local_cycle", cycle)
+    c = out["cycle"]
+    case = c["case"]
+    print(f"  {case.n_tets} tets; amg build {c['amg_build_s']:.3f} s "
+          f"(host), {len(c['amg_sizes'])} levels {c['amg_sizes']}")
+
+    amg = build_amg(case)
+
+    def solve():
+        out["res"] = solve_case_amg_refined(case, amg, tol=1e-8)
+
+    n = _profile("amg_solve", solve)[2]
+    it = int(out["res"].iterations)
+    print(f"  iterations {it} residual {float(out['res'].residual):.3e}; "
+          f"launches per AMG-CG iteration {n / it:.1f} ({n} / {it})")
+
+    (Lx, Ly, Lz), rk, _, _, _, p = layered_model_inputs()
+    mesh = BisectionMesh.from_recipe(
+        layered_slab_recipe(Lx, Ly, Lz, **rk)).mesh()
+    with tempfile.TemporaryDirectory() as d:
+        face = mesh.face_bcid.copy()
+        face[face == 1], face[face == 2] = 7, 9
+        write_elmer_mesh(dataclasses.replace(mesh, face_bcid=face,
+                                             lattice=None),
+                         Path(d) / "elmer_mesh")
+
+        def imported():
+            with contextlib.redirect_stdout(io.StringIO()):
+                out["imp"] = solve_imported(Path(d) / "elmer_mesh", p,
+                                            verbose=False, device=dev)
+
+        _profile("imported_solve", imported)
+    res = out["imp"][1]
+    print(f"  iterations {int(res.iterations)} residual "
+          f"{float(res.residual):.3e}; amg build {res.amg.build_s:.3f} s "
+          f"(host), {len(res.amg.levels)} levels {res.amg.sizes}")
 
 
 def _profile_step04(dev, mg=False):

@@ -3,10 +3,12 @@ pelvistim_fem_tpu/runner.py).
 
 The operator follows the mesh: the structured stencil when the mesh has
 lattice provenance (every generated mesh), the element operator
-otherwise.  Both branches certify a TRUE f64 relative residual: f32
-inner sweeps refined against an f64 master operator, on the card and on
-the CPU alike (the card runs f64 natively, so the reference's f32-only
-branches for an accelerator without x64 have no counterpart).
+otherwise, preconditioned by smoothed-aggregation AMG (ops/amg) from
+ELEMENT_JACOBI_MAX_NODES nodes on.  Every branch certifies a TRUE f64
+relative residual: f32 inner sweeps refined against an f64 master
+operator, on the card and on the CPU alike (the card runs f64 natively,
+so the reference's f32-only branches for an accelerator without x64 have
+no counterpart).
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ import time
 
 import torch
 
+from pelvistim_fem_tpu_torch.ops.amg import build_amg, solve_case_amg_refined
 from pelvistim_fem_tpu_torch.ops.solve import solve_case_refined
 from pelvistim_fem_tpu_torch.ops.stencil import (build_stencil_case,
                                                  solve_stencil_refined)
 
-# Largest lattice-less mesh the Jacobi-PCG element path takes: beyond it
-# the reference switches to smoothed-aggregation AMG (ops/amg.py).
+# Lattice-less meshes of at least this many nodes take the AMG-CG element
+# path; smaller ones Jacobi-PCG (as the reference switches).
 ELEMENT_JACOBI_MAX_NODES = 2000
 
 
@@ -42,9 +45,12 @@ def preferred_dtype(device=None):
 def solve_auto(case, mesh=None, *, tol=1e-8, maxiter=30_000, timer=None):
     """Solve a Case with the certified strategy for its mesh; phi in mesh
     node order, on the case's device.  The wall time is added to
-    timer.phases["solve"].  A lattice-less mesh of at least
-    ELEMENT_JACOBI_MAX_NODES nodes needs the AMG preconditioner, which
-    the port does not have yet: it raises NotImplementedError."""
+    timer.phases["solve"], the AMG hierarchy's host build (a lattice-less
+    mesh of at least ELEMENT_JACOBI_MAX_NODES nodes) also to
+    timer.phases["amg build"]; the hierarchy's levels are printed, and
+    the hierarchy comes back as the result's `amg`.
+    `mesh` feeds the hierarchy build its host data; without it the data
+    is read back from the case."""
     t0 = time.perf_counter()
     device = case.nodes.device
     if mesh is not None and mesh.lattice is not None:
@@ -55,11 +61,15 @@ def solve_auto(case, mesh=None, *, tol=1e-8, maxiter=30_000, timer=None):
         res = solve_stencil_refined(scase, tol=tol, inner_tol=1e-6,
                                     maxiter=maxiter)
     elif case.n_nodes >= ELEMENT_JACOBI_MAX_NODES:
-        raise NotImplementedError(
-            f"solve_auto: a mesh without lattice provenance and "
-            f"{case.n_nodes} nodes (>= {ELEMENT_JACOBI_MAX_NODES}) needs "
-            "the AMG-preconditioned element solve (ops/amg.py), not ported "
-            "yet (ROADMAP queue 1 item 5)")
+        # smoothed-aggregation AMG: Jacobi-PCG pays 100s-1000s of
+        # iterations at the tissue contrasts where AMG-CG takes ~15-30
+        amg = build_amg(case, mesh=mesh, dtype=torch.float32)
+        print(f"    amg: {len(amg.levels)} levels {amg.sizes}, built in "
+              f"{amg.build_s:.2f} s")
+        if timer is not None:
+            timer.phases["amg build"] = (timer.phases.get("amg build", 0.0)
+                                         + amg.build_s)
+        res = solve_case_amg_refined(case, amg, tol=tol, maxiter=maxiter)
     else:
         res = solve_case_refined(case, tol=tol, inner_tol=1e-6,
                                  maxiter=maxiter)

@@ -29,6 +29,7 @@ from pelvistim_fem_tpu_torch.models import array as tarray  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_leadfield import _tiny_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARGS = ["--k", "4", "--robust", "2", "--pareto", "3"]

@@ -33,6 +33,7 @@ from pelvistim_fem_tpu_torch.ops import uq as tuq  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_leadfield import _tiny_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-10
 GSD = {core.BODY_MUSCLE: 1.35, core.BODY_FAT: 1.6, core.BODY_SKIN: 2.0}

@@ -26,6 +26,7 @@ from pelvistim_fem_tpu_torch.mesh import core  # noqa: E402
 from pelvistim_fem_tpu_torch.models.pressure import \
     build_pressure_case  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import bioheat as bh  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 T64 = dict(atol=1e-8, rtol=0)
 

@@ -30,6 +30,7 @@ from pelvistim_fem_tpu_torch.ops import fields, metrics, solve  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import stencil as tst  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-8
 # Solves compared for phi run to TIGHT: at 1e-8 the f32 inner passes of
@@ -138,12 +139,18 @@ def test_solve_auto_matches_reference(box, branch):
 
 
 def test_solve_auto_refuses_large_meshes_without_lattice():
-    """A lattice-less mesh of >= 2000 nodes needs the AMG solve the port
-    does not have: solve_auto raises instead of falling back."""
+    """A lattice-less mesh of >= 2000 nodes takes the certified AMG-CG
+    element path (ops/amg; it raised before the port had it), with the
+    hierarchy's host data read back from the case, as the reference's
+    solve_auto does on the CPU: certified, iterations within 2 and phi
+    within 1e-8 max|phi| of the reference's."""
     case, _ = build_box_case(h=0.002, device="cpu")
     assert case.n_nodes >= runner.ELEMENT_JACOBI_MAX_NODES
-    with pytest.raises(NotImplementedError, match="ops/amg.py"):
-        runner.solve_auto(case, None)
+    got = runner.solve_auto(case, None)
+    want = jax_solve_auto(jax_box_case(h=0.002)[0], None)
+    assert bool(got.converged) and float(got.residual) <= 1e-8
+    assert abs(int(got.iterations) - int(want.iterations)) <= 2
+    assert _rel(got.phi.numpy(), want.phi) <= 1e-8
 
 
 def test_runner_dtype_and_device_defaults():

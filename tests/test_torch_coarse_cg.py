@@ -26,6 +26,7 @@ from pelvistim_fem_tpu_torch.ops import multigrid as tmg  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import measure  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ITERS = 24                       # the V-cycles' coarse_iters
 DT = {"float32": (torch.float32, jnp.float32),

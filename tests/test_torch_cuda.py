@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 

@@ -27,6 +27,7 @@ from pelvistim_fem_tpu_torch.models.ankle import \
 from pelvistim_fem_tpu_torch.models.pressure import (  # noqa: E402
     build_pressure_spec, log_spaced_contacts, sigma_tables, sweep_spec)
 from pelvistim_fem_tpu_torch.utils import config  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pelvistim_fem_tpu_torch"
@@ -159,6 +160,18 @@ import pelvistim_fem_tpu_torch.apps.smoke_test
 import pelvistim_fem_tpu_torch.models.array
 import pelvistim_fem_tpu_torch.ops.leadfield
 import pelvistim_fem_tpu_torch.ops.uq
+import pelvistim_fem_tpu_torch.apps.crossval_elmer
+import pelvistim_fem_tpu_torch.apps.meshtool
+import pelvistim_fem_tpu_torch.apps.run_step03
+import pelvistim_fem_tpu_torch.mesh.io_elmer
+import pelvistim_fem_tpu_torch.mesh.io_msh
+import pelvistim_fem_tpu_torch.mesh.refine
+import pelvistim_fem_tpu_torch.models.imported
+import pelvistim_fem_tpu_torch.ops.amg
+import pelvistim_fem_tpu_torch.ops.estimate
+import pelvistim_fem_tpu_torch.ops.stencil_estimate
+import pelvistim_fem_tpu_torch.utils.sif
+import pelvistim_fem_tpu_torch.utils.vtu
 spec, _ = build_pressure_spec(coarse=True)
 r = solve_lattice_mg_refined(spec, tol=1e-8, device="cpu")
 assert bool(r.converged) and float(r.residual) <= 1e-8, r

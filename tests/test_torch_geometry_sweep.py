@@ -32,6 +32,7 @@ from pelvistim_fem_tpu_torch.ops import multigrid as tmg  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import stencil as tst  # noqa: E402
 from pelvistim_fem_tpu_torch.parallel import geometry_sweep as tgs  # noqa: E402
 from pelvistim_fem_tpu_torch.utils.config import default_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-8
 PAIR = [("circle", 0.010), ("square", 0.015)]

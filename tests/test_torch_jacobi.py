@@ -26,6 +26,7 @@ from pelvistim_fem_tpu_torch.ops import solve as tsolve  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import stencil as tst  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 F32 = dict(rtol=2e-5, atol=1e-5)
 F64 = dict(rtol=1e-12, atol=0)

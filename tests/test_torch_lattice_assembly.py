@@ -18,6 +18,7 @@ from pelvistim_fem_tpu_torch.models.pressure import \
     build_pressure_spec  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import lattice_assembly as tla  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import multigrid as tmg  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _close64(got, ref):

@@ -33,6 +33,7 @@ from pelvistim_fem_tpu_torch.ops import multigrid as tmg  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_leadfield import _tiny_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-10
 SIGMA = {core.BODY_MUSCLE: 0.35, core.BODY_FAT: 0.04, core.BODY_SKIN: 0.10}
@@ -143,8 +144,7 @@ def _patch_ids(params, mesh):
 
 def test_element_path_basis_matches_reference(ref):
     """Patch loads and the element-path certified basis (Jacobi-PCG
-    refined, the reference's amg=None form) against the JAX package's;
-    amg= raises until ops/amg is ported."""
+    refined, the reference's amg=None form) against the JAX package's."""
     params, mesh = ref["params"], ref["mesh"]
     pid = _patch_ids(params, mesh)
     case = build_case(mesh, SIGMA, mode="current",
@@ -163,8 +163,35 @@ def test_element_path_basis_matches_reference(ref):
     assert bool(got.converged.all()) and float(got.residual.max()) <= TOL
     np.testing.assert_allclose(got.phi.numpy(), p, rtol=0,
                                atol=1e-8 * np.abs(p).max())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tlf.solve_basis_case_refined(case, loads, amg=object())
+
+
+def test_element_path_basis_amg_matches_reference(ref):
+    """The AMG form (amg=, ops/amg) on the tiny array's mesh read without
+    its lattice: each basis lane certified, within 1e-8 max|phi| of the
+    reference's vmapped AMG solves, its AMG-CG iterations within 2."""
+    from pelvistim_fem_tpu.ops.amg import build_amg as jbuild_amg
+    from pelvistim_fem_tpu_torch.ops.amg import build_amg
+    params = ref["params"]
+    mesh = dataclasses.replace(ref["mesh"], lattice=None)
+    pid = _patch_ids(params, mesh)
+    kw = dict(mode="current", injected_current_A=params["I_unit_A"])
+    case = build_case(mesh, SIGMA, device="cpu", **kw)
+    jcase = jbuild(jarray.array_recipe(params, 0).mesh(), SIGMA, **kw)
+    assert case.n_nodes >= 2000
+    loads = tlf.element_patch_loads(case, pid, I_unit=params["I_unit_A"])
+    want = jlf.solve_basis_case_refined(
+        jcase, loads, amg=jbuild_amg(jcase, dtype=jnp.float32), tol=TOL)
+    got = tlf.solve_basis_case_refined(
+        case, loads, amg=build_amg(case, mesh=mesh), tol=TOL)
+    p = np.asarray(want.phi)
+    assert got.phi.shape == p.shape
+    assert bool(got.converged.all()) and float(got.residual.max()) <= TOL
+    np.testing.assert_allclose(got.phi.numpy(), p, rtol=0,
+                               atol=1e-8 * np.abs(p).max())
+    it, jit = got.iterations.numpy(), np.asarray(want.iterations)
+    print(f"AMG basis iterations: port {it.tolist()}, reference "
+          f"{jit.tolist()}")
+    assert np.abs(it - jit).max() <= 2
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from pelvistim_fem_tpu_torch.models.pressure import (  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import assembly, fields  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.metrics import \
     extract_results_batched  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LANES = [0, 7, 14]
 

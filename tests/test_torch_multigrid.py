@@ -26,6 +26,7 @@ from pelvistim_fem_tpu_torch.models.pressure import (  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import lattice_assembly as tla  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import multigrid as tmg  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import solve as tsolve  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-8
 # Three contact conductivities of the step04 sweep (slots 2, 7, 12).

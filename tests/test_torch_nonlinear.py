@@ -46,6 +46,7 @@ from pelvistim_fem_tpu_torch.ops import lattice_assembly as la  # noqa: E402
 from pelvistim_fem_tpu_torch.ops import nonlinear as nl  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.metrics import \
     compliance_voltage  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 L_XY = 0.02
 DA = DB = 0.01

@@ -28,6 +28,7 @@ import pelvistim_fem_tpu.ops.pallas_stencil as ps  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import measure  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 2e-5          # f32, as tests/test_pallas.py

@@ -39,6 +39,7 @@ from pelvistim_fem_tpu_torch.ops import fields, metrics  # noqa: E402
 from pelvistim_fem_tpu_torch.utils import report  # noqa: E402
 from pelvistim_fem_tpu_torch.utils.config import \
     default_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LEVELS = [0, 7, 14]
 NL_FLAGS = ["--nl-amp", "0.5", "--nl-w", "2000"]

@@ -30,6 +30,7 @@ from pelvistim_fem_tpu_torch.ops.kernels import \
     stencil_kernels as sk  # noqa: E402
 from pelvistim_fem_tpu_torch.ops.lattice_assembly import \
     assemble_lattice  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 F32, F64 = torch.float32, torch.float64
 
