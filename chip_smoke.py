@@ -55,7 +55,18 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 (measure.check_vcycle_tail) there and on a small
                 hierarchy that fits whole, f32 and f64; timed as the
                 kernels are, beside its twin and the level route it
-                replaces as one CUDA graph
+                replaces as one CUDA graph; then the cluster tail (the
+                level above the tail with the tail, a thread-block
+                cluster of 8 blocks a lane) on the step04 app's, the
+                megatet's and step02's hierarchies, f32 and f64: the
+                default V-cycle one cluster_tail launch (and the level
+                kernels only above it) torch.equal to the level route;
+                from its first level the kernel torch.equal to that route
+                and to the launches it replaces, within check_cluster_tail
+                of vcycle_tail_plain over the same levels, timed beside
+                them (the five level-kernel launches and the tail launch)
+                as one CUDA graph; and at edge sizes (11 planes over 7
+                slab ranks, 10 over 3 with 3 lanes)
   3c. levels    the level kernels (level_apply in its four modes and
                 "prolong_sweep", restrict, prolong_add) at every level
                 above the tail of
@@ -110,10 +121,11 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 body-factored level kernel, the tail),
                 the f32 Pennes lanes and heating course, and the 15
                 sigma_skin(|E|) fixed points on the lattice (kernel 1 in
-                f64 and f32 on the two finest levels, the V-cycle's
-                other levels one tail launch, kernel 2 probing the frozen
-                V-cycle at one body); lanes, rows, temperatures, t95 and
-                the nonlinear columns against the JAX package's anchors;
+                f64 at the fine level, the level kernels there, the
+                V-cycle's other levels one cluster tail launch, kernel 2
+                probing the frozen V-cycle at one body); lanes, rows,
+                temperatures, t95 and the nonlinear columns against the
+                JAX package's anchors;
                 walls and launches per app phase
  13. array      the electrode-array design app (apps/run_array_opt
                 --full --robust 8 --pareto 5): 8 disc loads on one (71,
@@ -163,7 +175,8 @@ The apps run through their entry points (run(parse_args(argv))) with
 kept and shown only if they fail.  Launch counters are set to 0 before
 each of the paths 4-20 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
-sweep, megatet, jacobi, step02, step04 and array the V-cycle tail; the
+sweep, jacobi, step04 and array the V-cycle tail, the megatet, step02
+and step04 the cluster tail; the
 sweep, jacobi, step04 and array the lanes' combine; the megatet, step02
 and step04 the level kernels, the sweep, jacobi, step04 and array the
 body-factored one, 6
@@ -171,14 +184,15 @@ launches a V-cycle at each level above a tail and kernel 1, or kernel 2
 with more than one body, there never in that dtype), and every kernel
 but the coarse
 CG must have run; the coarse CG must not have run on any path, nor
-kernel 1 at any level of a tail, nor kernel 2 with more than one body
-(a V-cycle's apply, not the assembly's Galerkin probes) at any grid of
-a tail (every such level goes through the tail kernel).  Every (kernel,
+kernel 1 at any level of a tail or a cluster tail, nor kernel 2 with
+more than one body (a V-cycle's apply, not the assembly's Galerkin
+probes) at any grid of one (every such level goes through the tail
+kernels).  Every (kernel,
 dtype, shapes) the paths launched is counted (`launches_by_shape` in the
 kernels line), and each that phase 3 did not hold is then held against
-its twin on random inputs of those shapes; the tail on the first inputs
-it was given at each shape on the paths, in their dtype and, where the
-tail fits, in f64.
+its twin on random inputs of those shapes; the tail and the cluster tail
+on the first inputs they were given at each shape on the paths, in their
+dtype and, where they fit, in f64.
 Every phase checks its results and raises on failure; the exit code is
 then non-zero and no result line is printed.  The second-to-last line
 is a JSON summary of the kernels (times, bounds, launches); the last
@@ -567,6 +581,7 @@ REPLACES = {
     "plane_fma_cuda": "dev/spmv_kernels_ab.py:107, dev/roofline_probe.py:90",
     "coarse_cg_cuda": f"{MULTIGRID}:428, {MULTIGRID}:799",
     "vcycle_tail_cuda": f"{MULTIGRID}:425",
+    "cluster_tail_cuda": f"{PALLAS}:326, {MULTIGRID}:425",
     "combine_lanes_cuda": f"{PALLAS}:410",
     "level_apply_cuda": f"{PALLAS}:326, {MULTIGRID}:425",
     "restrict_cuda": f"{MULTIGRID}:425",
@@ -592,6 +607,12 @@ LIBRARY_NOTE = {
                          "plain_graph_ms is the level-by-level route it "
                          "replaces (kernel 1, PyTorch's ops, the coarse "
                          "CG kernel) as one CUDA graph replay"),
+    "cluster_tail_cuda": ("no one PyTorch call runs a V-cycle; "
+                          "plain_graph_ms is the level route it repeats "
+                          "(kernel 1, PyTorch's ops, the coarse CG) as one "
+                          "CUDA graph replay, replaced_graph_ms the launches "
+                          "it replaces (five level-kernel launches at its top "
+                          "level and the vcycle_tail launch) as one"),
     "combine_lanes_cuda": None,
     "level_apply_cuda": ("no one PyTorch call runs a variable-coefficient "
                          "27-point stencil with a Jacobi sweep; "
@@ -631,6 +652,15 @@ FACTORED_FUNCTIONS = [(FACTORED, m) for m in MODES] + TRANSFERS
 # device ms of the timed kernels with every launch on the same inputs
 # (L2 keeps what fits), by (kernel, dtype, shape)
 WARM = {}
+# the cluster tail's edges (lanes, level grids, blocks a cluster): 11
+# planes over 7 slab ranks (slabs of 2 and 1, fewer than 2 N planes, ranks
+# without a coarse plane to restrict), 10 over 3 with 3 lanes
+CLUSTER_EDGES = [(1, [(11, 7, 5), (6, 4, 3), (4, 3, 2)], 8),
+                 (3, [(10, 8, 6), (6, 5, 4), (4, 3, 3)], 4)]
+# the cluster tail's time against the launches it replaces (its top
+# level's five level-kernel launches and the vcycle_tail launch) as one
+# CUDA graph: (cold, warm) ms by (kernel, dtype, shape)
+REPLACED = {}
 # the lanes' combine: the sweep's tail levels (25 lanes, 5 bodies) packed
 # (the main row) and one by one, step04's linear tail (15 lanes) packed,
 # and random edges (1 body, 8 bodies with 40 lanes); the single-level ones
@@ -932,6 +962,23 @@ def tail_as(tail, dtype):
                             cast(tail.pro), cast(tail.res))
 
 
+def cluster_as(ct, dtype):
+    """`ct` (a ClusterTail) with its stencils and transfer weights cast to
+    `dtype` (make_cluster_tail; the plan made for `dtype`)."""
+    import dataclasses
+    from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
+        LevelOp, make_cluster_tail)
+
+    def cast(axes):
+        return tuple(tuple(t.to(dtype) if t.is_floating_point() else t
+                           for t in e) for e in axes)
+
+    top = LevelOp(ct.top.C.to(dtype), ct.top.free)
+    top.wd(0.7)
+    tt = dataclasses.replace(ct.tt, pro=cast(ct.tt.pro), res=cast(ct.tt.res))
+    return make_cluster_tail(top, tt, tail_as(ct.tail, dtype))
+
+
 def tail_hierarchies(dev):
     """The hierarchies of the paths whose V-cycles run a tail, each as
     (hierarchy, sigma tables, kind): the step04 app's own (55, 31, 19)
@@ -1131,7 +1178,161 @@ def phase_tail(dev, results, hiers):
                                             kernel(*args), args)
             log(f"tail {dn} {S} lanes x {grid}, from level 0: max_abs_err "
                 f"{err:.3e}")
+    phase_cluster(dev, results, hiers, starts, rng)
     return starts
+
+
+def phase_cluster(dev, results, hiers, starts, rng):
+    """The cluster tail on the hierarchies of the paths whose V-cycles
+    take it (hiers: tail_hierarchies' step04 app, megatet and step02, the
+    levels with their own stencils), f32 and f64: the solver's default
+    V-cycle takes one cluster_tail launch, from the level above the tail
+    (multigrid.cluster_tail_plan), and the level kernels only above that
+    (4 level_apply launches and one restrict a level), torch.equal to the
+    level route; from its first level the kernel torch.equal to that
+    route and within check_cluster_tail of vcycle_tail_plain over the
+    same levels, timed (kernel cold and warm, call, twin, the level route
+    as one CUDA graph) into `results` as phase_parity's rows, and beside
+    the launches it replaces (the five level-kernel launches at its top
+    level and the vcycle_tail launch) as one CUDA graph, cold and warm
+    (REPLACED); then on random SPD levels at edge sizes: 11 planes over 7
+    slab ranks (slabs of 2 and 1, fewer than 2 N planes, ranks without a
+    coarse plane) and 10 over 3 with 3 lanes, f32 and f64.  Adds the
+    levels each path's cluster tail starts from to `starts`."""
+    import torch
+    from pelvistim_fem_tpu_torch.ops import multigrid as tmg
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    def rhs(free, dtype):
+        return torch.where(free, torch.as_tensor(
+            rng.standard_normal(tuple(free.shape)), dtype=dtype,
+            device=dev), 0.0)
+
+    def kernel(b, ct, nu, omega, iters):
+        return sk.cluster_tail_cuda(b, ct, nu, omega, iters)
+
+    for name, (hier, sig, kind) in hiers.items():
+        if kind == "bodies":
+            continue
+        for dn in ("float32", "float64"):
+            dtype = getattr(torch, dn)
+            h, sg = hier.astype(dtype), sig.to(dtype)
+            n = len(h.levels)
+            grids = [tuple(lv.free.shape[-3:]) for lv in h.levels]
+            start, plan = tmg.cluster_tail_plan(grids, dtype)
+            if kind == "one":
+                ops = [tmg._level_op(lv, sg) for lv in h.levels]
+                frees = [lv.free for lv in h.levels]
+                b0 = rhs(frees[0], dtype)
+                M = tmg.make_v_cycle(h, sg)
+                want = tmg.make_v_cycle(h, sg, tail_from=n, route=True)(b0)
+                Cs = [lv.C for lv in ops]
+
+                def route(b, *_, ops=ops, tr=h.transfers, k=start):
+                    return tmg.cycle_impl(ops[k:], tr[k:], b,
+                                          tail_from=n - k, route=True)
+            else:
+                pieces = [tmg._fused_level_pieces(lv.coeff, lv.free, sg)
+                          for lv in h.levels]
+                ops, frees = [pc[5] for pc in pieces], [pc[2] for pc in pieces]
+                Cs = [pc[4] for pc in pieces]
+                L = h.levels[0].coeff.shape[0]
+                b0 = rhs(frees[0].expand((L,) + frees[0].shape[1:]), dtype)
+                _, tl = tmg._fused_tail(pieces, h, None, 2)
+
+                def M(b, pieces=pieces, h=h, tl=tl):
+                    return tmg._fused_cycle(pieces, h, b, tail=tl,
+                                            tail_from=start)
+                want = tmg._fused_cycle(pieces, h, b0, tail_from=n,
+                                        route=True)
+                sub = tmg.MGHierarchy(levels=h.levels[start:],
+                                      transfers=h.transfers[start:])
+
+                def route(b, *_, pieces=pieces, sub=sub, k=start):
+                    return tmg._fused_cycle(pieces[k:], sub, b,
+                                            tail_from=n - k, route=True)
+            sk.reset_launches()
+            z = M(b0)
+            counts = {k: sk.LAUNCHES[k] for k in
+                      ("cluster_tail_cuda", "vcycle_tail_cuda",
+                       "level_apply_cuda", "restrict_cuda",
+                       "prolong_add_cuda", "stencil_spmv_cuda")}
+            sk.reset_launches()
+            if counts != {"cluster_tail_cuda": 1, "vcycle_tail_cuda": 0,
+                          "level_apply_cuda": 4 * start,
+                          "restrict_cuda": start, "prolong_add_cuda": 0,
+                          "stencil_spmv_cuda": 0}:
+                raise AssertionError(f"cluster {name} {dn}: launches of one "
+                                     f"V-cycle {counts}, the cluster tail "
+                                     f"from level {start}")
+            if not torch.equal(z, want):
+                raise AssertionError(f"cluster {name} {dn}: the V-cycle "
+                                     "through the cluster tail is not the "
+                                     "level route's")
+            _, ct = tmg._v_tail(Cs, frees, h.transfers, start, levels=ops)
+            if not isinstance(ct, sk.ClusterTail) or ct.plan != plan:
+                raise AssertionError(f"cluster {name} {dn}: no cluster tail "
+                                     f"from level {start}")
+            starts[(name + " cluster", dn)] = start
+            ct.top.wd(0.7)
+            bt = rhs(frees[start].expand(ct.top.C.shape[:-4]
+                                         + frees[start].shape[-3:])
+                     if kind != "one" else frees[start], dtype)
+            args = (bt, ct, 2, 0.7, COARSE_ITERS)
+            y = kernel(*args)
+            if not torch.equal(y, route(bt)):
+                raise AssertionError(f"cluster {name} {dn}: the kernel is "
+                                     "not the level route's result")
+            if not torch.equal(y, measure.cluster_replaced(*args)):
+                raise AssertionError(f"cluster {name} {dn}: the kernel is "
+                                     "not the launches' it replaces")
+            err = measure.check_cluster_tail(f"cluster {name} {dn}", y, args)
+            shape = (2, COARSE_ITERS, ct.lanes, ct.shapes)
+            copies = measure.input_copies(args)
+            warm = measure.input_copies(args, warm=True)
+            ms = measure.kernel_ms(kernel, copies)
+            warm_ms = measure.kernel_ms(kernel, warm)
+            turn = itertools.cycle(copies)
+            call = measure.cuda_ms(lambda: kernel(*next(turn)))
+            pms = measure.cuda_ms(lambda: sk.cluster_tail_plain(*next(turn)),
+                                  reps=5, warmup=2)
+            graph = measure.kernel_ms(route, copies)
+            replaced = (measure.kernel_ms(measure.cluster_replaced, copies),
+                        measure.kernel_ms(measure.cluster_replaced, warm))
+            row = (err, ms, pms, shape, call, None, graph)
+            results.setdefault(("cluster_tail_cuda", dn), row)
+            results[("cluster_tail_cuda", dn, shape)] = row
+            WARM[("cluster_tail_cuda", dn, shape)] = warm_ms
+            REPLACED[("cluster_tail_cuda", dn, shape)] = replaced
+            log(f"cluster {name} {dn}: levels {grids}, from level {start} "
+                f"{shape}, {plan.ranks} blocks a lane of {plan.smem} bytes "
+                f"(slabs {plan.slabs}); one V-cycle one cluster_tail launch "
+                f"({counts}) torch.equal to the level route, and from level "
+                f"{start} torch.equal to the route and to the launches it "
+                f"replaces; max_abs_err {err:.3e} (max|x| "
+                f"{float(y.abs().max()):.3e}) kernel {ms:.4f} ms cold, "
+                f"{warm_ms:.4f} warm (one call with its wrapper {call:.4f} "
+                f"ms) plain {pms:.4f} ms, the level route as one CUDA graph "
+                f"{graph:.4f} ms, the replaced launches (5 level kernels and "
+                f"vcycle_tail) as one CUDA graph {replaced[0]:.4f} ms cold, "
+                f"{replaced[1]:.4f} warm")
+            del copies, warm
+            torch.cuda.empty_cache()
+    for dn in ("float32", "float64"):
+        for S, grid, ranks in CLUSTER_EDGES:
+            args = measure.kernel_inputs(
+                "cluster_tail_cuda", (2, COARSE_ITERS, S, grid, ranks),
+                getattr(torch, dn), dev, rng)
+            y = kernel(*args)
+            if not torch.equal(y, measure.cluster_route(*args)):
+                raise AssertionError(f"cluster {S} x {grid} {dn}: not the "
+                                     "route's result")
+            err = measure.check_cluster_tail(f"cluster {S} x {grid} {dn}", y,
+                                             args)
+            log(f"cluster {dn} {S} lanes x {grid}, {ranks} blocks (slabs "
+                f"{args[1].plan.slabs}): max_abs_err {err:.3e}, torch.equal "
+                "to the route")
 
 
 def phase_levels(dev, results, hiers, covered):
@@ -1326,7 +1527,7 @@ def shape_key(name, dn, shapes):
         return f"{dn} {(shapes[1][-4], shapes[2], shapes[0])}"
     if name == "coarse_cg_cuda":
         return f"{dn} {(shapes[3], shapes[0])}"
-    if name == "vcycle_tail_cuda":
+    if name in TAIL_KERNELS:
         return f"{dn} {tail_shape(shapes)}"
     if name == "combine_lanes_cuda":
         L, B, N = shapes[1][0], shapes[0][0], int(np.prod(shapes[0][1:]))
@@ -1339,6 +1540,7 @@ def shape_key(name, dn, shapes):
 
 
 LEVEL_NAMES = ("level_apply_cuda", "restrict_cuda", "prolong_add_cuda")
+TAIL_KERNELS = ("vcycle_tail_cuda", "cluster_tail_cuda")
 LEVEL_KERNELS = LEVEL_NAMES + (FACTORED,)
 
 
@@ -1426,7 +1628,7 @@ def record_launches(sk, seen, first):
         def wrapped(*args, _fn=fn, _name=name):
             sig = signature(_name, args)
             seen[sig] += 1
-            if _name == "vcycle_tail_cuda" and sig not in first:
+            if _name in TAIL_KERNELS and sig not in first:
                 first[sig] = tuple(a.clone() if hasattr(a, "clone") else a
                                    for a in args)
             return _fn(*args)
@@ -1447,12 +1649,21 @@ def phase_path_parity(dev, seen, covered, first):
     for (name, dn, shapes), args in sorted(first.items(), key=str):
         b, tail, nu, omega, iters = args
         for dtype in (torch.float32, torch.float64):
-            if sk.vcycle_tail_smem(tail.shapes, dtype) > sk.SMEM_MAX:
-                continue
-            cast = (b.to(dtype), tail_as(tail, dtype), nu, omega, iters)
-            y = sk.vcycle_tail_cuda(*cast)
-            err = measure.check_vcycle_tail(f"path {name} {shapes}", y,
-                                            cast)
+            if name == "cluster_tail_cuda":
+                if sk.cluster_plan(tail.shapes, dtype) is None:
+                    continue
+                cast = (b.to(dtype), cluster_as(tail, dtype), nu, omega,
+                        iters)
+                y = sk.cluster_tail_cuda(*cast)
+                err = measure.check_cluster_tail(f"path {name} {shapes}", y,
+                                                 cast)
+            else:
+                if sk.vcycle_tail_smem(tail.shapes, dtype) > sk.SMEM_MAX:
+                    continue
+                cast = (b.to(dtype), tail_as(tail, dtype), nu, omega, iters)
+                y = sk.vcycle_tail_cuda(*cast)
+                err = measure.check_vcycle_tail(f"path {name} {shapes}", y,
+                                                cast)
             log(f"parity path {name} {str(dtype)[6:]} "
                 f"{tail_shape(shapes)} on the path's inputs ({dn}): "
                 f"max_abs_err {err:.3e} (max|x| "
@@ -2610,7 +2821,7 @@ def main():
                                     "vcycle_tail_cuda",
                                     "combine_lanes_cuda", FACTORED,
                                     *LEVEL_NAMES[1:]], sweep_leg)
-    mega = path("megatet", ["stencil_spmv_cuda", "vcycle_tail_cuda",
+    mega = path("megatet", ["stencil_spmv_cuda", "cluster_tail_cuda",
                             *LEVEL_NAMES[:2]], phase_megatet, dev, gpu)
     jacobi = path("jacobi", ["batched_stencil_spmv_lminor_cuda",
                              "batched_stencil_spmv_cuda", "vcycle_tail_cuda",
@@ -2625,7 +2836,7 @@ def main():
                       gpu, outdir)
         step02 = path("step02", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda", *LEVEL_NAMES[:2]],
+                                 "cluster_tail_cuda", *LEVEL_NAMES[:2]],
                       phase_step02, dev, gpu, outdir, lanes=True)
         step02s = path("step02-serial", ["stencil_spmv_cuda"],
                        phase_step02_serial, dev, gpu, step02)
@@ -2633,8 +2844,9 @@ def main():
                       dev, gpu, outdir, lanes=True)
         step04 = path("step04", ["stencil_spmv_cuda",
                                  "batched_stencil_spmv_cuda",
-                                 "vcycle_tail_cuda", "combine_lanes_cuda",
-                                 *LEVEL_NAMES, FACTORED],
+                                 "vcycle_tail_cuda", "cluster_tail_cuda",
+                                 "combine_lanes_cuda", *LEVEL_NAMES,
+                                 FACTORED],
                       phase_step04, dev, gpu, outdir)
         array = path("array", ["batched_stencil_spmv_cuda",
                                "vcycle_tail_cuda", "combine_lanes_cuda",
@@ -2671,12 +2883,12 @@ def main():
             raise AssertionError(f"{name}: launches by shape add up to "
                                  f"{sum(by_shape[name].values())}, not {n}")
         log(f"launches by shape {name}: {by_shape[name]}")
-    # every level of a tail goes through the tail kernel: never kernel 1,
-    # never kernel 2 in a V-cycle (more than one body; its one-body
-    # launches at those grids are the assembly's Galerkin probes), and the
-    # coarse CG on no path
+    # every level of a tail (and of a cluster tail: its top level too) goes
+    # through the tail kernels: never kernel 1, never kernel 2 in a
+    # V-cycle (more than one body; its one-body launches at those grids
+    # are the assembly's Galerkin probes), and the coarse CG on no path
     tails = {(dn, shapes[0][:-3] + s) for name, dn, shapes in seen
-             if name == "vcycle_tail_cuda" for s in shapes[1][1]}
+             if name in TAIL_KERNELS for s in shapes[1][1]}
     grids = {key[1][-3:] for key in tails}
     k1 = {(dn, shapes[0]): n for (name, dn, shapes), n in seen.items()
           if name == "stencil_spmv_cuda" and (dn, shapes[0]) in tails}
@@ -2694,8 +2906,9 @@ def main():
                 for (name, dn, shapes), n in seen.items()
                 if name == "batched_stencil_spmv_cuda"
                 and shapes[0][-3:] in grids}
-    log(f"tails: vcycle_tail_cuda at {sorted(tails)} (from level "
-        f"{starts}), stencil_spmv_cuda there 0 times, "
+    log(f"tails: vcycle_tail_cuda and cluster_tail_cuda at "
+        f"{sorted(tails)} (from level {starts}), stencil_spmv_cuda there 0 "
+        "times, "
         "batched_stencil_spmv_cuda with more than one body at their grids "
         f"0 times (one body, the Galerkin probes: {galerkin}), "
         "coarse_cg_cuda 0 times on the paths")
@@ -2710,6 +2923,7 @@ def main():
                           ("plane_fma_cuda", "float32", "float64"),
                           ("coarse_cg_cuda", "float32", "float64"),
                           ("vcycle_tail_cuda", "float32", "float64"),
+                          ("cluster_tail_cuda", "float32", "float64"),
                           ("combine_lanes_cuda", "float32", "float64"),
                           ("level_apply_cuda", "float32", "float64"),
                           (PROLONG_SWEEP, "float32", "float64"),
@@ -2728,7 +2942,8 @@ def main():
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             library_note=LIBRARY_NOTE[name] if lib is None else None,
             dtype=dn, shape=str(shape), call_ms=call, other_dtype=None,
-            plain_graph_ms=graph, warm_ms=WARM.get((name, dn, shape)))
+            plain_graph_ms=graph, warm_ms=WARM.get((name, dn, shape)),
+            replaced_graph_ms=REPLACED.get((name, dn, shape)))
         if alt is not None:
             a_err, a_ms, a_pms, a_shape, a_call, _, a_graph = \
                 parity[(name, alt)]
@@ -2737,7 +2952,8 @@ def main():
                 plain_ms=a_pms, call_ms=a_call,
                 bound_ms=measure.bound(kname, a_shape, alt)[0],
                 plain_graph_ms=a_graph,
-                warm_ms=WARM.get((name, alt, a_shape)))
+                warm_ms=WARM.get((name, alt, a_shape)),
+                replaced_graph_ms=REPLACED.get((name, alt, a_shape)))
         warm = entry["warm_ms"]
         log(f"{name} {dn} {shape}: {ms:.4f} ms against a bound of "
             f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it"
@@ -2756,7 +2972,8 @@ def main():
                 dtype=o_dn, shape=str(o_shape), max_abs_err=o_err, ms=o_ms,
                 plain_ms=o_pms, call_ms=o_call, bound_ms=ob_ms,
                 bound_by=ob_by, library_ms=o_lib, plain_graph_ms=o_graph,
-                warm_ms=o_warm))
+                warm_ms=o_warm,
+                replaced_graph_ms=REPLACED.get((name, o_dn, o_shape))))
             log(f"{name} {o_dn} {o_shape}: {o_ms:.4f} ms against a bound of "
                 f"{ob_ms:.4f} ms ({ob_by}), {100 * ob_ms / o_ms:.1f}% of it"
                 + (f"; warm {o_warm:.4f} ms, {100 * ob_ms / o_warm:.1f}%"

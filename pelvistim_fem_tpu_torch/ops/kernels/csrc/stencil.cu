@@ -117,6 +117,7 @@
 #include <atomic>
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -627,29 +628,108 @@ constexpr int kCgMaxWarps = 8;
 constexpr int kCgMaxPoints = 8;  // points a thread at most
 constexpr unsigned kCgFree = 1u << 31;
 
-// Block-wide sum of v over the first `warps` warps, through slot[0..warps)
-// (see coarse_cg_kernel); the block's other warps only join the barrier.
+// Phase clocks of the V-cycle tail (profile_kernels --tail --clocks): a
+// build with -DPST_TAIL_CLOCKS has thread 0 of block (0, 0) read clock64()
+// at the end of each phase (after its barrier, so a phase's cycles include
+// the wait for the block's slowest thread) and add the cycles since the
+// last reading to the phase's slot; at exit it writes the slots to
+// g_tail_clk, which pst_tail_clocks copies out.  The default build has no
+// clock code: TailClock is empty there.  Slots (profile_kernels reads them
+// by the same numbers): 0 staging; per level l above the coarsest (l > 3
+// kept in 3) 1 + 7 l + {x = wd b, its planes' wait, the nu - 1 sweeps, the
+// residual, the restriction's passes 0, 1, 2}; the coarse CG
+// kClkCg + {start, apply, p.ap sum, x r z updates, r.z sum, p update and
+// the loop's barrier, the result}, the per-iteration ones summed over the
+// iterations; per level going up kClkUp + 4 l + {the prolongation's passes
+// 0, 1, 2, the nu sweeps}; kClkOut writing x; the cluster tail's phases,
+// read on its tail rank (which waits at the cluster barriers meanwhile),
+// kClkCluster + {the absorbed level's staging and x = wd b, its nu - 1
+// sweeps, its residual, its restriction, its prolongation, its nu
+// sweeps}; kClkTotal entry to exit.
+constexpr int kClkSlots = 64;
+constexpr int kClkCg = 29;
+constexpr int kClkUp = 36;
+constexpr int kClkOut = 52;
+constexpr int kClkCluster = 53;
+constexpr int kClkTotal = 63;
+__host__ __device__ constexpr int clk_down(int l, int k) {
+  return 1 + 7 * (l < 3 ? l : 3) + k;
+}
+__host__ __device__ constexpr int clk_up(int l, int k) {
+  return kClkUp + 4 * (l < 3 ? l : 3) + k;
+}
+
+#ifdef PST_TAIL_CLOCKS
+__device__ long long g_tail_clk[kClkSlots];
+struct TailClock {
+  long long acc[kClkSlots];
+  long long first, last;
+  bool on;
+  __device__ TailClock()
+      : on(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {
+    if (on) {
+      for (int i = 0; i < kClkSlots; ++i) acc[i] = 0;
+      first = last = clock64();
+    }
+  }
+  __device__ void mark(int slot) {
+    if (on) {
+      const long long now = clock64();
+      acc[slot] += now - last;
+      last = now;
+    }
+  }
+  __device__ void store() {
+    if (on) {
+      acc[kClkTotal] = clock64() - first;
+      for (int i = 0; i < kClkSlots; ++i) g_tail_clk[i] = acc[i];
+    }
+  }
+};
+#else
+struct TailClock {
+  __device__ void mark(int) {}
+  __device__ void store() {}
+};
+#endif
+
+// Barrier of the block's first nt threads (nt a multiple of 32): named
+// barrier 1, which the coarse CG's threads take while the block's other
+// warps wait once, at the block barrier after it.
+__device__ __forceinline__ void cg_barrier(int nt) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+}
+
+// Sum of v over the first `warps` warps (nt = 32 warps threads), through
+// slot[0..warps) (see coarse_cg_kernel), on those threads only.
 template <typename T>
 __device__ __forceinline__ T block_sum(T v, T* slot, int warps) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
   const int w = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0 && w < warps) slot[w] = v;
-  __syncthreads();
+  if ((threadIdx.x & 31) == 0) slot[w] = v;
+  cg_barrier(32 * warps);
   T sum = slot[0];
   for (int i = 1; i < warps; ++i) sum += slot[i];
   return sum;
 }
 
 // Point q's 27 neighbour bits (bit o: offset o lies in the grid) and, if
-// `free`, kCgFree.
+// `free`, kCgFree: bit (dx + 1) 9 + (dy + 1) 3 + dz + 1 is the product of
+// the three axes' bits, formed as 3-bit masks an axis (a dozen
+// instructions, not a test an offset: the tail's staging is bound by
+// issue).
+__device__ __forceinline__ unsigned axis_bits(int i, int n) {
+  return (i > 0 ? 1u : 0u) | 2u | (i < n - 1 ? 4u : 0u);
+}
 __device__ __forceinline__ unsigned nbr_word(int q, int X, int Y, int Z,
                                              bool free) {
-  const Nbr nbr(q, X, Y, Z);
-  unsigned nb = free ? kCgFree : 0u;
-#pragma unroll
-  for (int o = 0; o < 27; ++o) nb |= (unsigned)nbr.ok(o) << o;
-  return nb;
+  const int k = q % Z, t = q / Z;
+  const unsigned bz = axis_bits(k, Z), by = axis_bits(t % Y, Y);
+  const unsigned bx = axis_bits(t / Y, X);
+  const unsigned yz = (by & 1u ? bz : 0u) | bz << 3 | (by & 4u ? bz << 6 : 0u);
+  return (free ? kCgFree : 0u) | (bx & 1u ? yz : 0u) | yz << 9 |
+         (bx & 4u ? yz << 18 : 0u);
 }
 
 // Kernel 1's apply at point q, c the grid's 27 planes of G points: acc =
@@ -681,13 +761,16 @@ __device__ __forceinline__ T apply_point(const T* c, const T* v, unsigned nb,
 // b its right-hand side and x its result (shared or device memory); pm, pu
 // and tz scratch of G values and red 2 * kCgMaxWarps partials in shared
 // memory.  The first nt threads (a multiple of 32) take the points q =
-// tid + k * nt, k < K; the block's other threads only join the barriers.
+// tid + k * nt, k < K, and synchronise by cg_barrier; the block's other
+// threads return at once (the caller's block barrier after the CG waits
+// for it).
 template <typename T, int K>
 __device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
                               T* x, T* pm, T* pu, T* tz, T* red, int nt,
-                              int iters, int G, int Y, int Z) {
+                              int iters, int G, int Y, int Z,
+                              TailClock& ck) {
   const int tid = threadIdx.x;
-  const bool act = tid < nt;
+  if (tid >= nt) return;
   const int warps = nt >> 5;
   T xk[K], rk[K], dk[K];  // x, r, dinv of the thread's points
   unsigned fr = 0;        // bit k: point k is free
@@ -696,7 +779,7 @@ __device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
   for (int k = 0; k < K; ++k) {
     const int q = tid + k * nt;
     xk[k] = rk[k] = dk[k] = T(0);
-    if (act && q < G) {
+    if (q < G) {
       const bool f = (nbs[q] & kCgFree) != 0u;
       fr |= (unsigned)f << k;
       rk[k] = b[q];
@@ -709,25 +792,27 @@ __device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
     }
   }
   T rz = block_sum(part, red + kCgMaxWarps, warps);
+  ck.mark(kClkCg);
   for (int it = 0; it < iters; ++it) {
-    __syncthreads();  // every point's p written
+    cg_barrier(nt);  // every point's p written
+    ck.mark(kClkCg + 5);
     T pap = T(0);
-    if (act) {
-      for (int q = tid; q < G; q += nt) {
-        const unsigned nb = nbs[q];
-        const T pq = pu[q];
-        const T ap = (nb & kCgFree) ? apply_point(c, pm, nb, q, G, Y, Z) : pq;
-        tz[q] = ap;
-        pap = fma(pq, ap, pap);
-      }
+    for (int q = tid; q < G; q += nt) {
+      const unsigned nb = nbs[q];
+      const T pq = pu[q];
+      const T ap = (nb & kCgFree) ? apply_point(c, pm, nb, q, G, Y, Z) : pq;
+      tz[q] = ap;
+      pap = fma(pq, ap, pap);
     }
+    ck.mark(kClkCg + 1);
     const T den = block_sum(pap, red, warps);
+    ck.mark(kClkCg + 2);
     const T alpha = rz / (den != T(0) ? den : T(1));
     T rzp = T(0);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int q = tid + k * nt;
-      if (act && q < G) {
+      if (q < G) {
         xk[k] = fma(alpha, pu[q], xk[k]);
         rk[k] = fma(-alpha, tz[q], rk[k]);
         const T z = dk[k] * rk[k];
@@ -735,12 +820,14 @@ __device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
         rzp = fma(rk[k], z, rzp);
       }
     }
+    ck.mark(kClkCg + 3);
     const T rzn = block_sum(rzp, red + kCgMaxWarps, warps);
+    ck.mark(kClkCg + 4);
     const T beta = rzn / (rz != T(0) ? rz : T(1));
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int q = tid + k * nt;
-      if (act && q < G) {
+      if (q < G) {
         const T pn = fma(beta, pu[q], tz[q]);
         pu[q] = pn;
         pm[q] = (fr >> k & 1u) ? pn : T(0);
@@ -751,7 +838,7 @@ __device__ void coarse_cg_run(const T* c, const unsigned* nbs, const T* b,
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int q = tid + k * nt;
-    if (act && q < G) x[q] = xk[k];
+    if (q < G) x[q] = xk[k];
   }
 }
 
@@ -791,7 +878,8 @@ coarse_cg_kernel(const T* __restrict__ b, const T* __restrict__ C,
   } else {
     __syncthreads();
   }
-  coarse_cg_run<T, K>(c, nbs, b, x, pm, pu, tz, red, nt, iters, G, Y, Z);
+  TailClock ck;  // no clocks kept: the tail's slots
+  coarse_cg_run<T, K>(c, nbs, b, x, pm, pu, tz, red, nt, iters, G, Y, Z, ck);
 }
 
 // ── the V-cycle tail ──────────────────────────────────────────────────────
@@ -888,7 +976,7 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 // Waits until at most `pending` of this thread's newest commit groups are
-// in flight (0..kTailMaxLevels - 1).
+// in flight (0..kTailMaxLevels).
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -902,7 +990,8 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
     case 4: cp_async_wait_group<4>(); break;
     case 5: cp_async_wait_group<5>(); break;
     case 6: cp_async_wait_group<6>(); break;
-    default: cp_async_wait_group<7>(); break;
+    case 7: cp_async_wait_group<7>(); break;
+    default: cp_async_wait_group<8>(); break;
   }
 }
 
@@ -933,6 +1022,19 @@ struct FastDiv {
   }
 };
 
+// ijk by FastDiv: by1 and by2 divide by n1 and n2 (the tail's transfer
+// passes: two divisions and two remainders a value cost more than its
+// sum).
+__device__ __forceinline__ void ijk_fast(int p, int n1, int n2,
+                                         const FastDiv& by1,
+                                         const FastDiv& by2, int* i, int* j,
+                                         int* k) {
+  const int q = by2.div(p);
+  *k = p - q * n2;
+  *i = by1.div(q);
+  *j = q - *i * n1;
+}
+
 // One axis pass of the restriction R = P^T: out (o0, o1, o2) from `in`,
 // whose extent along axis a is nf; out[c] = sum_k in[idx[c, k]] wt[c, k]
 // in k order, acc = in_0 wt_0, then acc + in_k wt_k.  With `mask` (the
@@ -945,9 +1047,10 @@ __device__ void restrict_axis(const T* in, T* out, int o0, int o1, int o2,
   const int m1 = a == 1 ? nf : o1, m2 = a == 2 ? nf : o2;
   const int st = a == 0 ? m1 * m2 : (a == 1 ? m2 : 1);
   const int N = o0 * o1 * o2;
+  const FastDiv by1(o1), by2(o2);
   for (int p = threadIdx.x; p < N; p += blockDim.x) {
     int i, j, k;
-    ijk(p, o1, o2, &i, &j, &k);
+    ijk_fast(p, o1, o2, by1, by2, &i, &j, &k);
     const int c = a == 0 ? i : (a == 1 ? j : k);
     const int base = (i * m1 + j) * m2 + k - c * st;
     const int* ix = idx + c * K;
@@ -974,9 +1077,10 @@ __device__ void prolong_axis(const T* in, T* out, int o0, int o1, int o2,
   const int m1 = a == 1 ? nc : o1, m2 = a == 2 ? nc : o2;
   const int st = a == 0 ? m1 * m2 : (a == 1 ? m2 : 1);
   const int N = o0 * o1 * o2;
+  const FastDiv by1(o1), by2(o2);
   for (int p = threadIdx.x; p < N; p += blockDim.x) {
     int i, j, k;
-    ijk(p, o1, o2, &i, &j, &k);
+    ijk_fast(p, o1, o2, by1, by2, &i, &j, &k);
     const int f = a == 0 ? i : (a == 1 ? j : k);
     const int at = (i * m1 + j) * m2 + k + (s0[f] - f) * st;
     const T v = add_rn(mul_rn(in[at], wl[f]), mul_rn(in[at + st], wr[f]));
@@ -989,6 +1093,22 @@ __device__ void prolong_axis(const T* in, T* out, int o0, int o1, int o2,
     }
   }
   __syncthreads();
+}
+
+// P xc at a fine point as prolong_axis forms it: along x, then y, then
+// z, each value in_s wl + in_(s+1) wr; at(cx, cy, cz) reads xc, (sx, lx,
+// rx) etc. the point's slots and weights along each axis.
+template <typename T, typename At>
+__device__ __forceinline__ T prolong_value(At at, int sx, int sy, int sz,
+                                           T lx, T rx, T ly, T ry, T lz,
+                                           T rz) {
+  const auto p0 = [&](int cy, int cz) {
+    return add_rn(mul_rn(at(sx, cy, cz), lx), mul_rn(at(sx + 1, cy, cz), rx));
+  };
+  const auto p1 = [&](int cz) {
+    return add_rn(mul_rn(p0(sy, cz), ly), mul_rn(p0(sy + 1, cz), ry));
+  };
+  return add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz));
 }
 
 // One level's arrays in shared memory.
@@ -1018,69 +1138,127 @@ __device__ void jacobi_sweep(const TailView<T>& v, const T* xin, T* xout) {
   __syncthreads();
 }
 
+// A tail block's shared memory, carved for the levels of m (see
+// vcycle_tail_smem): every level's planes, x, b, omega * dinv and words;
+// two masked-x buffers and two temporaries of the top level's points; the
+// coarse CG's partials.
 template <typename T>
-__global__ void __launch_bounds__(kTailThreads<T>, 1)
-vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
-                   const unsigned char* __restrict__ Fp,
-                   const int* __restrict__ itab, const T* __restrict__ wtab,
-                   T* __restrict__ x, const __grid_constant__ TailMeta m,
-                   int free_stride, int nu, T omega, int iters) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  const int n = m.n, P = m.points, G0 = m.lv[0].G;
-  T* planes = reinterpret_cast<T*>(s_raw);
-  T* xs = planes + 27 * P;
-  T* bs = xs + P;
-  T* wd = bs + P;
-  T* xm = wd + P;      // two buffers of G0: the masked x the applies read
-  T* s1 = xm + 2 * G0;  // the residual; transfer passes
-  T* s2 = s1 + G0;
-  T* red = s2 + G0;  // the coarse CG's partials
-  unsigned* nbs = reinterpret_cast<unsigned*>(red + 2 * kCgMaxWarps);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long lane = blockIdx.x;
-  const T* cl = Cp + lane * 27 * P;
-  const unsigned char* fl = Fp + lane * free_stride;
-  b += lane * G0;
-  x += lane * G0;
-
-  // the planes, one commit group a level, the top level's first
-  for (int l = 0; l < n; ++l) {
-    const int o = 27 * m.lv[l].off, cnt = 27 * m.lv[l].G;
-    for (int t = tid; t < cnt; t += nt) cp_async_elem(planes + o + t, cl + o + t);
-    cp_async_commit();
+struct TailSmem {
+  T *planes, *xs, *bs, *wd, *xm, *s1, *s2, *red;
+  unsigned* nbs;
+  __device__ TailSmem(unsigned char* raw, const TailMeta& m) {
+    const int P = m.points, G0 = m.lv[0].G;
+    planes = reinterpret_cast<T*>(raw);
+    xs = planes + 27 * P;
+    bs = xs + P;
+    wd = bs + P;
+    xm = wd + P;       // two buffers of G0: the masked x the applies read
+    s1 = xm + 2 * G0;  // the residual; transfer passes
+    s2 = s1 + G0;
+    red = s2 + G0;     // the coarse CG's partials
+    nbs = reinterpret_cast<unsigned*>(red + 2 * kCgMaxWarps);
   }
-  // meanwhile every level's neighbour words and omega * dinv, and b
-  for (int l = 0; l < n; ++l) {
-    const TailLevel L = m.lv[l];
-    for (int q = tid; q < L.G; q += nt) {
-      const bool f = fl[L.off + q] != 0;
-      nbs[L.off + q] = nbr_word(q, L.X, L.Y, L.Z, f);
-      const T c13 = cl[27LL * L.off + 13LL * L.G + q];
-      wd[L.off + q] = mul_rn(omega, T(1) / ((f && c13 != T(0)) ? c13 : T(1)));
-    }
-  }
-  for (int q = tid; q < G0; q += nt) bs[q] = b[q];
-  __syncthreads();
-
-  auto view = [&](int l) {
+  __device__ TailView<T> view(const TailMeta& m, int l) const {
     const TailLevel L = m.lv[l];
     return TailView<T>{planes + 27 * L.off, xs + L.off, bs + L.off,
                        wd + L.off, nbs + L.off, L.X, L.Y, L.Z, L.G};
+  }
+};
+
+// Points of the tail's staging a thread takes at a time, their reads in
+// flight together.
+constexpr int kTailStage = 4;
+
+// Starts a tail block: every level's planes (cl, the lane's packed planes)
+// copied by cp.async, one commit group a level, the top level's first, so
+// that each level waits only for its own planes (the top level's first
+// sweep needs none: omega * dinv comes from the diagonal plane read from
+// device memory); meanwhile every level's neighbour words (fl, the lane's
+// packed free bytes) and omega * dinv, over all levels' points at once,
+// kTailStage a thread, their device-memory reads issued first (the first
+// points' before the planes' copies, which would queue ahead of them).
+template <typename T>
+__device__ void tail_stage(const TailSmem<T>& sm, const TailMeta& m,
+                           const T* __restrict__ cl,
+                           const unsigned char* __restrict__ fl, T omega) {
+  const int n = m.n, P = m.points, tid = threadIdx.x, nt = blockDim.x;
+  int lv[kTailStage];
+  bool f[kTailStage];
+  T c13[kTailStage];
+  const auto load = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < kTailStage; ++u) {
+      const int p = p0 + u * nt;
+      int l = 0;
+      while (l + 1 < n && p >= m.lv[l + 1].off) ++l;
+      lv[u] = l;
+      f[u] = false;
+      c13[u] = T(1);
+      if (p < P) {
+        const TailLevel L = m.lv[l];
+        f[u] = fl[p] != 0;
+        c13[u] = cl[27LL * L.off + 13LL * L.G + (p - L.off)];
+      }
+    }
   };
+  const auto words = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < kTailStage; ++u) {
+      const int p = p0 + u * nt;
+      if (p < P) {
+        const TailLevel L = m.lv[lv[u]];
+        sm.nbs[p] = nbr_word(p - L.off, L.X, L.Y, L.Z, f[u]);
+        sm.wd[p] = mul_rn(omega, T(1) / ((f[u] && c13[u] != T(0)) ? c13[u]
+                                                                   : T(1)));
+      }
+    }
+  };
+  load(tid);
+  for (int l = 0; l < n; ++l) {
+    const int o = 27 * m.lv[l].off, cnt = 27 * m.lv[l].G;
+    for (int t = tid; t < cnt; t += nt) {
+      cp_async_elem(sm.planes + o + t, cl + o + t);
+    }
+    cp_async_commit();
+  }
+  words(tid);
+  for (int p0 = tid + kTailStage * nt; p0 < P; p0 += kTailStage * nt) {
+    load(p0);
+    words(p0);
+  }
+}
+
+// The tail's V-cycle once tail_stage has run, the top level's b is in
+// sm.bs and a block barrier has passed: down (pre-smooth, residual,
+// restrict), the coarsest level's CG, up (prolong and add, post-smooth);
+// the top level's result in sm.xs.  The planes' commit groups are the
+// block's last n.
+template <typename T>
+__device__ void tail_run(const TailSmem<T>& sm, const TailMeta& m,
+                         const int* __restrict__ itab,
+                         const T* __restrict__ wtab, int nu, int iters,
+                         TailClock& ck) {
+  const int n = m.n, G0 = m.lv[0].G, tid = threadIdx.x, nt = blockDim.x;
+  T* xm = sm.xm;
+  T* s1 = sm.s1;
+  T* s2 = sm.s2;
   // down: pre-smooth, residual, restrict
   for (int l = 0; l < n - 1; ++l) {
-    const TailView<T> v = view(l);
+    const TailView<T> v = sm.view(m, l);
     for (int q = tid; q < v.G; q += nt) {  // the first sweep, from x = 0
       const T xq = mul_rn(v.wd[q], v.b[q]);
       v.x[q] = xq;
       xm[q] = (v.nb[q] & kCgFree) ? xq : T(0);
     }
+    ck.mark(clk_down(l, 0));
     cp_async_wait_pending(n - 1 - l);  // this level's planes
     __syncthreads();
+    ck.mark(clk_down(l, 1));
     int cur = 0;
     for (int s = 1; s < nu; ++s, cur ^= 1) {
       jacobi_sweep(v, xm + cur * G0, xm + (cur ^ 1) * G0);
     }
+    ck.mark(clk_down(l, 2));
     for (int q = tid; q < v.G; q += nt) {
       const unsigned nb = v.nb[q];
       const T ax = (nb & kCgFree)
@@ -1089,60 +1267,449 @@ vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
       s1[q] = sub_rn(v.b[q], ax);
     }
     __syncthreads();
+    ck.mark(clk_down(l, 3));
     const TailLevel C = m.lv[l + 1];
     const TailTransfer& tr = m.tr[l];
     restrict_axis(s1, s2, C.X, v.Y, v.Z, 0, v.X, itab + tr.ioff[0] + v.X,
                   wtab + tr.woff[0] + 2 * v.X, tr.K[0], (const unsigned*)nullptr);
+    ck.mark(clk_down(l, 4));
     restrict_axis(s2, s1, C.X, C.Y, v.Z, 1, v.Y, itab + tr.ioff[1] + v.Y,
                   wtab + tr.woff[1] + 2 * v.Y, tr.K[1], (const unsigned*)nullptr);
-    restrict_axis(s1, bs + C.off, C.X, C.Y, C.Z, 2, v.Z,
+    ck.mark(clk_down(l, 5));
+    restrict_axis(s1, sm.bs + C.off, C.X, C.Y, C.Z, 2, v.Z,
                   itab + tr.ioff[2] + v.Z, wtab + tr.woff[2] + 2 * v.Z,
-                  tr.K[2], nbs + C.off);
+                  tr.K[2], sm.nbs + C.off);
+    ck.mark(clk_down(l, 6));
   }
   // the coarsest level: coarse_cg_kernel's CG at its thread count
   {
-    const TailView<T> v = view(n - 1);
+    const TailView<T> v = sm.view(m, n - 1);
     cp_async_wait_pending(0);
     __syncthreads();
+    ck.mark(clk_down(n - 1, 1));
     const int ntc = coarse_cg_threads(v.G);
     const int need = (v.G + ntc - 1) / ntc;
     T* pm = xm;
     T* pu = xm + G0;
     if (need <= 1) {
-      coarse_cg_run<T, 1>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
-                          v.G, v.Y, v.Z);
+      coarse_cg_run<T, 1>(v.c, v.nb, v.b, v.x, pm, pu, s1, sm.red, ntc, iters,
+                          v.G, v.Y, v.Z, ck);
     } else if (need <= 2) {
-      coarse_cg_run<T, 2>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
-                          v.G, v.Y, v.Z);
+      coarse_cg_run<T, 2>(v.c, v.nb, v.b, v.x, pm, pu, s1, sm.red, ntc, iters,
+                          v.G, v.Y, v.Z, ck);
     } else if (need <= 4) {
-      coarse_cg_run<T, 4>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
-                          v.G, v.Y, v.Z);
+      coarse_cg_run<T, 4>(v.c, v.nb, v.b, v.x, pm, pu, s1, sm.red, ntc, iters,
+                          v.G, v.Y, v.Z, ck);
     } else {
-      coarse_cg_run<T, 8>(v.c, v.nb, v.b, v.x, pm, pu, s1, red, ntc, iters,
-                          v.G, v.Y, v.Z);
+      coarse_cg_run<T, 8>(v.c, v.nb, v.b, v.x, pm, pu, s1, sm.red, ntc, iters,
+                          v.G, v.Y, v.Z, ck);
     }
     __syncthreads();
+    ck.mark(kClkCg + 6);
   }
   // up: prolong and add, post-smooth
   for (int l = n - 2; l >= 0; --l) {
-    const TailView<T> v = view(l);
+    const TailView<T> v = sm.view(m, l);
     const TailLevel C = m.lv[l + 1];
     const TailTransfer& tr = m.tr[l];
-    prolong_axis<T, false>(xs + C.off, s1, v.X, C.Y, C.Z, 0, C.X,
+    prolong_axis<T, false>(sm.xs + C.off, s1, v.X, C.Y, C.Z, 0, C.X,
                            itab + tr.ioff[0], wtab + tr.woff[0],
                            wtab + tr.woff[0] + v.X, nullptr, nullptr);
+    ck.mark(clk_up(l, 0));
     prolong_axis<T, false>(s1, s2, v.X, v.Y, C.Z, 1, C.Y, itab + tr.ioff[1],
                            wtab + tr.woff[1], wtab + tr.woff[1] + v.Y,
                            nullptr, nullptr);
+    ck.mark(clk_up(l, 1));
     prolong_axis<T, true>(s2, v.x, v.X, v.Y, v.Z, 2, C.Z, itab + tr.ioff[2],
                           wtab + tr.woff[2], wtab + tr.woff[2] + v.Z, xm,
                           v.nb);
+    ck.mark(clk_up(l, 2));
     int cur = 0;
     for (int s = 0; s < nu; ++s, cur ^= 1) {
       jacobi_sweep(v, xm + cur * G0, xm + (cur ^ 1) * G0);
     }
+    ck.mark(clk_up(l, 3));
   }
-  for (int q = tid; q < G0; q += nt) x[q] = xs[q];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads<T>, 1)
+vcycle_tail_kernel(const T* __restrict__ b, const T* __restrict__ Cp,
+                   const unsigned char* __restrict__ Fp,
+                   const int* __restrict__ itab, const T* __restrict__ wtab,
+                   T* __restrict__ x, const __grid_constant__ TailMeta m,
+                   int free_stride, int nu, T omega, int iters) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  TailClock ck;
+  const TailSmem<T> sm(s_raw, m);
+  const int G0 = m.lv[0].G, tid = threadIdx.x, nt = blockDim.x;
+  const long long lane = blockIdx.x;
+  b += lane * G0;
+  x += lane * G0;
+  // b first, in a commit group of its own before the planes'
+  for (int q = tid; q < G0; q += nt) cp_async_elem(sm.bs + q, b + q);
+  cp_async_commit();
+  tail_stage(sm, m, Cp + lane * 27 * m.points, Fp + lane * free_stride,
+             omega);
+  cp_async_wait_pending(m.n);
+  __syncthreads();
+  ck.mark(0);
+  tail_run(sm, m, itab, wtab, nu, iters, ck);
+  for (int q = tid; q < G0; q += nt) x[q] = sm.xs[q];
+  ck.mark(kClkOut);
+  ck.store();
+}
+
+// ── the cluster tail ─────────────────────────────────────────────────────
+//
+// One V-cycle from a level A down to the coarsest and back in one launch,
+// where A, the level above the tail (t - 1), does not fit one SM (its
+// planes are 484 KB in f32 at step04's (28, 16, 10)): one thread-block
+// cluster of N <= 8 blocks a lane, on N SMs that read and write each
+// other's shared memory (DSMEM).  It replaces, at A, the five level-kernel
+// launches of a V-cycle ("sweep0", "residual", restrict, "prolong_sweep",
+// "sweep"), and below it the vcycle_tail launch: kernel 1's work
+// (stencil_spmv_flat) and cycle_impl's recursion
+// (pelvistim_fem_tpu/ops/multigrid.py:425-460) from A on, which run as
+// ~80 XLA ops and fusions a V-cycle on the TPU.
+//   * Rank 0, the tail rank, holds the tail from level t and runs
+//     vcycle_tail_kernel's body (tail_stage, then tail_run).  (Staging the
+//     tail's words on the slab ranks instead, stored into rank 0 by DSMEM
+//     after a split cluster barrier, did not shorten the first barrier:
+//     PERF.md.)  Ranks 1..N-1, the slab ranks, each hold
+//     an even slab of A's planes along axis 0 (ClusterPlan): their 27
+//     coefficient planes and neighbour words (LevelOp's: bit o where the
+//     neighbour lies in the grid and is free, bit 31 where the point is
+//     free), b and wd = omega dinv with a plane of halo each side, all
+//     copied in by cp.async; x (two buffers) with a plane of halo each
+//     side, the residual with two.
+//   * A's phases are separated by cluster.sync() (barrier.cluster with
+//     release / acquire: a phase's shared-memory writes, DSMEM stores
+//     included, are seen by every block after it).  Every read is local:
+//     the thread that forms a value on a slab's boundary plane also
+//     stores it into the halo of each rank that holds that plane in one
+//     (push_halo, DSMEM stores), in the same phase.  The sweeps alternate
+//     two x buffers, so no block writes a halo that its owner still reads.
+//     (Reading the neighbours' planes in place through DSMEM inside the
+//     apply took 12,000 cycles a sweep at step04's level, 5x the local
+//     reads: PERF.md.)
+//   * The restriction: each slab rank takes the coarse planes c of level t
+//     whose fine knot min(2 c, X - 1) lies in its slab; the three passes
+//     read its residual and halo; pass 2, masked by level t's free, is
+//     stored into the tail rank's b by DSMEM.  The tail rank then runs the
+//     tail while the slab ranks wait at cluster.sync().
+//   * The prolongation: a slab rank copies the planes of level t's x that
+//     its slab interpolates from (DSMEM loads; stores by the tail rank into
+//     the slab ranks took longer: PERF.md), forms x' = x + P xc on its
+//     points (prolong_value) and halos them; the nu sweeps follow, the last
+//     writes x.
+// Bit for bit the level kernels at A, then vcycle_tail from t (the route):
+// A's applies are apply_with (kernel 1's fma order), the sweeps, residual
+// and x' level_apply_kernel's and level_prolong_sweep_kernel's single
+// roundings, the restriction restrict_kernel's sums on the same tables
+// (TransferTables.packed) and mask.  Bound by latency, as the tail: 2 nu +
+// 4 cluster barriers besides the tail's own, A's phases at one or two
+// points a thread at N = 8.
+constexpr int kClusterMaxRanks = 8;
+
+struct ClusterPlan {
+  int ranks;                     // N: rank 0 the tail rank
+  int f0[kClusterMaxRanks + 1];  // slab rank r's planes of A [f0[r], f0[r + 1])
+  int c0[kClusterMaxRanks + 1];  // its planes of level t in the restriction
+  int wmax, cmax, pmax;  // most planes of A, of t restricted, of t prolonged
+};
+
+// n planes over the N - 1 slab ranks, evenly (the first n % (N - 1) take
+// one more): rank r's are [at[r], at[r + 1]), r = 1..N - 1.
+void even_planes(int n, int ranks, int* at) {
+  const int s = ranks - 1, q = n / s, rem = n % s;
+  at[0] = 0;
+  for (int r = 1; r <= ranks; ++r) {
+    at[r] = (r - 1) * q + std::min(r - 1, rem);
+  }
+}
+
+// The plan of N ranks for A = ma.lv[0] and t = ma.lv[1]: false unless 2 <=
+// N <= kClusterMaxRanks, every slab rank holds a plane of A and t has two
+// planes along axis 0.  Slab rank r restricts the planes c of t whose fine
+// knot min(2 c, X - 1) lies in its slab (their every-other-knot footprint
+// [2 c - 2, 2 c + 2] then lies in its slab and two planes of halo each
+// side), and its prolongation reads the planes of t from slot min(f / 2,
+// Xt - 2) of its first plane f to one past its last's (the coarsening that
+// multigrid.Transfer's kernel tables are checked to be).
+bool cluster_plan(const TailMeta& ma, int ranks, ClusterPlan* pl) {
+  const int X = ma.lv[0].X, nc = ma.lv[1].X;
+  if (ranks < 2 || ranks > kClusterMaxRanks || X < ranks - 1 || nc < 2) {
+    return false;
+  }
+  pl->ranks = ranks;
+  even_planes(X, ranks, pl->f0);
+  pl->wmax = (X + ranks - 2) / (ranks - 1);
+  pl->cmax = pl->pmax = 0;
+  pl->c0[0] = pl->c0[1] = 0;
+  for (int r = 1, c = 0; r < ranks; ++r) {
+    while (c < nc && std::min(2 * c, X - 1) < pl->f0[r + 1]) ++c;
+    pl->c0[r + 1] = c;
+    pl->cmax = std::max(pl->cmax, c - pl->c0[r]);
+    const int a = std::min(pl->f0[r] / 2, nc - 2);
+    const int b = std::min((pl->f0[r + 1] - 1) / 2, nc - 2) + 1;
+    pl->pmax = std::max(pl->pmax, b - a + 1);
+  }
+  return true;
+}
+
+// A slab rank's shared memory: 27 planes and the words of wmax planes of
+// A; b, wd and x twice with a plane of halo each side; the residual with
+// two; the restriction's passes 0 and 1 (cmax planes of t); the footprint
+// of t's x (pmax planes).
+template <typename T>
+struct SlabSmem {
+  T *c, *b, *wd, *xa, *xb, *r, *sa, *sb, *xc;
+  unsigned* nb;
+  __device__ SlabSmem(unsigned char* raw, const TailMeta& ma,
+                      const ClusterPlan& pl) {
+    const TailLevel A = ma.lv[0], C = ma.lv[1];
+    const int YZ = A.Y * A.Z, W = pl.wmax * YZ, H = W + 2 * YZ;
+    c = reinterpret_cast<T*>(raw);
+    b = c + 27 * W;
+    wd = b + H;
+    xa = wd + H;
+    xb = xa + H;
+    r = xb + H;
+    sa = r + W + 4 * YZ;
+    sb = sa + pl.cmax * YZ;
+    xc = sb + pl.cmax * C.Y * A.Z;
+    nb = reinterpret_cast<unsigned*>(xc + pl.pmax * C.Y * C.Z);
+  }
+};
+
+// Stores v, the value at point jk of plane i of A, into the halo of every
+// slab rank of `cl` other than `rank` that holds plane i in a halo of h
+// planes each side: into `buf` of that rank, laid out from its plane f0 -
+// h (DSMEM stores).
+template <typename T>
+__device__ __forceinline__ void push_halo(cooperative_groups::cluster_group& cl,
+                                          const ClusterPlan& pl, int rank,
+                                          T* buf, int h, int i, int jk,
+                                          int YZ, T v) {
+  for (int d = -h; d <= h; ++d) {
+    const int s = rank + d;
+    if (d == 0 || s < 1 || s >= pl.ranks) continue;
+    const int a = pl.f0[s], e = pl.f0[s + 1];
+    if ((i >= a - h && i < a) || (i >= e && i < e + h)) {
+      cl.map_shared_rank(buf, s)[(i - a + h) * YZ + jk] = v;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads<T>, 1)
+cluster_tail_kernel(const T* __restrict__ b, const T* __restrict__ CA,
+                    const T* __restrict__ wdA,
+                    const unsigned* __restrict__ words,
+                    const int* __restrict__ itabA,
+                    const T* __restrict__ wtabA, const T* __restrict__ Cp,
+                    const unsigned char* __restrict__ Fp,
+                    const int* __restrict__ itab, const T* __restrict__ wtab,
+                    T* __restrict__ x, const __grid_constant__ TailMeta m,
+                    const __grid_constant__ TailMeta ma,
+                    const __grid_constant__ ClusterPlan pl, int word_stride,
+                    int free_stride, int nu, T omega, int iters) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  TailClock ck;
+  const int rank = (int)cluster.block_rank();
+  const bool tail_rank = rank == 0;
+  const long long lane = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const TailLevel A = ma.lv[0], Ct = ma.lv[1];
+  const TailTransfer& tr = ma.tr[0];
+  const int Y = A.Y, Z = A.Z, YZ = Y * Z;
+  const TailSmem<T> tsm(s_raw, m);       // the tail rank's layout
+  const SlabSmem<T> ssm(s_raw, ma, pl);  // a slab rank's
+  // a slab rank's planes [f0, f1) of A: W points from A's point lo
+  const int f0 = tail_rank ? 0 : pl.f0[rank];
+  const int f1 = tail_rank ? 0 : pl.f0[rank + 1];
+  const int W = (f1 - f0) * YZ, lo = f0 * YZ, Wst = pl.wmax * YZ;
+  T* out = x + lane * A.G + lo;
+  const FastDiv by_yz(YZ);
+  // x' (or a sweep of x) at the slab's point q: into xout past its halo,
+  // the halos of the neighbours on a boundary plane, or into out
+  const auto put = [&](T* xout, int q, T v, bool last) {
+    if (last) {
+      out[q] = v;
+      return;
+    }
+    xout[YZ + q] = v;
+    if (q < YZ || q >= W - YZ) {
+      const int i = by_yz.div(q);
+      push_halo(cluster, pl, rank, xout, 1, f0 + i, q - i * YZ, YZ, v);
+    }
+  };
+  // one damped-Jacobi sweep on the slab from xin into xout, or into out
+  const auto sweep = [&](const T* xin, T* xout, bool last) {
+    const T* xv = xin + YZ;
+    for (int q = tid; q < W; q += nt) {
+      const unsigned nb = ssm.nb[q];
+      const T xq = xv[q];
+      const T ax = (nb & kCgFree) ? apply_point(ssm.c, xv, nb, q, Wst, Y, Z)
+                                  : xq;
+      put(xout, q, add_rn(xq, mul_rn(ssm.wd[YZ + q],
+                                     sub_rn(ssm.b[YZ + q], ax))), last);
+    }
+  };
+
+  // staging: the tail rank its tail; a slab rank b and wd with their halo
+  // and its words, then x = wd b there, its planes of A landing meanwhile
+  if (tail_rank) {
+    tail_stage(tsm, m, Cp + lane * 27 * m.points, Fp + lane * free_stride,
+               omega);
+  } else {
+    const int h0 = max(f0 - 1, 0) * YZ, h1 = min(f1 + 1, A.X) * YZ;
+    for (int p = h0 + tid; p < h1; p += nt) {
+      const int at = p - lo + YZ;
+      cp_async_elem(ssm.b + at, b + lane * A.G + p);
+      cp_async_elem(ssm.wd + at, wdA + lane * A.G + p);
+    }
+    for (int q = tid; q < W; q += nt) {
+      cp_async_elem(ssm.nb + q, words + lane * word_stride + lo + q);
+    }
+    cp_async_commit();
+    const T* cA = CA + lane * 27 * A.G + lo;
+    for (int o = 0; o < 27; ++o) {
+      for (int q = tid; q < W; q += nt) {
+        cp_async_elem(ssm.c + o * Wst + q, cA + (long long)o * A.G + q);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_group<1>();
+    __syncthreads();
+    for (int p = h0 + tid; p < h1; p += nt) {
+      const int at = p - lo + YZ;
+      ssm.xa[at] = mul_rn(ssm.wd[at], ssm.b[at]);
+    }
+  }
+  cluster.sync();  // every block has started: DSMEM may be used from here
+  ck.mark(kClkCluster);
+  if (!tail_rank) {
+    cp_async_wait_group<0>();  // the planes of A
+    __syncthreads();
+  }
+  T* xcur = ssm.xa;
+  T* xoth = ssm.xb;
+  for (int s = 1; s < nu; ++s) {  // the pre-sweeps
+    if (!tail_rank) sweep(xcur, xoth, false);
+    cluster.sync();
+    T* t = xcur;
+    xcur = xoth;
+    xoth = t;
+  }
+  ck.mark(kClkCluster + 1);
+  if (!tail_rank) {  // the residual, and its halo of two planes
+    const T* xv = xcur + YZ;
+    for (int q = tid; q < W; q += nt) {
+      const unsigned nb = ssm.nb[q];
+      const T ax = (nb & kCgFree) ? apply_point(ssm.c, xv, nb, q, Wst, Y, Z)
+                                  : xv[q];
+      const T v = sub_rn(ssm.b[YZ + q], ax);
+      ssm.r[2 * YZ + q] = v;
+      if (q < 2 * YZ || q >= W - 2 * YZ) {
+        const int i = by_yz.div(q);
+        push_halo(cluster, pl, rank, ssm.r, 2, f0 + i, q - i * YZ, YZ, v);
+      }
+    }
+  }
+  cluster.sync();
+  ck.mark(kClkCluster + 2);
+  if (!tail_rank) {  // the restriction, into the tail rank's b
+    const int c0 = pl.c0[rank], cn = pl.c0[rank + 1] - c0;
+    const int K0 = tr.K[0], K1 = tr.K[1], K2 = tr.K[2];
+    const int* i0 = itabA + tr.ioff[0] + A.X;
+    const T* w0 = wtabA + tr.woff[0] + 2 * A.X;
+    const T* rl = ssm.r + (2 - f0) * YZ;  // r at A's plane i: rl[i YZ + jk]
+    for (int p = tid; p < cn * YZ; p += nt) {  // pass 0: (cn, Y, Z)
+      const int cl = by_yz.div(p), jk = p - cl * YZ, c = c0 + cl;
+      const int* ix = i0 + c * K0;
+      const T* w = w0 + c * K0;
+      T acc = mul_rn(rl[ix[0] * YZ + jk], w[0]);
+      for (int e = 1; e < K0; ++e) {
+        acc = add_rn(acc, mul_rn(rl[ix[e] * YZ + jk], w[e]));
+      }
+      ssm.sa[p] = acc;
+    }
+    __syncthreads();
+    const int* i1 = itabA + tr.ioff[1] + Y;
+    const T* w1 = wtabA + tr.woff[1] + 2 * Y;
+    const FastDiv by_z(Z), by_cy(Ct.Y);
+    for (int p = tid; p < cn * Ct.Y * Z; p += nt) {  // pass 1: (cn, Yc, Z)
+      const int q = by_z.div(p), k = p - q * Z;
+      const int cl = by_cy.div(q), c = q - cl * Ct.Y;
+      const T* in = ssm.sa + cl * YZ + k;
+      const int* ix = i1 + c * K1;
+      const T* w = w1 + c * K1;
+      T acc = mul_rn(in[ix[0] * Z], w[0]);
+      for (int e = 1; e < K1; ++e) {
+        acc = add_rn(acc, mul_rn(in[ix[e] * Z], w[e]));
+      }
+      ssm.sb[p] = acc;
+    }
+    __syncthreads();
+    const int* i2 = itabA + tr.ioff[2] + Z;
+    const T* w2 = wtabA + tr.woff[2] + 2 * Z;
+    const unsigned char* fc = Fp + lane * free_stride;  // level t's free
+    T* bt = cluster.map_shared_rank(tsm.bs, 0);
+    const FastDiv by_cz(Ct.Z);
+    for (int p = tid; p < cn * Ct.Y * Ct.Z; p += nt) {  // pass 2, masked
+      const int q = by_cz.div(p), c = p - q * Ct.Z;
+      const T* in = ssm.sb + q * Z;
+      const int* ix = i2 + c * K2;
+      const T* w = w2 + c * K2;
+      T acc = mul_rn(in[ix[0]], w[0]);
+      for (int e = 1; e < K2; ++e) acc = add_rn(acc, mul_rn(in[ix[e]], w[e]));
+      const int at = c0 * Ct.Y * Ct.Z + p;
+      bt[at] = fc[at] != 0 ? acc : T(0);
+    }
+  }
+  cluster.sync();
+  ck.mark(kClkCluster + 3);
+  if (tail_rank) tail_run(tsm, m, itab, wtab, nu, iters, ck);
+  cluster.sync();
+  if (!tail_rank) {  // x' = x + P xc on the slab
+    const int* sx = itabA + tr.ioff[0];
+    const int a = sx[f0], cnt = (sx[f1 - 1] + 2 - a) * Ct.Y * Ct.Z;
+    if (cnt > pl.pmax * Ct.Y * Ct.Z) __trap();  // not the plan's coarsening
+    const T* xt = cluster.map_shared_rank(tsm.xs, 0) + a * Ct.Y * Ct.Z;
+    for (int e = tid; e < cnt; e += nt) ssm.xc[e] = xt[e];
+    __syncthreads();
+    const T* w0 = wtabA + tr.woff[0];
+    const T* w1 = wtabA + tr.woff[1];
+    const T* w2 = wtabA + tr.woff[2];
+    const FastDiv by_y(Y), by_z(Z);
+    for (int q = tid; q < W; q += nt) {
+      int i, j, k;
+      ijk_fast(q, Y, Z, by_y, by_z, &i, &j, &k);
+      i += f0;
+      const T p = prolong_value(
+          [&](int cx, int cy, int cz) {
+            return ssm.xc[((cx - a) * Ct.Y + cy) * Ct.Z + cz];
+          },
+          sx[i], itabA[tr.ioff[1] + j], itabA[tr.ioff[2] + k], w0[i],
+          w0[A.X + i], w1[j], w1[Y + j], w2[k], w2[Z + k]);
+      put(xcur, q, add_rn(xcur[YZ + q], p), nu == 0);
+    }
+  }
+  cluster.sync();
+  ck.mark(kClkCluster + 4);
+  for (int s = 0; s < nu; ++s) {  // the post-sweeps; the last writes x
+    if (!tail_rank) sweep(xcur, xoth, s == nu - 1);
+    cluster.sync();  // also: no block leaves while a neighbour reads it
+    T* t = xcur;
+    xcur = xoth;
+    xoth = t;
+  }
+  ck.mark(kClkCluster + 5);
+  ck.store();
 }
 
 // ── the levels above the tail ────────────────────────────────────────────
@@ -1415,22 +1982,6 @@ restrict_kernel(const T* __restrict__ r, const int* __restrict__ itab,
                        [&](int v) { return in[v]; });
     rc[q] = (p == tid ? free_first : free_c[q] != 0) ? acc : T(0);
   }
-}
-
-// P xc at a fine point as prolong_axis forms it: along x, then y, then
-// z, each value in_s wl + in_(s+1) wr; at(cx, cy, cz) reads xc, (sx, lx,
-// rx) etc. the point's slots and weights along each axis.
-template <typename T, typename At>
-__device__ __forceinline__ T prolong_value(At at, int sx, int sy, int sz,
-                                           T lx, T rx, T ly, T ry, T lz,
-                                           T rz) {
-  const auto p0 = [&](int cy, int cz) {
-    return add_rn(mul_rn(at(sx, cy, cz), lx), mul_rn(at(sx + 1, cy, cz), rx));
-  };
-  const auto p1 = [&](int cz) {
-    return add_rn(mul_rn(p0(sy, cz), ly), mul_rn(p0(sy + 1, cz), ry));
-  };
-  return add_rn(mul_rn(p1(sz), lz), mul_rn(p1(sz + 1), rz));
 }
 
 // y = x + P xc at fine point q of lane blockIdx.y (layout as
@@ -2242,6 +2793,92 @@ bool transfer_meta(const int* meta, int S, TailMeta* m) {
          level_lanes_fit(m->lv[0].G, S);
 }
 
+// Bytes of dynamic shared memory of a cluster-tail block: the larger of
+// the tail rank's (vcycle_tail_smem of the tail) and a slab rank's.
+long long cluster_tail_smem(const TailMeta& m, const TailMeta& ma,
+                            const ClusterPlan& pl, int elem) {
+  const TailLevel A = ma.lv[0], C = ma.lv[1];
+  const long long W = (long long)pl.wmax * A.Y * A.Z;
+  const long long slab =
+      (32 * W + 12LL * A.Y * A.Z + (long long)pl.cmax * (A.Y + C.Y) * A.Z +
+       (long long)pl.pmax * C.Y * C.Z) * elem + 4 * W;
+  return std::max(vcycle_tail_smem(m, elem), slab);
+}
+
+// The cluster tail: S lanes (gridDim.y), a cluster of `ranks` blocks each
+// (gridDim.x); meta the tail's layout from level t (as launch_vcycle_tail's,
+// its tables Cp, Fp, itab, wtab), meta_top level A's and t's with the
+// transfer between them (its tables itabA, wtabA: TransferTables.packed);
+// A's stencils CA (S, 27, G_A) and wd (S, G_A), its neighbour words
+// shared by the lanes (word_lanes 1) or one set a lane (S); the tail's
+// free likewise (free_lanes).  Refuses what launch_vcycle_tail refuses, a
+// meta_top that does not join the tail, a plan cluster_plan refuses and
+// blocks past kMaxSmem; raises cudaErrorLaunchOutOfResources where the
+// card cannot place one such cluster (cudaOccupancyMaxActiveClusters).
+template <typename T>
+int launch_cluster_tail(const void* b, const void* CA, const void* wdA,
+                        const void* words, const void* itabA,
+                        const void* wtabA, const void* Cp, const void* Fp,
+                        const void* itab, const void* wtab, void* x,
+                        const int* meta, const int* meta_top, int ranks,
+                        int S, int word_lanes, int free_lanes, int nu,
+                        double omega, int iters, void* stream) {
+  TailMeta m, ma;
+  ClusterPlan pl;
+  if (S < 0 || S > 65535 || nu < 0 || iters < 0 ||
+      !(word_lanes == 1 || word_lanes == S) ||
+      !(free_lanes == 1 || free_lanes == S) || !tail_meta(meta, true, &m) ||
+      m.lv[m.n - 1].G > kCgMaxWarps * 32 * kCgMaxPoints ||
+      !transfer_meta(meta_top, S, &ma) || ma.lv[1].X != m.lv[0].X ||
+      ma.lv[1].Y != m.lv[0].Y || ma.lv[1].Z != m.lv[0].Z ||
+      !cluster_plan(ma, ranks, &pl)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = cluster_tail_smem(m, ma, pl, (int)sizeof(T));
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  const auto kernel = cluster_tail_kernel<T>;
+  static std::atomic<unsigned> opted{0};
+  cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, S);
+  cfg.blockDim = dim3(kTailThreads<T>);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the placement query once per (device, ranks, bytes) in a row
+  static std::atomic<unsigned long long> placed{0};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long key = 1ull << 63 | (unsigned long long)dev << 40 |
+                                 (unsigned long long)ranks << 32 |
+                                 (unsigned long long)smem;
+  if (placed.load() != key) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    placed.store(key);
+  }
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, (const T*)b, (const T*)CA, (const T*)wdA,
+      (const unsigned*)words, (const int*)itabA, (const T*)wtabA,
+      (const T*)Cp, (const unsigned char*)Fp, (const int*)itab,
+      (const T*)wtab, (T*)x, m, ma, pl,
+      word_lanes == 1 ? 0 : ma.lv[0].G, free_lanes == 1 ? 0 : m.points, nu,
+      (T)omega, iters);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // restrict_kernel with tiles of TX x TY coarse points, Z cut evenly into
 // tiles of at most PST_RS_TZ; the grid's blocks (tiles x lanes) in
 // *blocks.
@@ -2551,6 +3188,32 @@ int pst_vcycle_tail_f64(const void* b, const void* Cp, const void* Fp,
                                     free_lanes, nu, omega, iters, stream);
 }
 
+int pst_cluster_tail_f32(const void* b, const void* CA, const void* wdA,
+                         const void* words, const void* itabA,
+                         const void* wtabA, const void* Cp, const void* Fp,
+                         const void* itab, const void* wtab, void* x,
+                         const int* meta, const int* meta_top, int ranks,
+                         int S, int word_lanes, int free_lanes, int nu,
+                         double omega, int iters, void* stream) {
+  return launch_cluster_tail<float>(b, CA, wdA, words, itabA, wtabA, Cp, Fp,
+                                    itab, wtab, x, meta, meta_top, ranks, S,
+                                    word_lanes, free_lanes, nu, omega, iters,
+                                    stream);
+}
+
+int pst_cluster_tail_f64(const void* b, const void* CA, const void* wdA,
+                         const void* words, const void* itabA,
+                         const void* wtabA, const void* Cp, const void* Fp,
+                         const void* itab, const void* wtab, void* x,
+                         const int* meta, const int* meta_top, int ranks,
+                         int S, int word_lanes, int free_lanes, int nu,
+                         double omega, int iters, void* stream) {
+  return launch_cluster_tail<double>(b, CA, wdA, words, itabA, wtabA, Cp, Fp,
+                                     itab, wtab, x, meta, meta_top, ranks, S,
+                                     word_lanes, free_lanes, nu, omega, iters,
+                                     stream);
+}
+
 int pst_combine_lanes_f32(const void* coeff, const void* sig, void* C, int L,
                           int B, int N, void* stream) {
   return launch_combine_lanes<float>(coeff, sig, C, L, B, N, stream);
@@ -2647,7 +3310,39 @@ long long pst_vcycle_tail_smem(const int* meta, int elem) {
   return tail_meta(meta, false, &m) ? vcycle_tail_smem(m, elem) : -1;
 }
 
+// Shared memory of a cluster-tail block of `ranks` ranks for the tail's
+// levels (meta as pst_vcycle_tail_smem's) below level A (meta_top: [2, A's
+// X, Y, Z, the tail's top X, Y, Z]); -1 for a plan it refuses.
+long long pst_cluster_tail_smem(const int* meta, const int* meta_top,
+                                int ranks, int elem) {
+  TailMeta m, ma;
+  ClusterPlan pl;
+  if (!tail_meta(meta, false, &m) || meta_top[0] != 2 ||
+      !tail_meta(meta_top, false, &ma) || !cluster_plan(ma, ranks, &pl)) {
+    return -1;
+  }
+  return cluster_tail_smem(m, ma, pl, elem);
+}
+
+int pst_cluster_max_ranks() { return kClusterMaxRanks; }
+
 int pst_tail_max_levels() { return kTailMaxLevels; }
+
+// The phase clocks of the last tail launch (see TailClock) into out[0..n),
+// n <= kClkSlots, after the device has finished it; a build without
+// PST_TAIL_CLOCKS keeps none and returns cudaErrorNotSupported.
+int pst_tail_clocks(long long* out, int n) {
+#ifdef PST_TAIL_CLOCKS
+  if (n < 0 || n > kClkSlots) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, g_tail_clk, n * sizeof(long long));
+#else
+  (void)out;
+  (void)n;
+  return (int)cudaErrorNotSupported;
+#endif
+}
+
+int pst_tail_clock_slots() { return kClkSlots; }
 
 int pst_max_smem() { return kMaxSmem; }
 

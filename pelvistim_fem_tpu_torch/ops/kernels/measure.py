@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    DIAG_OFFSET, FactoredLevelOp, LevelOp, VcycleTail, coarse_cg_plain,
-    make_vcycle_tail, vcycle_tail_plain)
+    DIAG_OFFSET, ClusterTail, FactoredLevelOp, LevelOp, TransferTables,
+    VcycleTail, coarse_cg_plain, make_cluster_tail, make_vcycle_tail,
+    vcycle_tail_plain)
 
 # Least time bounds: NVIDIA H100 SXM data sheet, dense, without sparsity
 # (at a power limit of 700 W): HBM3 3.35 TB/s; 67 TFLOP/s float32 and 34
@@ -62,6 +63,10 @@ def input_copies(args, warm=False):
         return [tuple(args)]
     tensors = [a for a in args if torch.is_tensor(a)]
     for a in args:
+        if isinstance(a, ClusterTail):
+            tensors += [a.top.C] + list(a.top._wd.values()) + (
+                [a.top.words] if a.top.words is not None else [])
+            a = a.tail
         if isinstance(a, VcycleTail) and a.packed is not None:
             tensors += list(a.packed[:-1])
         if isinstance(a, LevelOp):
@@ -73,8 +78,8 @@ def input_copies(args, warm=False):
                 [a.words] if a.words is not None else [])
     nbytes = sum(a.numel() * a.element_size() for a in tensors)
     n = max(2, math.ceil(ROTATE_BYTES / nbytes))
-    copy = lambda a: a.clone() if torch.is_tensor(a) or \
-        isinstance(a, (VcycleTail, LevelOp, FactoredLevelOp)) else a
+    copy = lambda a: a.clone() if torch.is_tensor(a) or isinstance(
+        a, (VcycleTail, ClusterTail, LevelOp, FactoredLevelOp)) else a
     return [tuple(args)] + [tuple(copy(a) for a in args)
                             for _ in range(n - 1)]
 
@@ -120,7 +125,10 @@ def work(name, shape, dtype):
     level but the coarsest 2 nu applies (a single one, the residual, at nu
     = 0) of 27 multiply-adds a point, their sweeps' 3 operations and the
     first sweep's and the residual's 1, then the coarse CG's; the
-    transfers' few operations a point are left out), (L, B, shapes) for
+    transfers' few operations a point are left out), (nu, iters, S,
+    shapes) for cluster_tail_cuda (as vcycle_tail_cuda's over every level,
+    the top level's wd and neighbour word, 4 bytes, read in place of its
+    free byte), (L, B, shapes) for
     combine_lanes_cuda (L lanes of B bodies over the 27 planes of the
     levels of grids `shapes`, packed: each body's coefficients and sigma
     read once, each lane's stencils written once; 2B - 1 operations an
@@ -182,6 +190,10 @@ def work(name, shape, dtype):
         L, B, shapes = shape
         N = 27 * sum(int(np.prod(s)) for s in shapes)
         return (B * N + L * B + L * N) * es, L * N * (2 * B - 1)
+    if name == "cluster_tail_cuda":
+        nbytes, ops = work("vcycle_tail_cuda", shape, dtype)
+        S, G = shape[2], int(np.prod(shape[3][0]))
+        return nbytes + S * G * (es + 3), ops
     if name == "vcycle_tail_cuda":
         nu, iters, S, shapes = shape
         pts = [int(np.prod(s)) for s in shapes]
@@ -336,6 +348,51 @@ def check_vcycle_tail(name, y, args):
     return check_against_spread(name, y, twin, (b,) + tuple(tail.Cs))
 
 
+def check_cluster_tail(name, y, args):
+    """cluster_tail_cuda's y against vcycle_tail_plain over the same levels
+    (ClusterTail.levels), b and every level's stencil moved
+    (check_vcycle_tail)."""
+    b, ct, nu, omega, iters = args
+    return check_vcycle_tail(name, y, (b, ct.levels(), nu, omega, iters))
+
+
+def cluster_route(b, ct, nu, omega, iters, route=True):
+    """On the card, around vcycle_tail_cuda on the levels below a cluster
+    tail's top level, that level's phases as multigrid._level_cycle runs
+    them: route=True, kernel 1 and PyTorch's ops (the route the kernel
+    repeats bit for bit); False, the level kernels ("sweep0", "residual",
+    restrict, "prolong_sweep", "sweep" at nu = 2: the launches the
+    cluster tail replaces; cluster_replaced)."""
+    from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import \
+        vcycle_tail_cuda
+    from pelvistim_fem_tpu_torch.ops.multigrid import _level_cycle
+    return _level_cycle(
+        ct.top, ct.tt, ct.tail.frees[0], b,
+        lambda rc: vcycle_tail_cuda(rc, ct.tail, nu, omega, iters), nu=nu,
+        omega=omega, route=route)
+
+
+def cluster_replaced(b, ct, nu, omega, iters):
+    return cluster_route(b, ct, nu, omega, iters, route=False)
+
+
+def as_cluster(whole, ranks=None):
+    """The ClusterTail of the levels of a VcycleTail `whole`
+    (make_cluster_tail): its top level as a LevelOp, its first transfer's
+    kernel tables (multigrid.Transfer.kernel_tables' re-pointed padding)
+    and the VcycleTail of the levels below."""
+    from pelvistim_fem_tpu_torch.ops.multigrid import _kernel_restrict_idx
+    pro, res = whole.pro[0], whole.res[0]
+    kidx = tuple(torch.as_tensor(_kernel_restrict_idx(
+        p[0].cpu().numpy(), r[0].cpu().numpy()), device=r[0].device)
+        for p, r in zip(pro, res))
+    top = LevelOp(whole.Cs[0], whole.frees[0])
+    rest = make_vcycle_tail(whole.Cs[1:], whole.frees[1:], whole.pro[1:],
+                            whole.res[1:])
+    return make_cluster_tail(top, TransferTables(pro, res, kidx), rest,
+                             ranks)
+
+
 def kernel_inputs(name, shape, dtype, device, rng):
     """Random arguments of kernel `name` at `shape` (as `bound` takes it)
     in its layout: bf16 coefficients for stencil_spmv_bf16c_cuda (dtype
@@ -344,7 +401,9 @@ def kernel_inputs(name, shape, dtype, device, rng):
     positive, as solved; coarse_cg_cuda an SPD stencil a lane
     (spd_stencil), a mask free on 85% of the points, one a lane, and b
     on every point (so that the masked-out points' identity rows run
-    too); vcycle_tail_cuda tail_inputs; combine_lanes_cuda coeff (B, 27
+    too); vcycle_tail_cuda tail_inputs; cluster_tail_cuda (shape (nu,
+    iters, S, shapes) or (nu, iters, S, shapes, ranks)) tail_inputs' levels
+    as a ClusterTail (as_cluster); combine_lanes_cuda coeff (B, 27
     * points) of the levels `shapes` packed, and positive sigma (L, B);
     level_apply_cuda (x, b, a LevelOp of a random stencil and a mask free
     on 85% of the points, FL of them, its words and wd made, mode, 0.7;
@@ -373,6 +432,12 @@ def kernel_inputs(name, shape, dtype, device, rng):
         return rand(grid), rand(grid[:-3] + (P,) + grid[-3:]), xrows
     if name == "vcycle_tail_cuda":
         return tail_inputs(shape, dtype, device, rng)
+    if name == "cluster_tail_cuda":
+        b, whole, nu, omega, iters = tail_inputs(shape[:4], dtype, device,
+                                                 rng)
+        ct = as_cluster(whole, shape[4] if len(shape) > 4 else None)
+        ct.top.wd(omega)
+        return b, ct, nu, omega, iters
     if name == "combine_lanes_cuda":
         L, B, shapes = shape
         N = 27 * sum(int(np.prod(s)) for s in shapes)

@@ -80,6 +80,24 @@ takes where the lanes share body-factored coefficients:
       twin: combine_lanes_plain        (to within one unit in the last
                                        place: PyTorch has no fma)
 
+and the level above that tail with the tail, in one launch, where that
+level has its own stencil but does not fit one SM:
+
+  cluster_tail(b, ct, nu, omega, coarse_iters)
+                                       one V-cycle from the top level of
+                                       `ct` (make_cluster_tail: a LevelOp,
+                                       the TransferTables to the next level
+                                       and the VcycleTail below it), b 3-D
+                                       or S lanes
+      CUDA: cluster_tail_cuda          replaces what the level kernels at
+                                       the top level and vcycle_tail below
+                                       it replace (cycle_impl's recursion
+                                       from that level, kernel 1 in it): a
+                                       thread-block cluster a lane
+      twin: cluster_tail_plain         (level_apply_plain's phases at the
+                                       top level, restrict_plain,
+                                       vcycle_tail_plain, "prolong_sweep")
+
 and a V-cycle level above the tail, one launch a phase, on a level's
 LevelOp (its stencil, mask, Jacobi diagonal and neighbour words) and the
 TransferTables to its next level, each made once a hierarchy:
@@ -171,6 +189,7 @@ LAUNCHES = {"stencil_spmv_cuda": 0, "batched_stencil_spmv_cuda": 0,
             "batched_stencil_spmv_lminor_cuda": 0,
             "stencil_spmv_bf16c_cuda": 0, "plane_fma_cuda": 0,
             "coarse_cg_cuda": 0, "vcycle_tail_cuda": 0,
+            "cluster_tail_cuda": 0,
             "combine_lanes_cuda": 0, "level_apply_cuda": 0,
             "restrict_cuda": 0, "prolong_add_cuda": 0,
             "level_apply_factored_cuda": 0}
@@ -189,6 +208,10 @@ TAIL_MAX_LEVELS = 8
 SMEM_MAX = 232448
 COARSE_CG_MAX_POINTS = 2048
 _CG_MAX_WARPS = 8
+# The cluster tail's most blocks a cluster (kClusterMaxRanks, the portable
+# cluster size; pst_cluster_max_ranks), which the plan takes where the
+# level has that many planes.
+CLUSTER_MAX_RANKS = 8
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -621,6 +644,168 @@ def prolong_add_plain(x, xc, tt):
     return x + prolong_axes(xc, tt.pro)
 
 
+def _even_planes(n, ranks):
+    """[at[r]] of n planes over the ranks - 1 slab ranks of a cluster tail,
+    evenly (the first n % (ranks - 1) take one more): slab rank r's are
+    [at[r], at[r + 1]), r = 1..ranks - 1 (even_planes in csrc)."""
+    q, rem = divmod(n, ranks - 1)
+    return [0] + [(r - 1) * q + min(r - 1, rem) for r in range(1, ranks + 1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """A cluster tail's blocks (cluster_plan): `ranks` blocks a lane, rank
+    0 the tail rank, ranks 1.. each a slab of the top level's planes along
+    axis 0, slabs[r - 1] = (first, end), and coarse[r - 1] the next level's
+    planes it restricts; `smem` the bytes of shared memory each block
+    takes, the larger of a slab rank's (slab_smem) and the tail rank's
+    (tail_smem)."""
+    ranks: int
+    slabs: tuple
+    coarse: tuple
+    slab_smem: int
+    tail_smem: int
+
+    @property
+    def smem(self) -> int:
+        return max(self.slab_smem, self.tail_smem)
+
+
+def cluster_plan(shapes, dtype, ranks=None):
+    """The ClusterPlan of a cluster tail over levels of grids `shapes` (the
+    top level A first, then the tail's, each the every-other-knot
+    coarsening of the one before) in `dtype`, by the kernel's formula
+    (pst_cluster_tail_smem reports it): ranks (default the most,
+    CLUSTER_MAX_RANKS, or A's planes + 1 where fewer) blocks, each slab
+    rank holding wmax = ceil(X / (ranks - 1)) planes' 27 coefficient
+    planes in `dtype` and a 4-byte word a point, b, wd and x twice with a
+    plane of halo each side, the residual with two, the restriction's two
+    passes on the next level's planes c whose fine knot min(2 c, X - 1)
+    lies in its slab (cmax at most) and the prolongation's footprint of
+    that level's x (pmax planes); the tail rank vcycle_tail_smem of the
+    levels below A.  None where the kernel refuses it: a tail that vcycle_tail
+    refuses (past SMEM_MAX or TAIL_MAX_LEVELS levels, a coarsest level past
+    COARSE_CG_MAX_POINTS), fewer than 2 or more than CLUSTER_MAX_RANKS
+    ranks, a slab rank without a plane, a next level of one plane along
+    axis 0, or blocks past SMEM_MAX."""
+    shapes = [tuple(int(d) for d in g) for g in shapes]
+    (X, Y, Z), tail = shapes[0], shapes[1:]
+    if ranks is None:
+        ranks = min(CLUSTER_MAX_RANKS, X + 1)
+    if not tail or len(tail) > TAIL_MAX_LEVELS or \
+            math.prod(tail[-1]) > COARSE_CG_MAX_POINTS or \
+            not 2 <= ranks <= CLUSTER_MAX_RANKS or X < ranks - 1 or \
+            tail[0][0] < 2:
+        return None
+    (nc, Yc, Zc), s = tail[0], ranks - 1
+    f0, c0 = _even_planes(X, ranks), [0, 0]
+    for r in range(1, ranks):
+        c = c0[-1]
+        while c < nc and min(2 * c, X - 1) < f0[r + 1]:
+            c += 1
+        c0.append(c)
+    wmax = -(-X // s)
+    cmax = max(b - a for a, b in zip(c0[1:-1], c0[2:]))
+    pmax = max(min((f0[r + 1] - 1) // 2, nc - 2) + 2 - min(f0[r] // 2, nc - 2)
+               for r in range(1, ranks))
+    es = torch.finfo(dtype).bits // 8
+    W = wmax * Y * Z
+    slab = (32 * W + 12 * Y * Z + cmax * (Y + Yc) * Z + pmax * Yc * Zc) * \
+        es + 4 * W
+    plan = ClusterPlan(ranks, tuple(zip(f0[1:-1], f0[2:])),
+                       tuple(zip(c0[1:-1], c0[2:])), slab,
+                       vcycle_tail_smem(tail, dtype))
+    return plan if plan.smem <= SMEM_MAX else None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClusterTail:
+    """A cluster tail's levels (make_cluster_tail): `top` the LevelOp of
+    its top level A, `tt` the TransferTables from A to the next level,
+    `tail` the VcycleTail of the levels below A, `plan` its ClusterPlan."""
+    top: "LevelOp"
+    tt: "TransferTables"
+    tail: VcycleTail
+    plan: ClusterPlan
+
+    @property
+    def lanes(self) -> int:
+        return self.tail.lanes
+
+    @property
+    def shapes(self) -> tuple:
+        """Every level's grid, A's first."""
+        return (tuple(int(d) for d in self.top.free.shape[-3:]),) + \
+            self.tail.shapes
+
+    def levels(self) -> VcycleTail:
+        """The same levels as one VcycleTail from A (unpacked): the route
+        the cluster tail repeats, as vcycle_tail_plain runs it."""
+        return VcycleTail((self.top.C,) + self.tail.Cs,
+                          (self.top.free,) + self.tail.frees,
+                          (self.tt.pro,) + self.tail.pro,
+                          (self.tt.res,) + self.tail.res, self.shapes)
+
+    def clone(self) -> "ClusterTail":
+        """The same levels with copies of the kernel's arguments."""
+        return dataclasses.replace(self, top=self.top.clone(),
+                                   tail=self.tail.clone())
+
+
+def make_cluster_tail(top, tt, tail, ranks=None) -> ClusterTail:
+    """The ClusterTail of a level with its own stencil `top` (a LevelOp,
+    (27, X, Y, Z) or S lanes), the TransferTables `tt` to the next level
+    and the VcycleTail `tail` from that level (make_vcycle_tail), with
+    cluster_plan's blocks (`ranks`, where given); on a CUDA device the
+    level's neighbour words and the tables' kernel arguments are made
+    here.  Raises ValueError where the pieces do not join or the plan is
+    refused."""
+    grid = tuple(int(d) for d in top.free.shape[-3:])
+    if tt.shape != (grid, tail.shapes[0]):
+        raise ValueError(f"make_cluster_tail: transfer {tt.shape} does not "
+                         f"join {grid} to {tail.shapes[0]}")
+    lanes = top.C.shape[0] if top.C.dim() == 5 else 1
+    if lanes != tail.lanes or (top.C.dim() == 5) != (tail.Cs[0].dim() == 5):
+        raise ValueError(f"make_cluster_tail: {lanes} lanes on top of a tail "
+                         f"of {tail.lanes}")
+    plan = cluster_plan((grid,) + tail.shapes, top.C.dtype, ranks)
+    if plan is None:
+        raise ValueError(f"make_cluster_tail: levels {(grid,) + tail.shapes} "
+                         f"in {top.C.dtype} at {ranks or 'the most'} ranks "
+                         f"do not fit a cluster (SMEM_MAX {SMEM_MAX} bytes a "
+                         f"block, at most {CLUSTER_MAX_RANKS} blocks, a plane "
+                         f"of the top level a slab rank)")
+    if top.C.is_cuda:
+        top.neighbour_words()
+        _ = tt.packed
+    return ClusterTail(top, tt, tail, plan)
+
+
+def cluster_tail_plain(b, ct, nu=2, omega=0.7, coarse_iters=24):
+    """One V-cycle from the top level A of `ct` (a ClusterTail): at A
+    multigrid._level_cycle's phases on the plain twins (x = wd b, as
+    "sweep0" at nu >= 2, nu - 1 sweeps in all, the residual, the
+    restriction masked by the next level's free), vcycle_tail_plain on the
+    levels below, then "prolong_sweep" and nu - 1 sweeps (at nu = 0
+    prolong_add alone).  b (X, Y, Z) or (S, X, Y, Z)."""
+    lv, tt, tail = ct.top, ct.tt, ct.tail
+    if nu >= 2:
+        x = level_apply_plain(None, b, lv, "sweep0", omega)
+    else:
+        x = lv.wd(omega) * b
+    for _ in range(nu - 2):
+        x = level_apply_plain(x, b, lv, "sweep", omega)
+    r = level_apply_plain(x, b, lv, "residual", omega)
+    xc = vcycle_tail_plain(restrict_plain(r, tt, tail.frees[0]), tail, nu,
+                           omega, coarse_iters)
+    if nu == 0:
+        return prolong_add_plain(x, xc, tt)
+    x = level_apply_plain(x, b, lv, "prolong_sweep", omega, xc, tt)
+    for _ in range(nu - 1):
+        x = level_apply_plain(x, b, lv, "sweep", omega)
+    return x
+
+
 def batched_stencil_spmv_plain(Xs, coeff, sig):
     """Lane-stacked body-factored SpMV.  Xs (L, X, Y, Z), coeff (B, 27,
     X, Y, Z), sig (L, B):  Y[l] = sum_o (sum_b sig[l, b] C_b[o]) *
@@ -838,8 +1023,17 @@ def build(extra_flags=()) -> ctypes.CDLL:
             fn.restype = i
         lib.pst_vcycle_tail_smem.argtypes = [ptr, i]
         lib.pst_vcycle_tail_smem.restype = ctypes.c_longlong
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"pst_cluster_tail_{dt}")
+            fn.argtypes = [ptr] * 13 + [i] * 5 + [ctypes.c_double, i, ptr]
+            fn.restype = i
+        lib.pst_cluster_tail_smem.argtypes = [ptr, ptr, i, i]
+        lib.pst_cluster_tail_smem.restype = ctypes.c_longlong
+        lib.pst_tail_clocks.argtypes = [ptr, i]
+        lib.pst_tail_clocks.restype = i
         for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points,
-                   lib.pst_tail_max_levels, lib.pst_max_smem):
+                   lib.pst_tail_max_levels, lib.pst_max_smem,
+                   lib.pst_tail_clock_slots, lib.pst_cluster_max_ranks):
             fn.argtypes = []
             fn.restype = i
         lib.pst_error_string.argtypes = [i]
@@ -1055,6 +1249,39 @@ def _dims_vcycle_tail(b, tail, nu, omega, coarse_iters):
             f"pst_vcycle_tail_{_SUFFIX[b.dtype]}")
 
 
+def _dims_cluster_tail(b, ct, nu, omega, coarse_iters):
+    name = "cluster_tail_cuda"
+    if ct.tail.packed is None:
+        raise ValueError(f"{name}: the tail's levels must lie on a CUDA "
+                         "device")
+    Cp, Fp, Ip, Wp, layout = ct.tail.packed
+    IpA, WpA, layout_top = ct.tt.packed
+    lv = ct.top
+    wd, words = lv.wd(omega), lv.neighbour_words()
+    _check(name, b.dtype, b.device, b=b, C=lv.C, wd=wd, planes=Cp,
+           weights=Wp, top_weights=WpA)
+    _check(name, torch.bool, b.device, (torch.bool,), free=Fp)
+    _check(name, torch.int32, b.device, (torch.int32,), tables=Ip,
+           top_tables=IpA, words=words)
+    lead = (ct.lanes,) if lv.C.dim() == 5 else ()
+    top = lead + ct.shapes[0]
+    if tuple(b.shape) != top or tuple(lv.C.shape) != lead + (27,) + \
+            ct.shapes[0] or tuple(wd.shape) != top or \
+            words.shape[0] not in (1, ct.lanes) or \
+            words.shape[1] != math.prod(ct.shapes[0]):
+        raise ValueError(f"{name}: b {tuple(b.shape)}, C "
+                         f"{tuple(lv.C.shape)}, wd {tuple(wd.shape)}, words "
+                         f"{tuple(words.shape)}; the top level {top}")
+    for arg, v in (("nu", nu), ("coarse_iters", coarse_iters)):
+        if not isinstance(v, int) or v < 0:
+            raise ValueError(f"{name}: {arg} {v!r}")
+    return ((b, lv.C, wd, words, IpA, WpA, Cp, Fp, Ip, Wp),
+            (ctypes.addressof(layout), ctypes.addressof(layout_top),
+             ct.plan.ranks, ct.lanes, words.shape[0], Fp.shape[0], nu,
+             float(omega), coarse_iters),
+            f"pst_cluster_tail_{_SUFFIX[b.dtype]}")
+
+
 def _dims_combine_lanes(coeff, sig):
     name = "combine_lanes_cuda"
     _check(name, coeff.dtype, coeff.device, coeff=coeff, sig=sig)
@@ -1172,6 +1399,7 @@ _DIMS = {"stencil_spmv_cuda": _dims_single,
          "plane_fma_cuda": _dims_plane_fma,
          "coarse_cg_cuda": _dims_coarse_cg,
          "vcycle_tail_cuda": _dims_vcycle_tail,
+         "cluster_tail_cuda": _dims_cluster_tail,
          "combine_lanes_cuda": _dims_combine_lanes,
          "level_apply_cuda": _dims_level_apply,
          "restrict_cuda": _dims_restrict,
@@ -1287,6 +1515,17 @@ def vcycle_tail_cuda(b, tail, nu=2, omega=0.7, coarse_iters=24):
     return x
 
 
+def cluster_tail_cuda(b, ct, nu=2, omega=0.7, coarse_iters=24):
+    """CUDA kernel for cluster_tail_plain's function, a thread-block
+    cluster of ct.plan.ranks blocks a lane: b (X, Y, Z), or (S, X, Y, Z)
+    for S lanes, contiguous, of the levels' dtype (float32 or float64) and
+    on their device; `ct` made from CUDA tensors (make_cluster_tail).
+    Raises where the card cannot place such a cluster."""
+    x = launch("cluster_tail_cuda", b, ct, nu, omega, coarse_iters)
+    LAUNCHES["cluster_tail_cuda"] += 1
+    return x
+
+
 def combine_lanes_cuda(coeff, sig):
     """CUDA kernel for combine_lanes_plain's function, in its order with
     true fmas: coeff (B, ...) and sig (L, B), contiguous float32 or
@@ -1392,6 +1631,14 @@ def vcycle_tail(b, tail, nu=2, omega=0.7, coarse_iters=24):
     if b.is_cuda:
         return vcycle_tail_cuda(b, tail, nu, omega, coarse_iters)
     return vcycle_tail_plain(b, tail, nu, omega, coarse_iters)
+
+
+def cluster_tail(b, ct, nu=2, omega=0.7, coarse_iters=24):
+    """One V-cycle from the top level of a ClusterTail: the CUDA kernel
+    for CUDA tensors, the plain twin for CPU tensors."""
+    if b.is_cuda:
+        return cluster_tail_cuda(b, ct, nu, omega, coarse_iters)
+    return cluster_tail_plain(b, ct, nu, omega, coarse_iters)
 
 
 def combine_lanes(coeff, sig):

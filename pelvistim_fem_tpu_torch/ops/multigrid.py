@@ -31,7 +31,12 @@ certified-solve slice of pelvistim_fem_tpu/ops/multigrid.py).
   * The tail: on the card, the levels from the first one whose stencils,
     with every coarser level's, fit one SM's shared memory (tail_start)
     run as one kernels.stencil_kernels.vcycle_tail launch a V-cycle, which
-    repeats the level-by-level route bit for bit.  Body-factored lanes
+    repeats the level-by-level route bit for bit.  Where the level above
+    it has its own combined stencil (a LevelOp: one operator, or one a
+    lane of a geometry batch) and fits a thread-block cluster with it
+    (cluster_tail_plan), the V-cycle from that level is one
+    kernels.stencil_kernels.cluster_tail launch instead, bit for bit the
+    level kernels there and the tail below.  Body-factored lanes
     get their own stencils at those levels first, once a solve, from one
     kernels.stencil_kernels.combine_lanes launch in the batched apply's
     order (combined_tail_levels).  On the CPU the V-cycles recurse level
@@ -60,10 +65,11 @@ import numpy as np
 import torch
 
 from pelvistim_fem_tpu_torch.ops.kernels.stencil_kernels import (
-    SMEM_MAX, TAIL_MAX_LEVELS, FactoredLevelOp, LevelOp, TransferTables,
-    coarse_cg, combine_lanes, fixed_cg, level_apply, level_apply_factored,
-    level_apply_factored_plain, level_apply_plain, make_vcycle_tail,
-    prolong_add, prolong_add_plain, prolong_axes, restrict, restrict_axes,
+    SMEM_MAX, TAIL_MAX_LEVELS, ClusterTail, FactoredLevelOp, LevelOp,
+    TransferTables, cluster_plan, cluster_tail, coarse_cg, combine_lanes,
+    fixed_cg, level_apply, level_apply_factored, level_apply_factored_plain,
+    level_apply_plain, make_cluster_tail, make_vcycle_tail, prolong_add,
+    prolong_add_plain, prolong_axes, restrict, restrict_axes,
     restrict_plain, vcycle_tail, vcycle_tail_smem)
 from pelvistim_fem_tpu_torch.ops.solve import (SolveResult, batched_cg,
                                                preconditioned_cg,
@@ -261,15 +267,17 @@ def _level_cycle(lv, tt, free_c, b, coarser, *, nu, omega, route,
     return x
 
 
-def _make_level_args(levels, transfers, upto, omega):
+def _make_level_args(levels, transfers, upto, omega, tail=None):
     """The level kernels' arguments of levels[:upto] (LevelOps or
-    FactoredLevelOps) and of their transfers, made now on a CUDA device
-    (not in the first V-cycle)."""
+    FactoredLevelOps) and of their transfers, and a cluster tail's top
+    level's wd, made now on a CUDA device (not in the first V-cycle)."""
     for lv, tr in zip(levels[:upto], transfers):
         if lv.free.is_cuda:
             lv.neighbour_words()
             wd = lv.wd(omega)
             _ = tr.kernel_tables(wd.device, wd.dtype).packed
+    if isinstance(tail, ClusterTail) and tail.top.free.is_cuda:
+        tail.top.wd(omega)
 
 
 def tail_start(shapes, dtype) -> int:
@@ -286,28 +294,77 @@ def tail_start(shapes, dtype) -> int:
     return n
 
 
-def _v_tail(Cs, frees, transfers, tail_from, planes=None):
+def cluster_tail_plan(shapes, dtype):
+    """(start, plan) of the cluster tail of a hierarchy of grids `shapes`
+    (finest first) in `dtype`: the level t - 1 above tail_start's level t,
+    where the tail from t has two levels or more, and the ClusterPlan of
+    the levels from t - 1 (cluster_plan: the most ranks, each rank's slab
+    and shared-memory bytes by the kernel's formula); None where there is
+    none (a hierarchy that fits whole, a tail of the coarsest level alone,
+    a level t - 1 that even CLUSTER_MAX_RANKS blocks cannot hold)."""
+    t, n = tail_start(shapes, dtype), len(shapes)
+    if not 1 <= t < n - 1:
+        return None
+    plan = cluster_plan(shapes[t - 1:], dtype)
+    return None if plan is None else (t - 1, plan)
+
+
+def _auto_tail_from(shapes, dtype, levels):
+    """The level from which a V-cycle on the card is one launch: the
+    cluster tail's start (cluster_tail_plan) where `levels` (a LevelOp or
+    None a level) has a LevelOp there and at every level below, else
+    tail_start's level, not above the first level from which every level
+    has one (no LevelOps given: tail_start's)."""
+    own = 0 if levels is None else len(shapes)
+    while own and levels[own - 1] is not None:
+        own -= 1
+    plan = cluster_tail_plan(shapes, dtype)
+    if plan is not None and plan[0] >= own:
+        return plan[0]
+    return max(own, tail_start(shapes, dtype))
+
+
+def _v_tail(Cs, frees, transfers, tail_from, planes=None, levels=None):
     """(t, tail): the level t from which a V-cycle over levels with
-    combined stencils Cs and masks frees is one vcycle_tail call, and that
-    call's levels (make_vcycle_tail, made here once; `planes` their
-    stencils packed, where given).  tail_from None takes tail_start's
-    level for stencils on a CUDA device and none on the CPU; Cs may be
-    None above an explicit tail_from.  A tail of the coarsest level alone
-    is the coarse CG, so t >= len(Cs) - 1 gives (len(Cs), None): the
-    level-by-level route."""
+    combined stencils Cs and masks frees is one launch, and that launch's
+    levels, made here once: a VcycleTail (make_vcycle_tail; `planes` its
+    stencils packed, where given) where the levels from t fit one block's
+    shared memory; else, where `levels` is given (a LevelOp or None a
+    level), levels[t] is a LevelOp, the tail from t + 1 has two levels or
+    more and the levels from t fit a cluster (cluster_plan), a ClusterTail
+    (make_cluster_tail); else a VcycleTail, which the plain twin runs and
+    the kernel refuses.  tail_from None takes _auto_tail_from's level for
+    stencils on a CUDA device and none on the CPU; Cs may be None above an
+    explicit tail_from.  A tail of the coarsest level alone is the coarse
+    CG, so t >= len(Cs) - 1 gives (len(Cs), None): the level-by-level
+    route."""
     n = len(Cs)
+    shapes = [tuple(f.shape[-3:]) for f in frees]
+    dtype, device = Cs[-1].dtype, Cs[-1].device
     if tail_from is None:
-        tail_from = tail_start([tuple(C.shape[-3:]) for C in Cs],
-                               Cs[0].dtype) if Cs[0].is_cuda else n
+        tail_from = _auto_tail_from(shapes, dtype, levels) \
+            if Cs[-1].is_cuda else n
     if not 0 <= tail_from <= n:
         raise ValueError(f"tail_from {tail_from} of {n} levels")
     if tail_from >= n - 1:
         return n, None
-    tables = [tr._tensors(Cs[-1].device, Cs[-1].dtype)
-              for tr in transfers[tail_from:]]
-    return tail_from, make_vcycle_tail(Cs[tail_from:], frees[tail_from:],
-                                       [p for p, _ in tables],
-                                       [r for _, r in tables], planes)
+    t = tail_from
+    if vcycle_tail_smem(shapes[t:], dtype) > SMEM_MAX and t < n - 2 and \
+            levels is not None and levels[t] is not None and \
+            cluster_plan(shapes[t:], dtype) is not None:
+        _, tail = _v_tail(Cs, frees, transfers, t + 1, planes)
+        return t, make_cluster_tail(
+            levels[t], transfers[t].kernel_tables(device, dtype), tail)
+    tables = [tr._tensors(device, dtype) for tr in transfers[t:]]
+    return t, make_vcycle_tail(Cs[t:], frees[t:], [p for p, _ in tables],
+                               [r for _, r in tables], planes)
+
+
+def _run_tail(b, tail, nu, omega, coarse_iters):
+    """One V-cycle through `tail` (_v_tail's): a cluster_tail or a
+    vcycle_tail call."""
+    run = cluster_tail if isinstance(tail, ClusterTail) else vcycle_tail
+    return run(b, tail, nu, omega, coarse_iters)
 
 
 def cycle_impl(levels, transfers, b, *, nu=2, omega=0.7, coarse_iters=24,
@@ -318,19 +375,19 @@ def cycle_impl(levels, transfers, b, *, nu=2, omega=0.7, coarse_iters=24,
     _level_cycle (the level kernels on the card; route=True: kernel 1 and
     PyTorch's ops, the route they repeat); the coarsest level is
     coarse_cg on its combined stencil.  From level tail_from on, the cycle
-    is one vcycle_tail call on `tail` (its levels; made here from
-    `levels` when not given): tail_from None is tail_start's level on the
-    card and no tail on the CPU; len(levels) is the level-by-level
-    route."""
+    is one vcycle_tail or cluster_tail call on `tail` (_v_tail's levels;
+    made here from `levels` when not given): tail_from None is
+    _auto_tail_from's level on the card and no tail on the CPU;
+    len(levels) is the level-by-level route."""
     n_levels = len(levels)
     if tail is None:
         tail_from, tail = _v_tail([lv.C for lv in levels],
                                   [lv.free for lv in levels], transfers,
-                                  tail_from)
+                                  tail_from, levels=levels)
 
     def cycle(level, b):
         if level == tail_from:
-            return vcycle_tail(b, tail, nu, omega, coarse_iters)
+            return _run_tail(b, tail, nu, omega, coarse_iters)
         lv = levels[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration CG (a fixed SPD approximation)
@@ -346,16 +403,17 @@ def cycle_impl(levels, transfers, b, *, nu=2, omega=0.7, coarse_iters=24,
 def make_v_cycle(hier: MGHierarchy, sigma_table, *, nu=2, omega=0.7,
                  coarse_iters=24, tail_from=None, route=False):
     """SPD preconditioner apply(r) -> z (one Jacobi V-cycle).  The levels
-    from tail_from on (cycle_impl; default: tail_start's on the card, none
-    on the CPU) are one vcycle_tail call; the tail and the level kernels'
+    from tail_from on (cycle_impl; default on the card: the cluster tail's
+    start where there is one, else tail_start's; none on the CPU) are one
+    vcycle_tail or cluster_tail call; the tail and the level kernels'
     arguments of the levels above it are made here once.  route: the
     levels above the tail by kernel 1 and PyTorch's ops (cycle_impl)."""
     levels = [_level_op(lv, sigma_table) for lv in hier.levels]
     tail_from, tail = _v_tail([lv.C for lv in levels],
                               [lv.free for lv in levels], hier.transfers,
-                              tail_from)
+                              tail_from, levels=levels)
     _make_level_args(levels, hier.transfers,
-                     min(tail_from, len(levels) - 1), omega)
+                     min(tail_from, len(levels) - 1), omega, tail)
 
     def apply(r):
         return cycle_impl(levels, hier.transfers, r, nu=nu, omega=omega,
@@ -504,25 +562,24 @@ def _fused_tail(pieces, hier, tail_from, nu, planes=None):
     """_v_tail of a lane-stacked hierarchy: the levels from which every
     level has the lanes' own stencils (C not None) may take a tail, with
     nu >= 1 (nu = 0 starts the pre-smoothing from zeros, not from omega *
-    dinv * b); tail_from None: tail_start's level on the card (not above
-    those levels), none on the CPU.  Body-factored levels keep fixed_cg
-    on the batched apply.  `planes`: the tail's stencils packed
-    (combined_tail_levels), where made."""
+    dinv * b).  tail_from None: _auto_tail_from's level on the card (not
+    above those levels), none on the CPU; there the cluster tail from a
+    level with the lanes' own stacks (a geometry batch), never from a
+    body-factored one; an explicit tail_from takes a VcycleTail.
+    Body-factored levels keep fixed_cg on the batched apply.  `planes`:
+    the tail's stencils packed (combined_tail_levels), where made."""
     n = own = len(pieces)
     while own and pieces[own - 1][4] is not None:
         own -= 1
     if nu < 1 or own == n:
         return n, None
-    Cs = [p[4] for p in pieces]
-    if tail_from is None:
-        tail_from = max(own, tail_start(
-            [tuple(p[2].shape[-3:]) for p in pieces], Cs[-1].dtype)
-            if Cs[-1].is_cuda else n)
-    elif tail_from < own:
+    if tail_from is not None and tail_from < own:
         raise ValueError(f"tail_from {tail_from}: the levels above {own} "
                          "have no stencils of their own")
-    return _v_tail(Cs, [p[2] for p in pieces], hier.transfers, tail_from,
-                   planes)
+    levels = [p[5] if p[4] is not None else None for p in pieces] \
+        if tail_from is None else None
+    return _v_tail([p[4] for p in pieces], [p[2] for p in pieces],
+                   hier.transfers, tail_from, planes, levels)
 
 
 def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
@@ -543,7 +600,7 @@ def _fused_cycle(pieces, hier, b, *, nu=2, omega=0.7, coarse_iters=24,
 
     def cycle(level, b):
         if level == tail_from:
-            return vcycle_tail(b, tail, nu, omega, coarse_iters)
+            return _run_tail(b, tail, nu, omega, coarse_iters)
         op, dinv, freeb, _, C, lv = pieces[level]
         if level == n_levels - 1:
             # coarsest: fixed-iteration lane-aware CG
@@ -594,27 +651,30 @@ def _fused_mg(scase, hier, sig, *, nu, omega, coarse_iters, tail_from):
     """(op, M) of the lane-stacked MG-CG in the dtype of `sig` (L, T):
     op the masked fine-level operator (one level-kernel call), M(r) the
     projected V-cycle.  The V-cycle levels from tail_from on are one
-    vcycle_tail call (tail_from None: tail_start's level on the card,
-    none on the CPU; len(levels): none); body-factored levels from there
-    get the lanes' own stencils first, once here (combined_tail_levels);
-    the level kernels' arguments above the tail are made here too."""
+    vcycle_tail or cluster_tail call (_fused_tail; tail_from None: on the
+    card the cluster tail's start for a geometry batch where it has one,
+    else tail_start's level; none on the CPU; len(levels): none);
+    body-factored levels from tail_start's level (or tail_from) get the
+    lanes' own stencils first, once here (combined_tail_levels); the level
+    kernels' arguments above the tail are made here too."""
     dt = sig.dtype
     op, _, freeb, *_ = _fused_level_pieces(scase.coeff.to(dt), scase.free,
                                            sig)
     hier = hier.astype(dt)
     levels = hier.levels
     n = len(levels)
-    if tail_from is None:
-        tail_from = tail_start([tuple(lv.free.shape[-3:]) for lv in levels],
-                               dt) if levels[0].coeff.is_cuda else n
+    t = tail_from
+    if t is None:
+        t = tail_start([tuple(lv.free.shape[-3:]) for lv in levels], dt) \
+            if levels[0].coeff.is_cuda else n
     planes, own = None, [None] * n
-    if levels[0].coeff.dim() == 5 and tail_from < n:
-        planes, own[tail_from:] = combined_tail_levels(hier, sig, tail_from)
+    if levels[0].coeff.dim() == 5 and t < n:
+        planes, own[t:] = combined_tail_levels(hier, sig, t)
     pieces = [_fused_level_pieces(lv.coeff, lv.free, sig, C)
               for lv, C in zip(levels, own)]
     tail_from, tail = _fused_tail(pieces, hier, tail_from, nu, planes)
     _make_level_args([p[5] for p in pieces], hier.transfers,
-                     min(tail_from, n - 1), omega)
+                     min(tail_from, n - 1), omega, tail)
 
     def M(r):
         rm = torch.where(freeb, r, 0.0)

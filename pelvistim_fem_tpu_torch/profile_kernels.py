@@ -2,7 +2,8 @@
 the V-cycle tail kernel and of the level kernels, timed on a CUDA card.
 
     python -m pelvistim_fem_tpu_torch.profile_kernels          # all
-    python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tail
+    python -m pelvistim_fem_tpu_torch.profile_kernels --tail   # the tails
+    python -m pelvistim_fem_tpu_torch.profile_kernels --tail --clocks
     python -m pelvistim_fem_tpu_torch.profile_kernels --levels # levels
     python -m pelvistim_fem_tpu_torch.profile_kernels --factored
     python -m pelvistim_fem_tpu_torch.profile_kernels --transfers
@@ -18,6 +19,15 @@ holds the kernel against its plain twin and reads its device time with
 spills of each variant's instantiations on those shapes, then a table of
 times, each with its share of the kernel's bound.  The production
 wrappers use the default build ("default" below).
+
+With --clocks, a -DPST_TAIL_CLOCKS build breaks one launch of the tail
+(and of the cluster tail) down by phase: thread 0 of the first block
+reads clock64() at each phase's end (csrc/stencil.cu, TailClock).
+
+The cluster tail (`cluster_tail_cuda`) is timed at each of CLUSTER_RANKS
+blocks a cluster on the paths' levels from the one above the tail
+(CLUSTER_TAILS), cold and warm, beside the level-kernel launches and the
+tail launch it replaces as one CUDA graph.
 
 The tail kernel (`vcycle_tail_cuda`) is built at each of TAIL_THREADS
 threads a block in both dtypes (-DPST_TAIL_THREADS; the default build
@@ -398,16 +408,208 @@ def time_tail(gpu):
             torch.cuda.empty_cache()
 
 
+# the tail's phase clocks (csrc/stencil.cu, TailClock): a build with
+# -DPST_TAIL_CLOCKS; the slots' numbers as the source's
+CLOCK_FLAGS = ("-DPST_TAIL_CLOCKS",)
+CLK_CG, CLK_UP, CLK_OUT, CLK_CLUSTER, CLK_TOTAL = 29, 36, 52, 53, 63
+# the cluster tails of the paths (the level above the tail, then the
+# tail): step04's app, the megatet's and step02's 8 lanes in f32, step04's
+# in f64; timed at each of CLUSTER_RANKS blocks a cluster where that plan
+# fits
+CLUSTER_RANKS = (2, 4, 8)
+CLUSTER_TAILS = {"float32": [(1, ((28, 16, 10),) + TAILS["float32"][0][1]),
+                             (1, ((29, 18, 11),) + TAILS["float32"][1][1]),
+                             (8, ((34, 15, 5),) + TAILS["float32"][2][1])],
+                 "float64": [(1, ((15, 9, 6),) + TAILS["float32"][0][1][1:])]}
+# the tails broken down, f32: step04's app (nonlinear chain) and the
+# megatet's, one lane each, step02's 8 lanes; then the cluster tails of
+# step04 and the megatet at 8 blocks
+CLOCK_TAILS = [("vcycle_tail_cuda", label, (2, 24) + TAILS["float32"][i])
+               for i, label in enumerate(("step04", "megatet", "step02"))] + \
+    [("cluster_tail_cuda", label, (2, 24) + CLUSTER_TAILS["float32"][i]
+      + (8,)) for i, label in enumerate(("step04 cluster",
+                                         "megatet cluster"))]
+
+
+def clk_down(l, k):
+    return 1 + 7 * min(l, 3) + k
+
+
+def clk_up(l, k):
+    return CLK_UP + 4 * min(l, 3) + k
+
+
+def clock_slots(shapes, nu, iters):
+    """[(slot, phase, per)] of a tail over levels `shapes` (the top one
+    first) as TailClock numbers them; per: how many times the phase runs
+    in one launch (the coarse CG's iterations)."""
+    n = len(shapes)
+    rows = [(0, "staging (planes issued, words, wd, b)", 1)]
+    for l in range(n - 1):
+        g = shapes[l]
+        rows += [(clk_down(l, 0), f"{g} x = wd b", 1),
+                 (clk_down(l, 1), f"{g} planes' cp.async wait", 1),
+                 (clk_down(l, 2), f"{g} {nu - 1} pre-sweeps", 1),
+                 (clk_down(l, 3), f"{g} residual", 1)]
+        rows += [(clk_down(l, 4 + a), f"{g} restriction pass {a}", 1)
+                 for a in range(3)]
+    rows += [(clk_down(n - 1, 1), f"{shapes[-1]} planes' cp.async wait", 1),
+             (CLK_CG, "coarse CG start (b, dinv, first r.z sum)", 1),
+             (CLK_CG + 1, "coarse CG apply", iters),
+             (CLK_CG + 2, "coarse CG p.ap block_sum", iters),
+             (CLK_CG + 3, "coarse CG x, r, z updates", iters),
+             (CLK_CG + 4, "coarse CG r.z block_sum", iters),
+             (CLK_CG + 5, "coarse CG p update and loop barrier", iters),
+             (CLK_CG + 6, "coarse CG result", 1)]
+    for l in range(n - 2, -1, -1):
+        g = shapes[l]
+        rows += [(clk_up(l, a), f"{g} prolongation pass {a}", 1)
+                 for a in range(3)]
+        rows += [(clk_up(l, 3), f"{g} {nu} post-sweeps", 1)]
+    rows += [(CLK_OUT, "write x", 1)]
+    return rows
+
+
+def cluster_clock_slots(shapes, nu, iters):
+    """clock_slots of a cluster tail over levels `shapes` (its top level A
+    first), read on its tail rank: A's phases (each ending at a cluster
+    barrier the tail rank waits at), the tail's own phases between."""
+    A = shapes[0]
+    rows = [(CLK_CLUSTER, f"{A} staging, x = wd b (the tail rank: its "
+             "staging); cluster barrier", 1),
+            (CLK_CLUSTER + 1, f"{A} {nu - 1} pre-sweeps", 1),
+            (CLK_CLUSTER + 2, f"{A} residual", 1),
+            (CLK_CLUSTER + 3, f"{A} restriction into the tail rank's b", 1)]
+    rows += [r for r in clock_slots(shapes[1:], nu, iters)
+             if r[0] not in (0, CLK_OUT)]
+    rows += [(CLK_CLUSTER + 4, f"{A} x' = x + P xc (xc by DSMEM)", 1),
+             (CLK_CLUSTER + 5, f"{A} {nu} post-sweeps, the last writes x",
+              1)]
+    return rows
+
+
+def read_clocks(lib):
+    import ctypes
+    n = lib.pst_tail_clock_slots()
+    out = (ctypes.c_longlong * n)()
+    rc = lib.pst_tail_clocks(out, n)
+    if rc != 0:
+        raise RuntimeError(f"pst_tail_clocks: {lib.pst_error_string(rc)}")
+    return list(out)
+
+
+def time_clocks(gpu, cases=None, reps=7):
+    """The phase breakdown of one tail launch (the median over `reps`
+    launches, each read after it ends) of the clock build, on SPD inputs
+    at each of `cases` ((kernel, label, shape as measure.kernel_inputs
+    takes it)), f32, nu 2, 24 coarse iterations: cycles, share of the
+    launch, and microseconds at the SM clock nvidia-smi reads right
+    after."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    lib = sk.build(CLOCK_FLAGS)
+    rng = np.random.default_rng(4)
+    for name, label, shape in cases or CLOCK_TAILS:
+        S, shapes = shape[2], shape[3]
+        args = measure.kernel_inputs(name, shape, torch.float32, "cuda",
+                                     rng)
+        cluster = name == "cluster_tail_cuda"
+        check = measure.check_cluster_tail if cluster else \
+            measure.check_vcycle_tail
+
+        def kernel(*a, _name=name):
+            return sk.launch(_name, *a, extra_flags=CLOCK_FLAGS)
+        check(f"clocks {shape}", kernel(*args), args)
+        for _ in range(10):
+            kernel(*args)
+        runs = []
+        for _ in range(reps):
+            kernel(*args)
+            torch.cuda.synchronize()
+            runs.append(read_clocks(lib))
+        clk = np.median(np.array(runs, dtype=np.float64), axis=0)
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits"], capture_output=True, text=True,
+            check=True).stdout.split()[0])
+        total = clk[CLK_TOTAL]
+        print(f"tail clocks {label} {S} x {shapes} f32 (median of {reps} "
+              f"launches; SM clock {mhz:.0f} MHz; {gpu}): total "
+              f"{total:.0f} cycles, {total / mhz:.2f} us")
+        slots = (cluster_clock_slots if cluster else clock_slots)(
+            shapes, 2, 24)
+        for slot, phase, per in slots:
+            c = clk[slot]
+            each = f", {c / per:.0f} an iteration" if per > 1 else ""
+            print(f"  {phase:44s} {c:9.0f} cycles {100 * c / total:5.1f}% "
+                  f"{c / mhz:7.3f} us{each}")
+        rest = total - sum(clk[s] for s, _, _ in slots)
+        print(f"  {'(unassigned)':44s} {rest:9.0f} cycles")
+
+
+def time_cluster(gpu):
+    """The cluster tail at each of CLUSTER_RANKS blocks a cluster on
+    CLUSTER_TAILS (where the plan fits): ptxas's registers and spills of
+    the default build, then device ms cold (inputs rotated through HBM)
+    and warm beside the work it replaces as one CUDA graph (the five
+    level-kernel launches at its top level and the vcycle_tail launch,
+    measure.cluster_replaced) and its bound."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    for k, u in sorted(sk.ptxas_usage().items()):
+        if k.startswith("cluster_tail"):
+            print(f"  {k:28s} {u['registers']:4d} regs "
+                  f"{u['spill_bytes']:5d} B spilled")
+    print(f"cluster tail device ms cold / warm by blocks a cluster "
+          f"{CLUSTER_RANKS}, then the replaced launches as one graph cold "
+          f"/ warm; {gpu}")
+    rng = np.random.default_rng(2)
+    for dn, tails in CLUSTER_TAILS.items():
+        dt = getattr(torch, dn)
+        for S, shapes in tails:
+            cells, base = [], None
+            for ranks in CLUSTER_RANKS:
+                if sk.cluster_plan(shapes, dt, ranks) is None:
+                    cells.append("   does not fit  ")
+                    continue
+                shape = (2, 24, S, shapes, ranks)
+                args = measure.kernel_inputs("cluster_tail_cuda", shape, dt,
+                                             "cuda", rng)
+                y = sk.cluster_tail_cuda(*args)
+                measure.check_cluster_tail(f"cluster {shape}", y, args)
+                if not torch.equal(y, measure.cluster_route(*args)):
+                    raise AssertionError(f"cluster {shape}: not the route")
+                copies = measure.input_copies(args)
+                warm = measure.input_copies(args, warm=True)
+                ms = [measure.kernel_ms(sk.cluster_tail_cuda, c)
+                      for c in (copies, warm)]
+                cells.append(f"{ms[0]:8.4f} {ms[1]:8.4f}")
+                base = (args, copies, warm)
+            args, copies, warm = base
+            graph = (measure.kernel_ms(measure.cluster_replaced, copies),
+                     measure.kernel_ms(measure.cluster_replaced, warm))
+            b_ms = measure.bound("cluster_tail_cuda", (2, 24, S, shapes),
+                                 dn)[0]
+            print("  " + " | ".join(cells) + f" | {graph[0]:8.4f} "
+                  f"{graph[1]:8.4f}  {dn} {S} x {shapes} bound {b_ms:.6f}")
+            del copies, warm, base
+            torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tail", action="store_true",
-                    help="only the tail kernel's block sizes")
+                    help="only the tail kernel's block sizes and the "
+                         "cluster tail's cluster sizes")
     ap.add_argument("--levels", action="store_true",
                     help="only the level kernels' block sizes")
     ap.add_argument("--factored", action="store_true",
                     help="only the body-factored level kernel")
     ap.add_argument("--transfers", action="store_true",
                     help="only the restriction and prolong_sweep")
+    ap.add_argument("--clocks", action="store_true",
+                    help="with --tail: the tail's phase breakdown (a "
+                         "-DPST_TAIL_CLOCKS build)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
@@ -422,6 +624,8 @@ def main(argv=None):
     builds = [()]
     if args.tail or every:
         builds += [tail_flags(t) for t in TAIL_THREADS]
+    if args.clocks:
+        builds.append(CLOCK_FLAGS)
     if args.levels or every:
         builds += [level_flags(t) for t in LEVEL_THREADS]
     if args.transfers or every:
@@ -434,8 +638,11 @@ def main(argv=None):
     if every:
         print_usage(VARIANTS)
         print_table(time_variants(VARIANTS), gpu)
+    if args.clocks:
+        time_clocks(gpu)
     if args.tail or every:
         time_tail(gpu)
+        time_cluster(gpu)
     if args.levels or every:
         time_levels(gpu)
     if args.factored or every:

@@ -112,7 +112,8 @@ def test_kernels_spill_no_registers(dev):
     kernel, the plane-FMA probe's 3-row form and its 1-row form at P = 1,
     27 and any, with and without 16-byte loads, and the coarse CG at
     1-8 points a thread with its coefficients in shared or device
-    memory, the V-cycle tail in both dtypes, the lanes' combine at
+    memory, the V-cycle tail and the cluster tail in both dtypes, the
+    lanes' combine at
     every dtype and body count, and the level kernels: level_apply in
     its four modes and its "prolong_sweep" kernel, restrict at its two
     tiles and prolong_add, in both dtypes; the
@@ -120,13 +121,14 @@ def test_kernels_spill_no_registers(dev):
     from zero) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2, sorted(usage)
+        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2, sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
             "coarse_cg_kernel<float,1,1>",
             "coarse_cg_kernel<double,8,0>", "vcycle_tail_kernel<float>",
-            "vcycle_tail_kernel<double>", "combine_lanes_kernel<float,5>",
+            "vcycle_tail_kernel<double>", "cluster_tail_kernel<float>",
+            "cluster_tail_kernel<double>", "combine_lanes_kernel<float,5>",
             "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
             "level_apply_kernel<double,3>", "restrict_kernel<float,2,4>",
             "restrict_kernel<double,4,8>", "prolong_add_kernel<double>",
@@ -494,7 +496,10 @@ def test_vcycle_tail_equals_the_level_route(dev):
     """One V-cycle through the tail is bit for bit the level-by-level
     route (kernel 1, PyTorch's elementwise ops, coarse_cg_cuda) from every
     tail level, on the coarse step04 hierarchy (f32 and f64) and on two
-    lanes with their own stencils and masks (_fused_cycle)."""
+    lanes with their own stencils and masks (_fused_cycle); the default
+    V-cycle's one launch is the cluster tail from the level above the
+    tail (this hierarchy has one in both dtypes), the tail from
+    tail_start's level the vcycle_tail kernel."""
     from pelvistim_fem_tpu_torch.models.pressure import (build_pressure_spec,
                                                          sigma_tables)
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
@@ -510,15 +515,19 @@ def test_vcycle_tail_equals_the_level_route(dev):
         h = hier.astype(dt)
         b = torch.where(free, _rand(rng, tuple(free.shape), dt, dev), 0.0)
         want = tmg.make_v_cycle(h, tabs[0].to(dt), tail_from=n)(b)
-        t0 = tmg.tail_start([tuple(lv.free.shape) for lv in h.levels], dt)
-        assert t0 < n - 1
+        shapes = [tuple(lv.free.shape) for lv in h.levels]
+        t0 = tmg.tail_start(shapes, dt)
+        assert t0 < n - 1 and tmg.cluster_tail_plan(shapes, dt)[0] == t0 - 1
         sk.reset_launches()
         assert torch.equal(tmg.make_v_cycle(h, tabs[0].to(dt))(b), want)
-        assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+        assert sk.LAUNCHES["cluster_tail_cuda"] == 1
+        assert sk.LAUNCHES["vcycle_tail_cuda"] == 0
         assert sk.LAUNCHES["coarse_cg_cuda"] == 0
         for t in range(t0, n - 1):
+            sk.reset_launches()
             assert torch.equal(tmg.make_v_cycle(h, tabs[0].to(dt),
                                                 tail_from=t)(b), want), t
+            assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
     h = hier.astype(torch.float32)
     stacked = tmg.MGHierarchy(
         levels=tuple(tmg.MGLevel(
@@ -535,8 +544,15 @@ def test_vcycle_tail_equals_the_level_route(dev):
     want = tmg._fused_cycle(pieces, stacked, B, tail_from=n)
     sk.reset_launches()
     assert torch.equal(tmg._fused_cycle(pieces, stacked, B), want)
-    assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
+    assert sk.LAUNCHES["cluster_tail_cuda"] == 1
+    assert sk.LAUNCHES["vcycle_tail_cuda"] == 0
     assert sk.LAUNCHES["coarse_cg_cuda"] == 0
+    t0 = tmg.tail_start([tuple(lv.free.shape[-3:]) for lv in h.levels],
+                        torch.float32)
+    sk.reset_launches()
+    assert torch.equal(tmg._fused_cycle(pieces, stacked, B, tail_from=t0),
+                       want)
+    assert sk.LAUNCHES["vcycle_tail_cuda"] == 1
 
 
 def test_vcycle_tail_wrapper_counts_and_refuses(dev):
@@ -582,6 +598,99 @@ def test_vcycle_tail_smem_matches_library(dev):
             es = torch.finfo(dt).bits // 8
             assert lib.pst_vcycle_tail_smem(arr, es) == \
                 sk.vcycle_tail_smem(shapes, dt), (shapes, dt)
+
+
+# The cluster tail: the paths' levels from the one above the tail (step04's
+# app hierarchy, the megatet's, step02's 8 lanes), and edges: 11 planes
+# over 7 slab ranks (slabs of 2 and 1, X < 2 N, ranks without a coarse
+# plane to restrict) and 10 planes over 3 (4, 3, 3) with 3 lanes; f64 from
+# the level above its tail.
+CLUSTERS = {"float32": [(1, [(28, 16, 10), (15, 9, 6), (8, 5, 4),
+                              (5, 3, 3)], 8),
+                        (1, [(29, 18, 11), (15, 10, 6), (8, 6, 4),
+                             (5, 4, 3)], 8),
+                        (8, [(34, 15, 5), (18, 8, 3), (10, 5, 2)], 8),
+                        (1, [(11, 7, 5), (6, 4, 3), (4, 3, 2)], 8),
+                        (3, [(10, 8, 6), (6, 5, 4), (4, 3, 3)], 4)],
+            "float64": [(1, [(15, 9, 6), (8, 5, 4), (5, 3, 3)], 8),
+                        (8, [(34, 15, 5), (18, 8, 3), (10, 5, 2)], 8),
+                        (1, [(11, 7, 5), (6, 4, 3), (4, 3, 2)], 8)]}
+
+
+@pytest.mark.parametrize("dtype,case", [(d, c) for d, cs in CLUSTERS.items()
+                                        for c in cs])
+def test_cluster_tail_kernel_matches_twin_and_route(dev, dtype, case):
+    """The cluster tail on random SPD levels within check_cluster_tail of
+    vcycle_tail_plain over the same levels, and torch.equal to the route
+    it repeats (the level route at the top level: kernel 1 and PyTorch's
+    ops; vcycle_tail_cuda below), at nu 2 and 1."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    S, shapes, ranks = case
+    args = measure.kernel_inputs("cluster_tail_cuda",
+                                 (2, 24, S, shapes, ranks),
+                                 getattr(torch, dtype), dev,
+                                 np.random.default_rng(S + ranks))
+    assert args[1].plan.ranks == ranks
+    y = sk.cluster_tail_cuda(*args)
+    measure.check_cluster_tail(f"cluster_tail {case}", y, args)
+    assert torch.equal(y, measure.cluster_route(*args))
+    one = (args[0], args[1], 1) + args[3:]
+    assert torch.equal(sk.cluster_tail_cuda(*one),
+                       measure.cluster_route(*one))
+
+
+def test_cluster_tail_wrapper_counts_and_refuses(dev):
+    """One launch counted per call; CPU tensors, another dtype, a b off
+    the top level, a negative nu and a plan the kernel refuses (9 ranks)
+    raise, uncounted."""
+    import dataclasses
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    b, ct, nu, omega, iters = measure.kernel_inputs(
+        "cluster_tail_cuda", (2, 24, 1, [(11, 7, 5), (6, 4, 3), (4, 3, 2)]),
+        torch.float32, dev, np.random.default_rng(8))
+    sk.reset_launches()
+    sk.cluster_tail(b, ct, nu, omega, iters)
+    assert sk.LAUNCHES["cluster_tail_cuda"] == 1
+    with pytest.raises(ValueError, match="must lie on"):
+        sk.cluster_tail_cuda(b.cpu(), ct, nu, omega, iters)
+    with pytest.raises(TypeError):
+        sk.cluster_tail_cuda(b.double(), ct, nu, omega, iters)
+    with pytest.raises(ValueError):
+        sk.cluster_tail_cuda(b[:8].contiguous(), ct, nu, omega, iters)
+    with pytest.raises(ValueError):
+        sk.cluster_tail_cuda(b, ct, -1, omega, iters)
+    bad = dataclasses.replace(ct, plan=dataclasses.replace(ct.plan, ranks=9))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sk.cluster_tail_cuda(b, bad, nu, omega, iters)
+    assert sk.LAUNCHES["cluster_tail_cuda"] == 1
+
+
+def test_cluster_tail_smem_matches_library(dev):
+    """The Python plan's bytes a block equal pst_cluster_tail_smem at 2-8
+    ranks (-1 where the kernel refuses the plan: more slab ranks than
+    planes; bytes past SMEM_MAX the Python plan refuses)."""
+    import ctypes
+    lib = sk.build()
+    assert lib.pst_cluster_max_ranks() == sk.CLUSTER_MAX_RANKS
+    for shapes in ([(28, 16, 10), (15, 9, 6), (8, 5, 4), (5, 3, 3)],
+                   [(29, 18, 11), (15, 10, 6), (8, 6, 4), (5, 4, 3)],
+                   [(34, 15, 5), (18, 8, 3), (10, 5, 2)],
+                   [(5, 7, 5), (3, 4, 3), (2, 3, 2)]):
+        tail = [len(shapes) - 1] + [d for g in shapes[1:] for d in g]
+        top = [2] + list(shapes[0]) + list(shapes[1])
+        arr = (ctypes.c_int * len(tail))(*tail)
+        arr_top = (ctypes.c_int * len(top))(*top)
+        for dt in (torch.float32, torch.float64):
+            es = torch.finfo(dt).bits // 8
+            for ranks in range(2, 9):
+                got = lib.pst_cluster_tail_smem(arr, arr_top, ranks, es)
+                plan = sk.cluster_plan(shapes, dt, ranks)
+                if plan is not None:
+                    assert got == plan.smem, (shapes, dt, ranks)
+                elif shapes[0][0] < ranks - 1:
+                    assert got == -1
+                else:
+                    assert got > sk.SMEM_MAX, (shapes, dt, ranks)
 
 
 # ── the level kernels ───────────────────────────────────────────────────
@@ -661,16 +770,18 @@ def test_v_cycles_through_the_level_kernels_equal_the_route(dev):
     """One V-cycle with the levels above the tail through the level
     kernels torch.equal to the route (route=True), f32 and f64, for one
     operator (make_v_cycle) and two lanes with their own stencils and
-    masks (_fused_cycle); 5 launches a level above the tail (the
-    prolongation in "prolong_sweep"), kernel 1 never; the CG's masked
-    operator torch.equal to _operator's."""
+    masks (_fused_cycle); 5 launches a level above the V-cycle's one
+    tail launch (the cluster tail's start: the prolongation in
+    "prolong_sweep"), kernel 1 never; the CG's masked operator
+    torch.equal to _operator's."""
     from pelvistim_fem_tpu_torch.ops import multigrid as tmg
     from pelvistim_fem_tpu_torch.ops import stencil as tst
     rng = np.random.default_rng(61)
     scase, hier, tabs = _coarse04(dev)
     for dt in (torch.float32, torch.float64):
         h = hier.astype(dt)
-        t = tmg.tail_start([tuple(lv.free.shape) for lv in h.levels], dt)
+        t = tmg.cluster_tail_plan([tuple(lv.free.shape) for lv in h.levels],
+                                  dt)[0]
         free = h.levels[0].free
         b = torch.where(free, _rand(rng, tuple(free.shape), dt, dev), 0.0)
         want = tmg.make_v_cycle(h, tabs[0].to(dt), route=True)(b)

@@ -193,6 +193,7 @@ def test_cpu_tensors_take_the_twin():
                            "plane_fma_cuda": 0,
                            "coarse_cg_cuda": 0,
                            "vcycle_tail_cuda": 0,
+                           "cluster_tail_cuda": 0,
                            "combine_lanes_cuda": 0,
                            "level_apply_cuda": 0,
                            "restrict_cuda": 0,
