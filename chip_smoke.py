@@ -156,13 +156,23 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 back and solved by solve_imported (AMG) against the
                 lattice path's solve (kernel 1); meshtool inspect and
                 convert, crossval_elmer twice
- 18. zz-grid    lattice_zz_error on the sweep's spec at one lane against
+ 18. calibration  apps/run_calibration --full on the step04 app's (55, 31,
+                19) lattice, every solve f64 through the differentiable
+                solve (kernel 1 for its own applies, the level kernels at
+                the fine level, the cluster tail from (28, 16, 10)):
+                Levenberg-Marquardt for muscle, fat and skin (20
+                iterations; the app's gate), the fiber fit (--fibers) and
+                the Adam loop (--adam, 200 steps), then sigma_sensitivity
+                of mean(phi^2) and central differences on the card; fits,
+                loss histories, the gradient and the synthesis solves'
+                iterations against the JAX package's anchors
+ 19. zz-grid    lattice_zz_error on the sweep's spec at one lane against
                 the element path's zz_error_indicators on its Case, f64
- 19. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
+ 20. bioheat-stencil  on the app's mesh in f64, the Pennes solve on the
                 stencil (solve_bioheat_stencil, kernel 1) against the
                 element path (solve_bioheat): iterations within 3, T
                 within 1e-8 degC
- 20. probes     the dev SpMV probes' entry points at full size:
+ 21. probes     the dev SpMV probes' entry points at full size:
                 spmv_kernels_ab (the megatet stencil assembled in f32:
                 kernel 1, the 3-row plane-FMA probe and the bf16-coefficient
                 kernel, each against its twin, then timed) and
@@ -173,17 +183,22 @@ through its paths at the benchmark's full sizes, and imports no JAX:
 The apps run through their entry points (run(parse_args(argv))) with
 --device cuda:0, writing into a temporary directory; their printout is
 kept and shown only if they fail.  Launch counters are set to 0 before
-each of the paths 4-20 and read after it; each path must have launched
+each of the paths 4-21 and read after it; each path must have launched
 its own kernels (paths 9 and 11 kernel 1 at a 4-D, lane-axis shape; the
-sweep, jacobi, step04 and array the V-cycle tail, the megatet, step02
-and step04 the cluster tail; the
-sweep, jacobi, step04 and array the lanes' combine; the megatet, step02
-and step04 the level kernels, the sweep, jacobi, step04 and array the
-body-factored one, 6
+sweep, jacobi, step04 and array the V-cycle tail, the megatet, step02,
+step04 and calibration the cluster tail; the
+sweep, jacobi, step04 and array the lanes' combine; the megatet, step02,
+step04 and calibration the level kernels, the sweep, jacobi, step04 and
+array the body-factored one, 6
 launches a V-cycle at each level above a tail and kernel 1, or kernel 2
-with more than one body, there never in that dtype), and every kernel
-but the coarse
-CG must have run; the coarse CG must not have run on any path, nor
+with more than one body, there never in that dtype, but for the
+calibration path's f64 fine level: there kernel 1 exactly once a forward
+and once a tangent solve, as the solves' stats count them, and the CG's
+masked apply at least once a V-cycle), and every kernel but the coarse
+CG must have run; no plain twin may run on a path (counted through
+every name a module of the port binds it to) but those TWIN_PATHS
+allows: the sweep's, jacobi's and array's true residuals, the probes'
+comparisons; the coarse CG must not have run on any path, nor
 kernel 1 at any level of a tail or a cluster tail, nor kernel 2 with
 more than one body (a V-cycle's apply, not the assembly's Galerkin
 probes) at any grid of one (every such level goes through the tail
@@ -527,6 +542,62 @@ ADAPT_LOCAL_CYCLES = [
          marks_sha1="02d3a17f4ee0123fd941de2d2cdbac94f270a4ec"),
 ]
 # the zz-grid path's lane of the sweep (the middle contact conductivity)
+# run_calibration --full on the step04 app's lattice (STEP04_GRID, f64) and
+# sigma_sensitivity of mean(phi^2) there (tol 1e-12), against the JAX
+# package's own calls (dev/torch_port_anchors.py --only-calibration, 191 s
+# on the CPU), with the reference's largest move under a random -1 / +1
+# f32 unit on every conductivity (and on the fibers' truth), 2 draws.  LM
+# runs CAL_LM_ITERS iterations: at the app's default 15 the reference ends
+# at loss 1.4e-8 with fat 0.39% off (its own exit code 1); by 20 both fits
+# have converged.  The Adam history is held at CAL_ADAM_HELD of its 200
+# steps (the reference's own gate fails there too: ok False).  Fits and
+# the gradient are held to rtol 1e-6 (fibers 1e-5; the spreads are
+# smaller), losses above 1e-14 to rtol 1e-4 (Adam 1e-5: spread 9.7e-7),
+# the synthesis solves' MG-PCG iterations to +-2.
+CAL_LM_ITERS = 20
+CAL_BODIES = (1, 2, 3)
+CAL_LM_FIT = [0.3499999999911129, 0.039999999999332805,
+              0.0010000000000038674]
+CAL_LM_LOSSES = [
+    0.2509226255339741, 0.2509226255339741, 0.2509226255339741,
+    0.2509226255339741, 0.2509226255339741, 0.08408328055698726,
+    0.06133008980693149, 0.045159827489968704, 0.02699985795520478,
+    0.010696742485560903, 0.004050019162669737, 0.0011510587074111001,
+    0.00019210801207730343, 7.404464038911842e-06, 1.364982327621756e-08,
+    2.9881811203352764e-13, 3.048514347382277e-18, 3.873791952044399e-23,
+    3.454548368844606e-23, 8.419346944801008e-24]
+CAL_ADAM_FIT = [0.786535397375568, 0.013397170412117099,
+                0.0011235879646556983]
+CAL_ADAM_OK = False
+CAL_ADAM_HELD = list(range(20)) + list(range(29, 200, 10))
+CAL_ADAM_LOSSES = [
+    0.25092262553397404, 0.20879459027842634, 0.16683925842224526,
+    0.12607472415690021, 0.08786696961378715, 0.0539971488937583,
+    0.026683130597657447, 0.008440798250941147, 0.0015151670952929291,
+    0.006445318585598492, 0.01987428437100309, 0.034192112687433864,
+    0.04201014303004432, 0.040942063513355276, 0.03320464515022726,
+    0.022684209981231326, 0.012809534356792085, 0.005689989680247242,
+    0.0020491344151314693, 0.0015522082322497904, 0.00499556206141595,
+    0.0036490442075211476, 0.0021345972529844943, 0.001365000920124538,
+    0.0010312480246377639, 0.0008618804986596665, 0.0007496127760070106,
+    0.0006642207837502545, 0.0005932381811025469, 0.0005331587236684967,
+    0.0004808154897063541, 0.0004347347476328803, 0.00039391256469728026,
+    0.0003577443568430598, 0.00032572458708078405, 0.00029730909903142585,
+    0.0002720386892989056, 0.0002495241178716625]
+CAL_FIBERS_FIT = [0.4000000072552215, 0.08999999979663997]
+CAL_FIBERS_LOSSES = [
+    0.0002707649699716529, 2.1523111360369934e-05, 3.9431335173740276e-08,
+    2.2032262665119146e-13, 2.8498065851581083e-21]
+CAL_FIBERS_STEPS = 4
+CAL_J = 504.22617373559103
+CAL_GRAD = [
+    0.0, -43.49073761196981, -1316.621013237919, -854245.4636730907,
+    -223.01150565644787, -17041.04562902125]
+CAL_ITERS = dict(synth=21, first_primal=21, sens_forward=25,
+                 fibers_synth=46)
+CAL_N_OBS = 10351
+CAL_SPREAD = {"lm_fit": 8.48e-12, "adam_fit": 1.04e-07, "J": 2.38e-07,
+              "grad": 3.58e-07, "fibers_fit": 9.73e-10}
 ZZ_LANE = 50
 # apps/smoke_test --device cuda: the JAX app's checks, in its order
 SMOKE_CHECKS = ["solution produced", "phi finite",
@@ -1561,7 +1632,7 @@ def level_shape(name, shapes):
     return (shapes[0],)
 
 
-def check_level_launches(seen):
+def check_level_launches(seen, applies=None):
     """Every level above a tail that runs the level kernels (Counter
     `seen` of one path's launch signatures) took 5 launches a V-cycle (nu
     = 2) of level_apply: "sweep0", the residual, the restriction,
@@ -1570,7 +1641,13 @@ def check_level_launches(seen):
     residual, the restriction and the prolongation once, "sweep" twice;
     and kernel 1, or kernel 2 with more than one body, in that dtype at
     that grid never (in f64 at a fine grid they are the CG's master
-    apply and the right-hand side's)."""
+    apply and the right-hand side's).  `applies` {(dtype name, grid):
+    n}: the levels whose solves make stencil applies of their own (the
+    differentiable solves' V-cycle shares its fine grid and dtype with
+    b_eff's lift, K_dot x and the Dirichlet cotangent); kernel 1 must
+    have run exactly n times there, and the CG's operator ("masked") at
+    least once a V-cycle."""
+    applies = dict(applies or {})
     per_level = collections.defaultdict(collections.Counter)
     for (name, dn, shapes), n in seen.items():
         if name in LEVEL_KERNELS:
@@ -1593,17 +1670,26 @@ def check_level_launches(seen):
         k2 = sum(n for (k, d, shapes), n in seen.items()
                  if k == "batched_stencil_spmv_cuda" and d == dn and
                  shapes[0] == grid and shapes[1][0] > 1)
-        if got != want or k1 or k2:
+        own_applies = applies.pop((dn, grid), 0)
+        masked = c[(apply, "masked")]
+        if got != want or k1 != own_applies or k2 or \
+                (own_applies and masked < V):
             raise AssertionError(f"level {dn} {grid}: launches {got}, not "
                                  f"{5 if own else 6} a V-cycle {want}; "
-                                 "stencil_spmv_cuda "
-                                 f"{k1} times, batched_stencil_spmv_cuda "
-                                 f"{k2} times")
+                                 f"stencil_spmv_cuda {k1} times, not "
+                                 f"{own_applies}; batched_stencil_spmv_cuda "
+                                 f"{k2} times; {masked} masked applies")
         log(f"levels: {dn} {grid}: {V} V-cycles x {5 if own else 6} "
             f"launches of {apply}, restrict_cuda"
             f"{'' if own else ' and prolong_add_cuda'}, "
-            f"{c[(apply, 'masked')]} masked applies (the CG's operator), "
-            "stencil_spmv_cuda and batched_stencil_spmv_cuda 0 times")
+            f"{masked} masked applies (the CG's operator), "
+            + (f"stencil_spmv_cuda {k1} times (the solves' own applies, "
+               "as many as they make), batched_stencil_spmv_cuda 0 times"
+               if own_applies else
+               "stencil_spmv_cuda and batched_stencil_spmv_cuda 0 times"))
+    if applies:
+        raise AssertionError(f"no V-cycle level at {sorted(applies)}, where "
+                             "the solves made their own applies")
 
 
 def seen_count(seen, name, dn, grid):
@@ -1634,6 +1720,48 @@ def record_launches(sk, seen, first):
             return _fn(*args)
         setattr(sk, name, wrapped)
     return lambda: [setattr(sk, n, f) for n, f in originals.items()]
+
+
+# The paths that run a plain twin themselves, and the twins each may run:
+# the sweep, jacobi and array paths recompute their true residuals with
+# batched_stencil_spmv_plain (true_residuals), and the probes hold each
+# probe kernel against its twin.  No other path may run one.
+TWIN_PATHS = {"sweep": {"batched_stencil_spmv_plain"},
+              "jacobi": {"batched_stencil_spmv_plain"},
+              "array": {"batched_stencil_spmv_plain"},
+              "probes": {"stencil_spmv_plain", "stencil_spmv_bf16c_plain",
+                         "plane_fma_plain"}}
+
+
+def port_modules():
+    """The loaded modules of the port."""
+    return [m for n, m in list(sys.modules.items())
+            if m is not None and n.split(".")[0] == "pelvistim_fem_tpu_torch"]
+
+
+def count_twins(sk, calls):
+    """Make every call of a plain twin of `sk` (a function named *_plain)
+    count its name in the Counter `calls`, through whatever name a module
+    of the port bound it to (multigrid imports level_apply_plain,
+    restrict_plain and prolong_add_plain by name); a module imported
+    later binds the counting function from `sk`.  Returns a function
+    that puts the twins back in every module."""
+    by_twin = {}                       # id(twin) -> (twin, counting)
+    for n, f in list(vars(sk).items()):
+        if n.endswith("_plain") and callable(f):
+            def counted(*args, _f=f, _n=n, **kw):
+                calls[_n] += 1
+                return _f(*args, **kw)
+            by_twin[id(f)] = (f, counted)
+    twin_of = {id(c): f for f, c in by_twin.values()}
+
+    def swap(table, pick):
+        for m in port_modules():
+            for a, v in list(vars(m).items()):
+                if id(v) in table:
+                    setattr(m, a, pick(table[id(v)]))
+    swap(by_twin, lambda fc: fc[1])
+    return lambda: swap(twin_of, lambda f: f)
 
 
 def phase_path_parity(dev, seen, covered, first):
@@ -2597,6 +2725,158 @@ def phase_imported(dev, gpu, outdir):
     return dict(wall_s=wall)
 
 
+def _held(name, got, want, rtol, floor=0.0):
+    """Largest relative deviation of `got` from the anchors `want` over the
+    entries whose anchor exceeds `floor`; raises past rtol."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    keep = np.abs(want) > floor
+    if got.shape != want.shape or not keep.any():
+        raise AssertionError(f"calibration {name}: {got.tolist()} against "
+                             f"the anchors {want.tolist()}")
+    rel = float(np.max(np.abs(got[keep] - want[keep]) / np.abs(want[keep])))
+    if not rel <= rtol:
+        raise AssertionError(f"calibration {name}: {got.tolist()} against "
+                             f"the anchors {want.tolist()}: {rel:.3e} "
+                             f"relative, above {rtol:g}")
+    return rel
+
+
+def _iters_held(name, got, want):
+    if abs(got - want) > 2:
+        raise AssertionError(f"calibration {name}: {got} MG-PCG iterations, "
+                             f"the reference's {want}")
+
+
+def phase_calibration(dev, gpu, outdir):
+    """apps/run_calibration on the card at --full (the step04 app's (55,
+    31, 19) lattice, every solve f64): LM at CAL_LM_ITERS iterations (the
+    app's gate: ok, each tissue within 1e-4 of the truth), --fibers and
+    --adam at its default 200 steps; fits, loss histories and the
+    synthesis solves' MG-PCG iterations against the JAX package's anchors
+    (CAL_*); then sigma_sensitivity of mean(phi^2) (one forward, one
+    adjoint solve) against the anchor and against central differences on
+    the card for slots 1, 3 and 4."""
+    import torch
+    from pelvistim_fem_tpu_torch.apps import run_calibration
+    from pelvistim_fem_tpu_torch.models.pressure import build_pressure_spec
+    from pelvistim_fem_tpu_torch.ops.adjoint import (sigma_sensitivity,
+                                                     solve_stencil_mg_diff)
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
+    base = ["--full", "--device", dev, "--outdir", str(outdir / "cal")]
+    counts = lambda out: (collections.Counter(k for k, _ in out["solves"]),
+                          sum(n for _, n in out["solves"]))
+
+    lm, lm_wall, _ = run_app(run_calibration,
+                             base + ["--steps", str(CAL_LM_ITERS)])
+    rec = lm["summary"]["recovered"]
+    errs = [rec[k]["rel_err"] for k in ("muscle", "fat", "skin")]
+    if not lm["ok"] or max(errs) >= 1e-4 or \
+            lm["summary"]["n_obs"] != CAL_N_OBS:
+        raise AssertionError(f"calibration LM: ok {lm['ok']}, errors {errs}, "
+                             f"{lm['summary']['n_obs']} observations")
+    d_fit = _held("LM fit", lm["fit"][list(CAL_BODIES)], CAL_LM_FIT,
+                  max(1e-6, CAL_SPREAD["lm_fit"]))
+    d_loss = _held("LM losses", lm["losses"], CAL_LM_LOSSES, 1e-4, 1e-14)
+    its = [n for _, n in lm["solves"]]
+    _iters_held("LM synthesis", its[0], CAL_ITERS["synth"])
+    _iters_held("LM first primal", its[1], CAL_ITERS["first_primal"])
+    kinds, total = counts(lm)
+    log(f"calibration LM: {CAL_LM_ITERS} iterations, errors "
+        f"{', '.join(f'{e:.2e}' for e in errs)}; fit within {d_fit:.2e}, "
+        f"losses above 1e-14 within {d_loss:.2e} of the anchors; synthesis "
+        f"and first primal {its[0]}, {its[1]} MG-PCG iterations (reference "
+        f"{CAL_ITERS['synth']}, {CAL_ITERS['first_primal']}); solves "
+        f"{dict(kinds)}, {total} MG-PCG iterations; fit "
+        f"{lm['wall_s']:.4f} s, app {lm_wall:.4f} s on {gpu}")
+
+    fib, fib_wall, _ = run_app(run_calibration, base + ["--fibers"])
+    if not fib["ok"] or fib["summary"]["steps"] != CAL_FIBERS_STEPS:
+        raise AssertionError(f"calibration fibers: ok {fib['ok']}, "
+                             f"{fib['summary']['steps']} steps")
+    f_fit = _held("fibers fit", fib["fit"], CAL_FIBERS_FIT,
+                  max(1e-5, CAL_SPREAD["fibers_fit"]))
+    f_loss = _held("fibers losses", fib["losses"], CAL_FIBERS_LOSSES, 1e-4,
+                   1e-14)
+    f_its = fib["solves"][0][1]
+    _iters_held("fibers synthesis", f_its, CAL_ITERS["fibers_synth"])
+    kinds, total = counts(fib)
+    log(f"calibration fibers: {CAL_FIBERS_STEPS} Gauss-Newton steps, fit "
+        f"{fib['fit'].tolist()} within {f_fit:.2e}, losses above 1e-14 "
+        f"within {f_loss:.2e} of the anchors; synthesis {f_its} MG-PCG "
+        f"iterations (reference {CAL_ITERS['fibers_synth']}); solves "
+        f"{dict(kinds)}, {total} MG-PCG iterations; fit "
+        f"{fib['wall_s']:.4f} s, app {fib_wall:.4f} s on {gpu}")
+
+    adam, adam_wall, _ = run_app(run_calibration, base + ["--adam"])
+    if adam["ok"] != CAL_ADAM_OK or len(adam["losses"]) != 200:
+        raise AssertionError(f"calibration Adam: ok {adam['ok']} (the "
+                             f"reference's {CAL_ADAM_OK}), "
+                             f"{len(adam['losses'])} losses")
+    a_fit = _held("Adam fit", adam["fit"][list(CAL_BODIES)], CAL_ADAM_FIT,
+                  max(1e-6, CAL_SPREAD["adam_fit"]))
+    a_loss = _held("Adam losses", adam["losses"][CAL_ADAM_HELD],
+                   CAL_ADAM_LOSSES, 1e-5)
+    kinds, total = counts(adam)
+    log(f"calibration Adam: 200 steps, ok {adam['ok']} as the reference's; "
+        f"fit within {a_fit:.2e}, losses at {len(CAL_ADAM_HELD)} steps "
+        f"within {a_loss:.2e} of the anchors; solves {dict(kinds)}, {total} "
+        f"MG-PCG iterations; fit {adam['wall_s']:.4f} s, app "
+        f"{adam_wall:.4f} s on {gpu}")
+
+    spec, _ = build_pressure_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    sig = scase.sigma_table
+    metric = lambda phi, s: torch.mean(phi * phi)
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    J, g = sigma_sensitivity(metric, scase, hier, sig, tol=1e-12,
+                             stats=stats)
+    g = g.cpu().numpy()
+    t_grad = time.perf_counter() - t0
+    d_J = _held("J", [float(J)], [CAL_J], max(1e-6, CAL_SPREAD["J"]))
+    d_g = _held("gradient", g, CAL_GRAD, max(1e-6, CAL_SPREAD["grad"]))
+    if g[0] != 0.0 or [k for k, _ in stats] != ["forward", "adjoint"]:
+        raise AssertionError(f"calibration gradient: slot 0 {g[0]}, solves "
+                             f"{stats}")
+    _iters_held("gradient forward", stats[0][1], CAL_ITERS["sens_forward"])
+    fd_rel, fd_stats = [], []
+    for b in (1, 3, 4):
+        eps = 1e-4 * float(sig[b])
+        up, dn = sig.clone(), sig.clone()
+        up[b] += eps
+        dn[b] -= eps
+        with torch.no_grad():
+            fd = (float(metric(solve_stencil_mg_diff(
+                scase, hier, up, tol=1e-12, stats=fd_stats), up))
+                  - float(metric(solve_stencil_mg_diff(
+                      scase, hier, dn, tol=1e-12, stats=fd_stats), dn))) \
+                / (2 * eps)
+        fd_rel.append(abs(g[b] - fd) / abs(fd))
+        if not fd != 0.0 or not fd_rel[-1] <= 2e-4:
+            raise AssertionError(f"calibration gradient: slot {b} {g[b]} "
+                                 f"against central differences {fd}")
+    log(f"calibration gradient: J {float(J):.10g} within {d_J:.2e}, dJ/dsigma "
+        f"within {d_g:.2e} of the anchors; slots 1, 3, 4 within "
+        f"{', '.join(f'{r:.2e}' for r in fd_rel)} of central differences "
+        f"on the card; forward / adjoint {stats[0][1]} / {stats[1][1]} "
+        f"MG-PCG iterations in {t_grad:.4f} s on {gpu}")
+    # kernel 1 at the f64 fine grid: one lift a forward solve, one K_dot x
+    # a tangent solve; no solve here differentiates the Dirichlet grid, so
+    # no adjoint solve applies K
+    kinds = collections.Counter(
+        k for solves in (lm["solves"], fib["solves"], adam["solves"], stats,
+                         fd_stats) for k, _ in solves)
+    applies = {("float64", tuple(scase.free.shape)):
+               kinds["forward"] + kinds["tangent"]}
+    log(f"calibration: solves {dict(kinds)} on the path, so "
+        f"{kinds['forward'] + kinds['tangent']} applies of kernel 1 of "
+        "their own")
+    return dict(wall_s=lm_wall + fib_wall + adam_wall + t_grad,
+                lm_wall_s=lm_wall, fibers_wall_s=fib_wall,
+                adam_wall_s=adam_wall, grad_wall_s=t_grad, applies=applies)
+
+
 def phase_zz_grid(dev, gpu, sweep):
     """lattice_zz_error on the sweep's (89, 41, 19) spec at one lane's
     sigma, against zz_error_indicators on its 361,920-tet Case in f64:
@@ -2782,18 +3062,30 @@ def main():
     del hiers
     log(f"levels: done in {time.perf_counter() - t0:.1f} s")
 
-    # 4-20. the paths, each counted on its own
+    # 4-21. the paths, each counted on its own
     launches = dict.fromkeys(sk.LAUNCHES, 0)
     seen = collections.Counter()
     first = {}
     restore = record_launches(sk, seen, first)
+    twins = collections.Counter()
+    restore_twins = count_twins(sk, twins)
 
     def path(name, kernels, fn, *args, lanes=False):
         """fn(*args) with the counters set to 0 before and read after;
-        lanes: kernel 1 must have launched at a 4-D (lane-axis) shape."""
+        lanes: kernel 1 must have launched at a 4-D (lane-axis) shape.  A
+        phase whose solves make stencil applies of their own at a
+        V-cycle's level returns their exact count as out["applies"]
+        (check_level_launches).  No plain twin may run on the path but
+        those TWIN_PATHS names for it."""
         sk.reset_launches()
         before = collections.Counter(seen)
+        twins.clear()
         out = fn(*args)
+        stray = {k: n for k, n in twins.items()
+                 if k not in TWIN_PATHS.get(name, ())}
+        if stray:
+            raise AssertionError(f"plain twins ran on the {name} path: "
+                                 f"{stray}")
         counts = dict(sk.LAUNCHES)
         log(f"launches {name}: {counts}")
         for k in kernels:
@@ -2808,7 +3100,10 @@ def main():
         if four_d:
             log(f"launches {name}: stencil_spmv_cuda with a lane axis "
                 f"{four_d}")
-        check_level_launches(seen - before)
+        check_level_launches(seen - before, out.get("applies")
+                             if isinstance(out, dict) else None)
+        log(f"launches {name}: plain twins " +
+            (f"{dict(twins)} (TWIN_PATHS)" if twins else "none"))
         for k, n in counts.items():
             launches[k] += n
         return out
@@ -2859,6 +3154,9 @@ def main():
                            outdir)
         imported = path("imported", ["stencil_spmv_cuda"], phase_imported,
                         dev, gpu, outdir)
+        calib = path("calibration", ["stencil_spmv_cuda",
+                                     "cluster_tail_cuda", *LEVEL_NAMES[:2]],
+                     phase_calibration, dev, gpu, outdir)
     t_apps = time.perf_counter() - t_apps
     zz = path("zz-grid", [], phase_zz_grid, dev, gpu, sweep)
     heat = path("bioheat-stencil", ["stencil_spmv_cuda"],
@@ -2867,6 +3165,7 @@ def main():
                              "plane_fma_cuda"], phase_probes, dev, gpu)
 
     restore()
+    restore_twins()
     phase_path_parity(dev, seen, covered, first)
     log(f"launches: {launches}")
     by_shape = {name: {} for name in launches}
@@ -2995,7 +3294,8 @@ def main():
         f"{step04['wall_s']:.4f} s, array {array['wall_s']:.4f} s, smoke "
         f"{smoke['wall_s']:.4f} s, adapt {adapt['wall_s']:.4f} s, "
         f"adapt-local {adapt_local['wall_s']:.4f} s, imported "
-        f"{imported['wall_s']:.4f} s; zz-grid {zz['wall_s']:.4f} s; "
+        f"{imported['wall_s']:.4f} s, calibration {calib['wall_s']:.4f} s; "
+        f"zz-grid {zz['wall_s']:.4f} s; "
         f"bioheat-stencil {heat['wall_s']:.4f} s; probes "
         f"{probes['wall_s']:.4f} s")
     print(json.dumps({"kernels": kernels}))

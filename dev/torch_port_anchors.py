@@ -9,6 +9,8 @@ chip_smoke.py holds the PyTorch port's card run against).
                                      [--only-array [--array-eps N]]
                                      [--array-fw-noise N]
                                      [--only-adapt [--adapt-cycles N]]
+                                     [--only-calibration
+                                      [--calibration-draws N]]
 
 Prints one JSON object:
   step01   the five gate values of apps/run_step01 (box, solve_auto)
@@ -61,6 +63,15 @@ Prints one JSON object:
            (knot_spread) per --adapt cycle the largest knot move, over
            two runs with every conductivity moved by +-1 f32 unit, in
            its axis length (~2 min)
+  calibration  (--only-calibration) apps/run_calibration --full: the LM
+           fit and loss history at 20 iterations (the default 15 are
+           their prefix), the Adam loop's at 200 steps, --fibers:
+           the Gauss-Newton fit and history; sigma_sensitivity of
+           mean(phi^2) at the spec's table; the MG-PCG iterations of the
+           synthesis solves and of LM's first primal; then the same with
+           every conductivity moved by -1 or +1 f32 unit at random, N
+           draws (default 2): each number's largest move and each count's
+           envelope
 """
 
 import argparse
@@ -644,6 +655,204 @@ def adapt_local(coarse=False, cycles=2, theta=0.5):
     return dict(coarse=coarse, theta=theta, cycles=out)
 
 
+CAL_ADAM_STEPS = 200
+# LM iterations: the app's default 15 end at loss 1.4e-8 at --full (fat
+# 0.4% off); by 20 the fit has converged (loss ~5e-24).  A shorter run's
+# history is a prefix.
+CAL_LM_ITERS = 20
+
+
+def _mg_pcg_iterations(matvec, M, b, free, tol, maxiter=2_000):
+    """The iteration count of the reference's MG-PCG
+    (pelvistim_fem_tpu/ops/adjoint.py:41 _mg_pcg, which returns x only):
+    the same loop from the same start, counting."""
+    dot = lambda a, c: jnp.sum(a * c)
+    nrm = lambda a: jnp.sqrt(jnp.sum(a * a))
+    tol_abs = tol * nrm(b)
+
+    def precond(r):
+        return jnp.where(free, M(jnp.where(free, r, 0.0)), r)
+
+    x0 = jnp.where(free, 0.0, b)
+    r0 = b - matvec(x0)
+    z0 = precond(r0)
+
+    def body(st):
+        x, r, z, rz, p, k, _ = st
+        ap = matvec(p)
+        alpha = rz / dot(p, ap)
+        r_n = r - alpha * ap
+        z_n = precond(r_n)
+        rz_n = dot(r_n, z_n)
+        return (x + alpha * p, r_n, z_n, rz_n, z_n + (rz_n / rz) * p, k + 1,
+                nrm(r_n) <= tol_abs)
+
+    st = jax.lax.while_loop(
+        lambda st: jnp.logical_not(st[6]) & (st[5] < maxiter), body,
+        (x0, r0, z0, dot(r0, z0), z0, jnp.int32(0), nrm(r0) <= tol_abs))
+    return int(st[5])
+
+
+def calibration(draws=2, seed=0):
+    """apps/run_calibration --full (LM at CAL_LM_ITERS iterations), its
+    Adam loop at CAL_ADAM_STEPS steps (a shorter run's history is a
+    prefix of either) and
+    --fibers --full, their own calls, and sigma_sensitivity of mean(phi^2)
+    at the spec's table (tol 1e-12); then the same with every conductivity
+    of the table (and the fibers' truth) moved by -1 or +1 f32 unit in the
+    last place at random, `draws` times: each number's largest move (the
+    fits' relative errors, the losses and the gradient relative to
+    themselves) and each iteration count's least and largest (~5 min)."""
+    from pelvistim_fem_tpu.mesh import core
+    from pelvistim_fem_tpu.models.pressure import build_pressure_spec
+    from pelvistim_fem_tpu.ops.adjoint import (sigma_sensitivity,
+                                               solve_lattice_mg_diff,
+                                               solve_stencil_mg_diff)
+    from pelvistim_fem_tpu.ops.aniso import tensor_table
+    from pelvistim_fem_tpu.ops.calibrate import (calibrate_sigma,
+                                                 calibrate_sigma_lm)
+    from pelvistim_fem_tpu.ops.lattice_assembly import (assemble_lattice,
+                                                        lattice_coeff,
+                                                        spec_device_arrays)
+    from pelvistim_fem_tpu.ops.multigrid import (make_v_cycle,
+                                                 solve_stencil_mg)
+    from pelvistim_fem_tpu.ops.stencil import stencil_spmv
+    t_start = time.perf_counter()
+    spec, _ = build_pressure_spec(coarse=False)
+    dev = spec_device_arrays(spec, jnp.float64)
+    scase, hier = assemble_lattice(spec, jnp.float64, device_arrays=dev)
+    nominal = np.asarray(spec.sigma_table, np.float64)
+    nb = spec.n_bodies
+    bodies = (1, 2, 3)
+    off = np.array([2.5, 0.4, 3.0])
+    free = dev["free"]
+
+    def scalar(tab):
+        truth = jnp.asarray(tab)
+        sc = dataclasses.replace(scase, sigma_table=truth)
+        phi = solve_stencil_mg_diff(sc, hier, truth, tol=1e-10)
+        obs_idx = np.arange(0, phi.shape[0], 3)
+        oi = jnp.asarray(obs_idx, jnp.int32)
+        obs = jnp.asarray(np.asarray(phi)[obs_idx])
+        sigma0 = jnp.asarray(tab[list(bodies)] * off)
+        start = truth.at[jnp.asarray(bodies)].set(sigma0)
+        fit, losses = calibrate_sigma_lm(sc, hier, oi, obs, bodies, sigma0,
+                                         iters=CAL_LM_ITERS, tol=1e-9)
+        afit, alosses = calibrate_sigma(sc, hier, oi, obs, bodies, sigma0,
+                                        steps=CAL_ADAM_STEPS, lr=0.1,
+                                        tol=1e-9)
+        J, g = sigma_sensitivity(lambda p, s: jnp.mean(p * p), sc, hier,
+                                 truth, tol=1e-12)
+        fit, afit = np.asarray(fit), np.asarray(afit)
+        return dict(
+            lm_fit=fit.tolist(), lm_losses=np.asarray(losses).tolist(),
+            lm_rel_err=(fit / tab - 1)[list(bodies)].tolist(),
+            adam_fit=afit.tolist(), adam_losses=np.asarray(alosses).tolist(),
+            adam_rel_err=(afit / tab - 1)[list(bodies)].tolist(),
+            n_obs=len(obs_idx), J=float(J), grad=np.asarray(g).tolist(),
+            iterations=dict(
+                synth=int(solve_stencil_mg(sc, hier, truth,
+                                           tol=1e-10).iterations),
+                first_primal=int(solve_stencil_mg(sc, hier, start,
+                                                  tol=1e-9).iterations),
+                sens_forward=int(solve_stencil_mg(sc, hier, truth,
+                                                  tol=1e-12).iterations)))
+
+    def fibers(tab, truth):
+        base = jnp.asarray(tensor_table(tab))
+        b = core.BODY_MUSCLE
+        axis = jnp.asarray((0.0, 1.0, 0.0), jnp.float64)
+
+        def table_for(p):
+            s_long, s_trans = jnp.exp(p[0]), jnp.exp(p[1])
+            d = axis / jnp.linalg.norm(axis)
+            Sig = (s_trans * jnp.eye(3, dtype=jnp.float64)
+                   + (s_long - s_trans) * jnp.outer(d, d))
+            return base.at[b].set(Sig)
+
+        tab_t = table_for(jnp.log(jnp.asarray(truth)))
+        phi_t = solve_lattice_mg_diff(dev, hier, tab_t, n_bodies=nb,
+                                      tol=1e-11)
+        # the synthesis solve's iterations, its own operator and V-cycle
+        C = lattice_coeff(dev["h_axes"], dev["coords_dev"], dev["body6"],
+                          nb, sigma_table=tab_t)[0]
+        mv = lambda x: jnp.where(free, stencil_spmv(
+            jnp.where(free, x, 0.0), C), x)
+        b_eff = jnp.where(free, dev["b_neumann"] - stencil_spmv(
+            jnp.where(free, 0.0, dev["dirichlet"]), C), dev["dirichlet"])
+        M = make_v_cycle(hier, dev["sigma_table"])
+        synth = _mg_pcg_iterations(mv, M, b_eff, free, 1e-11)
+        obs_idx = jnp.arange(0, phi_t.shape[0], 3, dtype=jnp.int32)
+        obs = phi_t[obs_idx]
+        scale = jnp.sqrt(jnp.sum(obs * obs))
+
+        def resid(p):
+            phi = solve_lattice_mg_diff(dev, hier, table_for(p),
+                                        n_bodies=nb, tol=1e-11)
+            return (phi[obs_idx] - obs) / scale
+
+        p = jnp.log(jnp.asarray([0.25, 0.15]))
+        lam = 1e-3
+        losses = [float(jnp.sum(resid(p) ** 2))]
+        for _ in range(12):
+            r, jvp = jax.linearize(resid, p)
+            Jm = jax.vmap(jvp)(jnp.eye(2, dtype=p.dtype))
+            A = np.asarray(jnp.einsum("pm,qm->pq", Jm, Jm))
+            g = np.asarray(jnp.einsum("pm,m->p", Jm, r))
+            dp = np.linalg.solve(A + lam * np.diag(np.diag(A)), -g)
+            p_try = p + jnp.asarray(dp)
+            l_try = float(jnp.sum(resid(p_try) ** 2))
+            if l_try < losses[-1]:
+                p, lam = p_try, lam / 3
+                losses.append(l_try)
+            else:
+                lam *= 4
+                losses.append(losses[-1])
+            if losses[-1] < 1e-18:
+                break
+        fit = np.exp(np.asarray(p))
+        return dict(fit=fit.tolist(), losses=losses, steps=len(losses) - 1,
+                    rel_err=(fit / np.asarray(truth) - 1).tolist(),
+                    iterations=dict(synth=synth))
+
+    truth_f = np.array([0.4, 0.09])
+    base = dict(scalar=scalar(nominal), fibers=fibers(nominal, truth_f))
+    print(f"calibration base done, {time.perf_counter() - t_start:.1f} s",
+          file=sys.stderr, flush=True)
+    rng = np.random.default_rng(seed)
+    runs = []
+    for _ in range(draws):
+        u = rng.choice([-1.0, 1.0], size=nominal.shape) * 2.0 ** -23
+        uf = rng.choice([-1.0, 1.0], size=2) * 2.0 ** -23
+        runs.append(dict(scalar=scalar(nominal * (1 + u)),
+                         fibers=fibers(nominal * (1 + u),
+                                       truth_f * (1 + uf))))
+        print(f"calibration draw done, {time.perf_counter() - t_start:.1f} "
+              "s", file=sys.stderr, flush=True)
+    spread, envelope = {}, {}
+    for part, keys in (("scalar", ("lm_rel_err", "lm_losses", "adam_rel_err",
+                                   "adam_losses", "J", "grad")),
+                       ("fibers", ("rel_err", "losses"))):
+        for k in keys:
+            a = np.asarray(base[part][k], np.float64)
+            moved = [np.asarray(r[part][k], np.float64) for r in runs]
+            if k.endswith("rel_err"):        # absolute: relative errors
+                d = [np.abs(m - a) for m in moved]
+            else:
+                d = [np.abs(m - a) / np.maximum(np.abs(a), 1e-300)
+                     for m in moved]
+            spread[f"{part}.{k}"] = np.max(d, axis=0).tolist()
+        for k, v in base[part]["iterations"].items():
+            its = [v] + [r[part]["iterations"][k] for r in runs]
+            envelope[f"{part}.{k}"] = [min(its), max(its)]
+    base.update(grid=list(spec.grid_shape), draws=draws, seed=seed,
+                lm_iters=CAL_LM_ITERS, adam_steps=CAL_ADAM_STEPS,
+                ulp_spread=spread,
+                iterations_envelope=envelope,
+                wall_s=time.perf_counter() - t_start)
+    return base
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -658,7 +867,13 @@ def main():
                          "tiny and full")
     ap.add_argument("--only-adapt", action="store_true")
     ap.add_argument("--adapt-cycles", type=int, default=2)
+    ap.add_argument("--only-calibration", action="store_true")
+    ap.add_argument("--calibration-draws", type=int, default=2)
     args = ap.parse_args()
+    if args.only_calibration:
+        print(json.dumps(dict(calibration=calibration(
+            draws=args.calibration_draws)), indent=1))
+        return
     if args.only_adapt:
         t0 = time.perf_counter()
         res = dict(adapt=adapt(cycles=args.adapt_cycles),

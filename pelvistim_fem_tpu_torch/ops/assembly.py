@@ -17,6 +17,12 @@ reads its element corners in the plan's sorted order through a padded
 run to run.  Contractions are elementwise products and sums, never a
 (TF32-capable) einsum or matmul.  Every device function takes any
 leading lane axes on its per-node and per-element operands.
+
+A conductivity is a scalar per element, or a symmetric 3x3 tensor per
+element (anisotropic tissue, ops/aniso): K_e = V_e G_e Sigma_e G_e^T.  A
+sigma table says which by its shape (is_tensor_table), never by its
+number of axes alone: a lane-stacked scalar table (L, T) and a tensor
+table (T, 3, 3) both have more than one.
 """
 
 from __future__ import annotations
@@ -74,18 +80,49 @@ def scatter_to_nodes(values, table):
     return flat[..., table].sum(-1)
 
 
-def spmv(phi, tets, grads, sigvol, table):
-    """Matrix-free y = K phi.  phi (..., N); sigvol = sigma_e V_e
-    (..., M) (isotropic conductivity)."""
+def is_tensor_table(sigma_table, n_slots: int) -> bool:
+    """Whether a sigma table of a case with n_slots bodies (slot 0
+    included) holds 3x3 tensors, (..., n_slots, 3, 3), or scalars, (...,
+    n_slots); raises where its shape is neither, or both."""
+    shape = tuple(sigma_table.shape)
+    tensor = shape[-3:] == (n_slots, 3, 3)
+    scalar = shape[-1:] == (n_slots,)
+    if tensor == scalar:
+        raise ValueError(f"sigma table of shape {shape} for {n_slots} "
+                         "slots: neither (..., T) scalars nor (..., T, 3, "
+                         "3) tensors, or both")
+    return tensor
+
+
+def element_sigma(sigma_table, tet_body, n_slots: int):
+    """(sigma per element, whether tensors) from a per-body table:
+    (..., M) for scalars, (..., M, 3, 3) for tensors (is_tensor_table)."""
+    if is_tensor_table(sigma_table, n_slots):
+        return sigma_table[..., tet_body, :, :], True
+    return sigma_table[..., tet_body], False
+
+
+def spmv(phi, tets, grads, sigvol, table, *, tensor=False):
+    """Matrix-free y = K phi.  phi (..., N); sigvol = sigma_e V_e, (...,
+    M) for an isotropic conductivity, or with tensor=True (..., M, 3, 3)
+    symmetric tensors."""
     xe = phi[..., tets]                                   # (..., M, 4)
     q = (grads * xe[..., None]).sum(-2)                   # (..., M, 3)
-    s = sigvol[..., None] * q
+    if tensor:
+        s = (sigvol * q[..., None, :]).sum(-1)            # Sigma_e q
+    else:
+        s = sigvol[..., None] * q
     ye = (grads * s[..., None, :]).sum(-1)                # (..., M, 4)
     return scatter_to_nodes(ye, table)
 
 
-def stiffness_diagonal(grads, sigvol, table):
-    """diag(K) for Jacobi preconditioning: sigma_e V_e |grad lambda_i|^2
-    summed over each node's element corners.  sigvol (..., M)."""
-    de = sigvol[..., None] * (grads * grads).sum(-1)     # (..., M, 4)
+def stiffness_diagonal(grads, sigvol, table, *, tensor=False):
+    """diag(K) for Jacobi preconditioning: V_e g_i^T Sigma_e g_i (tensor)
+    or sigma_e V_e |grad lambda_i|^2, summed over each node's element
+    corners.  sigvol as spmv takes it."""
+    if tensor:
+        de = (grads[..., :, :, None] * sigvol[..., None, :, :]
+              * grads[..., :, None, :]).sum((-1, -2))    # (..., M, 4)
+    else:
+        de = sigvol[..., None] * (grads * grads).sum(-1)
     return scatter_to_nodes(de, table)

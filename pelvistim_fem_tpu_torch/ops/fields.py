@@ -1,13 +1,14 @@
 """Post-solve field operators: E = -grad phi, J = -sigma grad phi, the
-Joule power density (PyTorch twin of pelvistim_fem_tpu/ops/fields.py,
-scalar conductivities; the tensor tables come with ops/aniso).
+Joule power density (PyTorch twin of pelvistim_fem_tpu/ops/fields.py).
 
 With P1 elements the gradient is constant per tet and comes from the
 same shape-function gradients as the assembly.  Every function takes phi
-with any leading lane axes ((N,) or (L, N)); sigma_table is (T,) or
-(L, T) to match.  Contractions are elementwise products and sums, never
-a (TF32-capable) einsum; element -> node sums go through the case's
-deterministic gather table.
+with any leading lane axes ((N,) or (L, N)); sigma_table is scalars,
+(T,) or (L, T) to match, or symmetric 3x3 tensors, (T, 3, 3) or (L, T,
+3, 3) (anisotropic tissue, ops/aniso): which, its shape says against the
+case's T slots (assembly.is_tensor_table).  Contractions are elementwise
+products and sums, never a (TF32-capable) einsum; element -> node sums
+go through the case's deterministic gather table.
 """
 
 from __future__ import annotations
@@ -28,21 +29,32 @@ def cell_E(case, phi):
     return -cell_gradient(case, phi)
 
 
-def cell_J(case, phi, sigma_table=None):
-    """J = -sigma grad phi per tet (..., M, 3); scalar sigma per body."""
+def _sigma_e(case, sigma_table):
+    """(sigma per tet, (..., M) or (..., M, 3, 3); whether tensors)."""
     if sigma_table is None:
         sigma_table = case.sigma_table
-    sigma_e = sigma_table[..., case.tet_body]             # (..., M)
-    return sigma_e[..., None] * cell_E(case, phi)
+    return assembly.element_sigma(sigma_table, case.tet_body,
+                                  case.sigma_table.shape[-1])
+
+
+def cell_J(case, phi, sigma_table=None):
+    """J = -sigma grad phi per tet (..., M, 3); a scalar or a tensor
+    sigma per body."""
+    sigma_e, tensor = _sigma_e(case, sigma_table)
+    E = cell_E(case, phi)
+    if tensor:
+        return (sigma_e * E[..., None, :]).sum(-1)
+    return sigma_e[..., None] * E
 
 
 def cell_power_density(case, phi, sigma_table=None):
-    """Dissipated power density p = J . E = sigma |E|^2 per tet [W/m^3]
+    """Dissipated power density p = J . E = E^T sigma E per tet [W/m^3]
     (..., M): the tissue-heating source of the bioheat solves."""
-    if sigma_table is None:
-        sigma_table = case.sigma_table
+    sigma_e, tensor = _sigma_e(case, sigma_table)
     E = cell_E(case, phi)
-    return sigma_table[..., case.tet_body] * (E * E).sum(-1)
+    if tensor:
+        return ((sigma_e * E[..., None, :]).sum(-1) * E).sum(-1)
+    return sigma_e * (E * E).sum(-1)
 
 
 def cell_centers(case):
@@ -91,11 +103,10 @@ def consistent_electrode_currents(case, phi, sigma_table=None):
     """EXACT discrete electrode currents from the weak-form reaction
     rho = K phi - b at the Dirichlet nodes.  Returns (I_active_in,
     I_return_out), each (...,), both positive for forward flow."""
-    if sigma_table is None:
-        sigma_table = case.sigma_table
-    sigvol = sigma_table[..., case.tet_body] * case.vol
+    sigma_e, tensor = _sigma_e(case, sigma_table)
+    sigvol = sigma_e * (case.vol[:, None, None] if tensor else case.vol)
     kphi = assembly.spmv(phi, case.tets, case.grads, sigvol,
-                         case.scatter_table)
+                         case.scatter_table, tensor=tensor)
     rho = kphi - case.b_neumann
     fixed = ~case.free_mask
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)

@@ -121,6 +121,12 @@ def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
     (1, 27, X, Y, Z) stack (single-sigma solves never hold per-body
     stacks).
 
+    sigma_table may also be a (n_bodies + 1, 3, 3) table of symmetric
+    tensors (ops/aniso; slot 0 all zero): the cell integrand is then
+    n_a^T Sigma n_b / (6 |det|), pre-combined to B = 1 likewise.  Every
+    branch is plain PyTorch ops, differentiable with respect to the table
+    in reverse and forward mode (ops/adjoint.solve_lattice_mg_diff).
+
     sigma_cell (6, nx, ny, nz): a conductivity per (Kuhn class, cell),
     for laws where every tet has its own sigma (ops/nonlinear); also
     pre-combined to (1, 27, X, Y, Z).  The caller zeroes carved cells.
@@ -133,6 +139,7 @@ def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
     nx, ny, nz = X - 1, Y - 1, Z - 1
     B_out = n_bodies if sigma_table is None and sigma_cell is None else 1
 
+    tensor = sigma_table is not None and sigma_table.dim() == 3
     per_off = [[] for _ in range(27)]
     bids = torch.arange(1, n_bodies + 1, dtype=torch.int64, device=dev)
     for t in range(6):
@@ -144,14 +151,26 @@ def lattice_coeff(h_axes, coords_dev, body6, n_bodies: int,
         elif sigma_table is None:
             weight = (body6[t][None].to(torch.int64)
                       == bids[:, None, None, None]).to(dt)
+        elif tensor:
+            # a 3x3 a cell, gathered from the small table; carved cells
+            # (body 0) hit the all-zero slot
+            bt = body6[t].to(torch.int64)
+            S = [[sigma_table[bt, i, j].to(dt) for j in range(3)]
+                 for i in range(3)]
         else:
             # carved cells (body 0) hit sigma_table[0] == 0
             weight = sigma_table[body6[t].to(torch.int64)][None].to(dt)
         for a in range(4):
             for b in range(a, 4):
-                k_ab = (ns[a][0] * ns[b][0] + ns[a][1] * ns[b][1]
-                        + ns[a][2] * ns[b][2]) * inv6det
-                contrib = k_ab[None] * weight      # (B_out, nx, ny, nz)
+                if tensor:
+                    k_ab = sum(ns[a][i] * S[i][j] * ns[b][j]
+                               for i in range(3)
+                               for j in range(3)) * inv6det
+                    contrib = k_ab[None]           # (1, nx, ny, nz)
+                else:
+                    k_ab = (ns[a][0] * ns[b][0] + ns[a][1] * ns[b][1]
+                            + ns[a][2] * ns[b][2]) * inv6det
+                    contrib = k_ab[None] * weight  # (B_out, nx, ny, nz)
                 o_ab = _OFFSET_INDEX[tuple(c[b] - c[a])]
                 per_off[o_ab].append((tuple(c[a]), contrib))
                 if a != b:
@@ -288,7 +307,9 @@ def solve_lattice_mg_refined(spec: LatticeSpec, sigma_table=None, *,
     accumulation (C(sigma) is linear in sigma, so probing the combined
     operator gives the hierarchy the per-body probe would after
     combining, at 1/B the memory); the hierarchy is probed from its f32
-    cast, since the V-cycle only has to be a good f32 preconditioner."""
+    cast, since the V-cycle only has to be a good f32 preconditioner.
+    sigma_table may be a (T, 3, 3) tensor table (ops/aniso): the master
+    operator is then its pre-combined tensor stencil."""
     dev = device_arrays or spec_device_arrays(spec, torch.float64, device)
     sig = (dev["sigma_table"] if sigma_table is None
            else torch.as_tensor(sigma_table, dtype=torch.float64,

@@ -35,7 +35,8 @@ def injected_currents(case, phi, sigma_table=None, *, nodal_J=None):
     error, plus the exact weak-form reaction currents: a dict of floats
     (I_active, I_return, their signed forms, flux_err, I_active_consistent,
     I_return_consistent, flux_err_consistent).  Outward normals: the
-    current injected at the active electrode is a negative flux there."""
+    current injected at the active electrode is a negative flux there.
+    sigma_table: (T,) scalars or (T, 3, 3) tensors (ops/fields)."""
     flux = fields.boundary_face_flux(case, phi, sigma_table,
                                      nodal_J=nodal_J).cpu().numpy()
     bcid = case.face_bcid.cpu().numpy()

@@ -180,25 +180,28 @@ def jacobi_inner(op32, diag32, maxiter):
 def _case_operator(case, sigma_table):
     """(op, diag, b_eff) of a Case's element system with the Dirichlet
     projection: op(x) = x on fixed nodes, K x on free ones.  sigma_table
-    (T,) is a scalar conductivity per body (the tensor tables of
-    anisotropic tissue come with ops/aniso)."""
-    return elem_operator(case, sigma_table[case.tet_body])
+    (T,) is a scalar conductivity per body, or (T, 3, 3) a symmetric
+    tensor per body (anisotropic tissue, ops/aniso)."""
+    sigma_e, tensor = assembly.element_sigma(sigma_table, case.tet_body,
+                                             case.sigma_table.shape[-1])
+    return elem_operator(case, sigma_e, tensor=tensor)
 
 
-def elem_operator(case, sigma_e):
-    """_case_operator with a conductivity per element, sigma_e (M,)."""
-    sigvol = sigma_e * case.vol
+def elem_operator(case, sigma_e, *, tensor=False):
+    """_case_operator with a conductivity per element, sigma_e (M,), or
+    with tensor=True (M, 3, 3)."""
+    sigvol = sigma_e * (case.vol[:, None, None] if tensor else case.vol)
     free = case.free_mask
 
     def raw(x):
         return assembly.spmv(x, case.tets, case.grads, sigvol,
-                             case.scatter_table)
+                             case.scatter_table, tensor=tensor)
 
     def op(x):
         return torch.where(free, raw(torch.where(free, x, 0.0)), x)
 
     diag = torch.where(free, assembly.stiffness_diagonal(
-        case.grads, sigvol, case.scatter_table), 1.0)
+        case.grads, sigvol, case.scatter_table, tensor=tensor), 1.0)
     phi_d = torch.where(free, 0.0, case.dirichlet_vals)
     b_eff = torch.where(free, case.b_neumann - raw(phi_d),
                         case.dirichlet_vals)
@@ -217,7 +220,8 @@ def _case_astype(case, dtype):
 def solve_case(case, sigma_table=None, *, tol=1e-8,
                maxiter=10_000) -> SolveResult:
     """Jacobi-PCG on the Case's element operator in its dtype; phi (N,).
-    sigma_table (T,) overrides the case's."""
+    sigma_table, (T,) scalars or (T, 3, 3) tensors, overrides the
+    case's."""
     if sigma_table is None:
         sigma_table = case.sigma_table
     op, diag, b_eff = _case_operator(case, sigma_table)
@@ -230,7 +234,7 @@ def solve_case_refined(case, sigma_table=None, *, tol=1e-8,
                        max_refinements=4) -> SolveResult:
     """Mixed-precision element solve: f32 Jacobi-PCG inner sweeps, f64
     residual correction until the TRUE f64 relative residual meets `tol`
-    (the returned residual)."""
+    (the returned residual).  sigma_table as solve_case takes it."""
     if sigma_table is None:
         sigma_table = case.sigma_table
     f32, f64 = torch.float32, torch.float64

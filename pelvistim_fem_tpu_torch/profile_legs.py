@@ -3,6 +3,7 @@
     python -m pelvistim_fem_tpu_torch.profile_legs          # every leg
     python -m pelvistim_fem_tpu_torch.profile_legs --mg     # MG legs only
     python -m pelvistim_fem_tpu_torch.profile_legs --amg    # AMG legs only
+    python -m pelvistim_fem_tpu_torch.profile_legs --calibration
 
 Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
 contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
@@ -38,7 +39,15 @@ hierarchy's host build, the certified AMG-CG solve, the ZZ estimate and
 the rows), the solve alone (with the launches per AMG-CG iteration), and
 one imported solve of the anchor written as an Elmer mesh DB with its
 lattice stripped (read, detect, build, solve, rows); with the
-hierarchy's build time and levels.
+hierarchy's build time and levels.  `--calibration` profiles only the
+differentiable solves on the step04 app's lattice at --full ((55, 31,
+19), f64): sigma_sensitivity of mean(phi^2) (one forward and one adjoint
+MG-PCG solve), the 20 Levenberg-Marquardt iterations of run_calibration
+--full --steps 20 (calibrate_sigma_lm: its start, then per iteration one
+primal, three tangent and one trial solve) and the Gauss-Newton fit of
+--fibers --full (its synthesis solve included), each with its launches
+per MG-CG iteration over the solves' iterations (also in the MG legs,
+`--mg`).
 """
 
 from __future__ import annotations
@@ -87,6 +96,8 @@ def main(argv=None):
                     help="only the multigrid legs")
     ap.add_argument("--amg", action="store_true",
                     help="only the AMG element-path legs")
+    ap.add_argument("--calibration", action="store_true",
+                    help="only the differentiable-solve legs")
     args = ap.parse_args(argv)
     mg = args.mg
     if not torch.cuda.is_available():
@@ -98,6 +109,10 @@ def main(argv=None):
     if args.amg:
         print(torch.cuda.get_device_name(0))
         _profile_amg(dev)
+        return 0
+    if args.calibration:
+        print(torch.cuda.get_device_name(0))
+        _profile_calibration(dev)
         return 0
 
     from pelvistim_fem_tpu_torch.models.ankle import megatet_spec
@@ -214,7 +229,60 @@ def main(argv=None):
 
     _profile_step04(dev, mg)
     _profile_array(dev, mg)
+    _profile_calibration(dev)
     return 0
+
+
+def _profile_calibration(dev):
+    """The differentiable solves of run_calibration --full on the step04
+    app's lattice, f64: the gradient of mean(phi^2), the LM fit at 20
+    iterations (from the app's start, 2.5x / 0.4x / 3x off) and the
+    Gauss-Newton fiber fit (its synthesis solve and start included),
+    each leg's launches per MG-CG iteration over the iterations its
+    solves took (MGSolver's stats)."""
+    import tempfile
+    import types
+
+    from pelvistim_fem_tpu_torch.apps import run_calibration
+    from pelvistim_fem_tpu_torch.models.pressure import build_pressure_spec
+    from pelvistim_fem_tpu_torch.ops.adjoint import (sigma_sensitivity,
+                                                     solve_stencil_mg_diff)
+    from pelvistim_fem_tpu_torch.ops.calibrate import calibrate_sigma_lm
+    from pelvistim_fem_tpu_torch.ops.lattice_assembly import assemble_lattice
+    spec, _ = build_pressure_spec()
+    scase, hier = assemble_lattice(spec, torch.float64, device=dev)
+    truth = scase.sigma_table
+    with torch.no_grad():
+        phi = solve_stencil_mg_diff(scase, hier, truth, tol=1e-10)
+    obs_idx = torch.arange(0, phi.shape[0], 3, device=phi.device)
+    obs = phi[obs_idx]
+    sigma0 = truth[1:4] * torch.tensor([2.5, 0.4, 3.0], dtype=truth.dtype,
+                                       device=truth.device)
+    stats = []
+
+    def leg(name, fn):
+        del stats[:]
+        n = _profile(name, fn)[2]
+        run = stats[len(stats) // 2:]    # the profiled run's solves
+        its = sum(k for _, k in run)
+        print(f"  solves {len(run)}, MG-CG iterations {its}")
+        _per_iteration(n, its)
+
+    leg("calibration_sensitivity", lambda: sigma_sensitivity(
+        lambda p, s: torch.mean(p * p), scase, hier, truth, tol=1e-12,
+        stats=stats))
+    leg("calibration_lm_20_iterations", lambda: calibrate_sigma_lm(
+        scase, hier, obs_idx, obs, (1, 2, 3), sigma0, iters=20, tol=1e-9,
+        stats=stats))
+
+    def fibers():
+        with tempfile.TemporaryDirectory() as tmp:
+            args = types.SimpleNamespace(steps=0, noise=0.0, outdir=tmp)
+            out = run_calibration._fit_fibers(args, spec, hier,
+                                              torch.device(dev))
+        stats.extend(out["solves"])
+
+    leg("calibration_fibers", fibers)
 
 
 def _profile_amg(dev):

@@ -156,6 +156,10 @@ import pelvistim_fem_tpu_torch.ops.multigrid
 import pelvistim_fem_tpu_torch.roofline_probe
 import pelvistim_fem_tpu_torch.spmv_kernels_ab
 import pelvistim_fem_tpu_torch.apps.run_array_opt
+import pelvistim_fem_tpu_torch.apps.run_calibration
+import pelvistim_fem_tpu_torch.ops.adjoint
+import pelvistim_fem_tpu_torch.ops.aniso
+import pelvistim_fem_tpu_torch.ops.calibrate
 import pelvistim_fem_tpu_torch.apps.smoke_test
 import pelvistim_fem_tpu_torch.models.array
 import pelvistim_fem_tpu_torch.ops.leadfield
