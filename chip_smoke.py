@@ -72,8 +72,11 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 above the tail of
                 the step04 app's, the megatet's and step02's hierarchies,
                 and the body-factored level kernel (level_apply_factored
-                in its four modes, with restrict and prolong_add on the
-                lanes' one coarse mask) at every level above the tail of
+                in its four modes, kernel 2's tiles or the march as its
+                plan picks (the march's rows and launches also as
+                level_apply_factored_cuda:march in the kernels line),
+                with restrict and prolong_add on the lanes' one coarse
+                mask) at every level above the tail of
                 the sweep's first 25-lane chunk, of the step04 app's 15
                 linear lanes and of the array app's 8 and 64 lanes, f32
                 and f64: each within tolerance of
@@ -644,6 +647,10 @@ MULTIGRID = "pelvistim_fem_tpu/ops/multigrid.py"
 # level_apply's mode "prolong_sweep" (its own kernel) keeps its rows and
 # its kernels-line entry under this name
 PROLONG_SWEEP = "level_apply_cuda:prolong_sweep"
+# level_apply_factored's launches and rows where its plan
+# (stencil_kernels.march_plan) takes the march (level_march_kernel), not
+# kernel 2's tiles (level_apply_factored_kernel), under this name
+FACTORED_MARCH = "level_apply_factored_cuda:march"
 REPLACES = {
     "stencil_spmv_cuda": f"{PALLAS}:326, {PALLAS}:75",
     "batched_stencil_spmv_cuda": f"{PALLAS}:410, {PALLAS}:202",
@@ -659,6 +666,7 @@ REPLACES = {
     "prolong_add_cuda": f"{MULTIGRID}:425",
     PROLONG_SWEEP: f"{PALLAS}:326, {MULTIGRID}:425",
     "level_apply_factored_cuda": f"{PALLAS}:410, {MULTIGRID}:797",
+    FACTORED_MARCH: f"{PALLAS}:410, {MULTIGRID}:797",
 }
 # Why an entry's library_ms is null: no one PyTorch call computes it.
 NO_LIBRARY = ("no one PyTorch call computes a variable-coefficient 27-point "
@@ -703,6 +711,11 @@ LIBRARY_NOTE = {
                     "replaces (prolong_add's ops, kernel 1 and PyTorch's "
                     "ops) as one CUDA graph replay"),
     "level_apply_factored_cuda": (
+        "no one PyTorch call runs a body-factored variable-coefficient "
+        "27-point stencil with a Jacobi sweep; plain_graph_ms is the route "
+        "it replaces (kernel 2 and PyTorch's ops) as one CUDA graph "
+        "replay"),
+    FACTORED_MARCH: (
         "no one PyTorch call runs a body-factored variable-coefficient "
         "27-point stencil with a Jacobi sweep; plain_graph_ms is the route "
         "it replaces (kernel 2 and PyTorch's ops) as one CUDA graph "
@@ -1422,7 +1435,8 @@ def phase_levels(dev, results, hiers, covered):
     the residual, the restriction, "prolong_sweep", "sweep") and none of
     kernel 1 or prolong_add.  Likewise the
     body-factored level kernel (FACTORED_FUNCTIONS, the route kernel 2
-    and PyTorch's ops) at the levels above the tail of the sweep's first
+    and PyTorch's ops; the rows where its plan takes the march as
+    FACTORED_MARCH's) at the levels above the tail of the sweep's first
     chunk, the step04 app's linear lanes and the array app's basis and
     ensemble lanes, whose V-cycle (the tail's
     levels combined a lane, as the solve does) launches kernel 2 never
@@ -1500,7 +1514,9 @@ def phase_levels(dev, results, hiers, covered):
                     if not torch.equal(y, routes[kname](*args)):
                         raise AssertionError(f"levels {name} {kname} "
                                              f"{shape} {dn}: not the route")
-                    line = (f"levels {name} {kname} {dn} {shape}: "
+                    body = f" {factored_body(dn, shape)}" \
+                        if kname == FACTORED else ""
+                    line = (f"levels {name} {kname} {dn} {shape}{body}: "
                             f"max_abs_err {err:.3e} against the twin, "
                             "torch.equal to the route")
                     if l < timed:
@@ -1519,7 +1535,8 @@ def phase_levels(dev, results, hiers, covered):
                         graph = measure.kernel_ms(routes[kname], copies)
                         row = (err, ms, pms, shape, call, None, graph)
                         rkey = PROLONG_SWEEP if mode == "prolong_sweep" \
-                            else kname
+                            else FACTORED_MARCH if kname == FACTORED and \
+                            factored_body(dn, shape) == "march" else kname
                         results.setdefault((rkey, dn), row)
                         results[(rkey, dn, shape)] = row
                         WARM[(rkey, dn, shape)] = warm
@@ -1591,7 +1608,9 @@ def shape_key(name, dn, shapes):
     Z)" for kernel 1 and its bf16 probe, "<dtype> (P, xrows, (X, Y, Z))"
     for the plane-FMA probe, "<dtype> (iters, (X, Y, Z))" for the coarse
     CG, "<dtype> (nu, iters, S, level grids)" for the tail, "<dtype> (L,
-    B, elements a body)" for the lanes' combine."""
+    B, elements a body)" for the lanes' combine; the body-factored level
+    kernel's ends in the body its plan launched, "tiles" or "march"
+    (factored_body)."""
     if name in ("stencil_spmv_cuda", "stencil_spmv_bf16c_cuda"):
         return f"{dn} {shapes[0]}"
     if name == "plane_fma_cuda":
@@ -1603,6 +1622,9 @@ def shape_key(name, dn, shapes):
     if name == "combine_lanes_cuda":
         L, B, N = shapes[1][0], shapes[0][0], int(np.prod(shapes[0][1:]))
         return f"{dn} {(L, B, N)}"
+    if name == FACTORED:
+        ws = level_shape(name, shapes)
+        return f"{dn} {ws} {factored_body(dn, ws)}"
     if name in LEVEL_KERNELS:
         return f"{dn} {level_shape(name, shapes)}"
     L = shapes[0][0] if name == "batched_stencil_spmv_cuda" else \
@@ -1613,6 +1635,18 @@ def shape_key(name, dn, shapes):
 LEVEL_NAMES = ("level_apply_cuda", "restrict_cuda", "prolong_add_cuda")
 TAIL_KERNELS = ("vcycle_tail_cuda", "cluster_tail_cuda")
 LEVEL_KERNELS = LEVEL_NAMES + (FACTORED,)
+
+
+def factored_body(dn, ws):
+    """The kernel that level_apply_factored_cuda's plan launches at
+    level_shape `ws` (mode, bodies, (L, X, Y, Z)) in dtype dn: "tiles"
+    (kernel 2's, level_apply_factored_kernel) or "march"
+    (level_march_kernel)."""
+    import torch
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+    mode, B, (L, *grid) = ws
+    plan = sk.march_plan(L, B, tuple(grid), getattr(torch, dn), mode)
+    return "tiles" if plan.tiles else "march"
 
 
 def level_shape(name, shapes):
@@ -3170,11 +3204,16 @@ def main():
     log(f"launches: {launches}")
     by_shape = {name: {} for name in launches}
     by_shape[PROLONG_SWEEP] = {}
+    by_shape[FACTORED_MARCH] = {}
     for (name, dn, shapes), n in seen.most_common():
         by_shape[name][shape_key(name, dn, shapes)] = n
         if name == "level_apply_cuda" and shapes[3] == "prolong_sweep":
             by_shape[PROLONG_SWEEP][shape_key(name, dn, shapes)] = n
-    launches[PROLONG_SWEEP] = sum(by_shape[PROLONG_SWEEP].values())
+        if name == FACTORED and shape_key(name, dn, shapes).endswith(
+                "march"):
+            by_shape[FACTORED_MARCH][shape_key(name, dn, shapes)] = n
+    for key in (PROLONG_SWEEP, FACTORED_MARCH):
+        launches[key] = sum(by_shape[key].values())
     for name, n in launches.items():
         if n <= 0 and name != "coarse_cg_cuda":
             raise AssertionError(f"{name} never launched on the paths")
@@ -3228,7 +3267,8 @@ def main():
                           (PROLONG_SWEEP, "float32", "float64"),
                           ("restrict_cuda", "float32", "float64"),
                           ("prolong_add_cuda", "float32", "float64"),
-                          (FACTORED, "float32", "float64")):
+                          (FACTORED, "float32", "float64"),
+                          (FACTORED_MARCH, "float32", None)):
         err, ms, pms, shape, call, lib, graph = parity[(name, dn)]
         kname = name.split(":")[0]
         b_ms, b_by = measure.bound(kname, shape, dn)

@@ -44,6 +44,9 @@
 //                              residual or the mask around it (the levels
 //                              of _fused_cycle, multigrid.py:797-830, that
 //                              XLA fuses around batched_stencil_spmv_fused)
+//                              as kernel 2's tiles or as a march along
+//                              axis 0 (level_march_kernel), by the
+//                              caller's plan
 //
 // Layout is the natural one of the PyTorch tensors, C-contiguous:
 //   x (S, X, Y, Z), C (S, 27, X, Y, Z)   [S lanes; S = 1 is the 3-D call]
@@ -2201,8 +2204,9 @@ level_prolong_sweep_kernel(const T* __restrict__ x, const T* __restrict__ xc,
 // batched_stencil_spmv_fused); run op by op there took ~77 launches a level
 // and V-cycle (kernel 2 five times, the where/sub/mul/add of the sweeps, the
 // transfers' gathers).  Now a level takes 6 at nu = 2: four launches of
-// this kernel and restrict_kernel and prolong_add_kernel, which take lanes
-// on blockIdx.y and the lanes' one coarse mask with free_stride 0.
+// this kernel or of the march below and restrict_kernel and
+// prolong_add_kernel, which take lanes on blockIdx.y and the lanes' one
+// coarse mask with free_stride 0.
 //
 // The arithmetic is the route's bit for bit: each lane's coefficient is
 // formed as kernel 2 forms it (co = s_0 c_0, then fma(s_b, c_b, co)), the
@@ -2360,6 +2364,210 @@ level_apply_factored_kernel(const T* __restrict__ x, const T* __restrict__ b,
         const int q = q0 + l * G;
         const T xq = xval(q);
         y[q] = level_out(mode, xq, f ? acc[l] : xq, b, wd, q);
+      }
+    }
+  }
+}
+
+// ── the body-factored levels as a march along axis 0 ────────────────────
+//
+// level_march_kernel: level_apply_factored's four modes.  A block takes a
+// tile of ty rows of (Y, Z), whole along z, for a slab of `lanes` lanes
+// over a segment of axis 0, and marches along it a plane at a time:
+//   * Shared memory holds a ring of axis-0 planes of the staged operand
+//     for the slab's lanes on the tile's rows and a row of halo each side
+//     (x; wd b for "sweep0", formed once a point), and two buffers of the
+//     plane's coefficient tile (B x 27 x ty x Z).  Whole rows along z: a
+//     lane's window of a plane and a coefficient plane's tile are each one
+//     contiguous run in device and in shared memory, and a warp's
+//     neighbour reads are consecutive words.
+//   * While plane i is computed, the copies of the next planes are in
+//     flight (cp.async, one element each, issued by every thread: the runs
+//     start at odd offsets, no 16-byte copies or TMA): x plane i + 2 (three
+//     ring planes in use, four slots), or, for "sweep0", b and wd of plane
+//     i + 3 while wd b of plane i + 2 is formed in its slot (five slots, b
+//     in the slot and wd beside it), and the coefficients of plane i + 1.
+//     One barrier a plane.  (Warps that only issue the copies, behind
+//     named barriers, were slower: a warp's 4-byte cp.async issue is bound
+//     by how fast device memory drains them, PERF.md.)
+//   * The coefficients are read from device memory once a block and
+//     plane for all the slab's lanes; each x value once a plane, its 26
+//     neighbours' reads from shared memory.
+//   * A thread takes one point of the tile and K lanes (march_lanes,
+//     kernel 2's: its K * B sigma values in registers), and keeps kernel
+//     2's fma order (factored_apply) and level_out's epilogue, so every
+//     mode repeats the route bit for bit.
+// The plan (rows, lanes a block, segment) comes from the caller
+// (stencil_kernels.march_plan), checked here against the same formulas
+// (MarchSmem, march_lanes).  Bound by device memory: the coefficients
+// once and 2-4 vectors a lane; the halo rows and the segments' end
+// planes are read again from L2.
+enum MarchStage { kStageX = 0, kStageWdB = 1 };
+// Most threads a march block, by dtype: with two blocks an SM, the
+// registers the unrolled apply needs without spilling (f32 at 320, f64 at
+// 256; at 384 both spilled).
+template <typename T>
+constexpr int kMarchMaxThreads = sizeof(T) == 4 ? 320 : 256;
+
+// Lanes a thread of the march takes: kernel 2's (lanes_per_thread: its K
+// * B sigma values within 20 registers' worth).
+template <typename T>
+constexpr int march_lanes(int B) {
+  return lanes_per_thread<T>(B, sizeof(T) == 4 ? 4 : 2);
+}
+
+// The shared memory of a march block of ty rows of a level Z points deep
+// with `lanes` lanes of B bodies in stage `stage`, in elements of T: two
+// coefficient tiles; the ring, `slots` planes of the lanes on the rows and
+// their halo (ty + 2 rows); "sweep0" two planes of wd.
+struct MarchSmem {
+  int slots, tpts, plane, slot;
+  int coef, ring, aux;
+  __host__ __device__ MarchSmem(int ty, int Z, int lanes, int B, int stage)
+      : slots(stage == kStageX ? 4 : 5), tpts(ty * Z), plane((ty + 2) * Z),
+        slot(lanes * plane), coef(B * 27 * ty * Z), ring(slots * slot),
+        aux(stage == kStageWdB ? 2 * slot : 0) {}
+  __host__ __device__ long long bytes(int elem) const {
+    return (2LL * coef + ring + aux) * elem;
+  }
+};
+
+// A march launch's arguments: the tensors (b, wd unread in kMasked; x in
+// kSweep0), the level and the plan with what follows from it.
+template <typename T>
+struct MarchArgs {
+  const T *x, *b, *coeff, *sig, *wd;
+  const unsigned* words;
+  T* y;
+  int L, X, Y, Z, mode;
+  int ty, seg, lanes, nty, nslab;
+};
+
+template <typename T, int B, int K, int Stage>
+__global__ void __launch_bounds__(kMarchMaxThreads<T>, 2)
+level_march_kernel(const __grid_constant__ MarchArgs<T> a) {
+  constexpr int NS = Stage == kStageX ? 4 : 5;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const MarchSmem sm(a.ty, a.Z, a.lanes, B, Stage);
+  T* s_coef = reinterpret_cast<T*>(s_raw);
+  T* s_ring = s_coef + 2 * sm.coef;
+  T* s_aux = s_ring + sm.ring;
+  const int X = a.X, Y = a.Y, Z = a.Z, YZ = Y * Z, G = X * YZ;
+  // the block: lane slab fastest, then the rows, then the segment
+  const int slab = blockIdx.x % a.nslab, rest = blockIdx.x / a.nslab;
+  const int y0 = rest % a.nty * a.ty;
+  const int i0 = rest / a.nty * a.seg, i1 = min(i0 + a.seg, X);
+  const int L0 = slab * a.lanes, nlb = min(a.lanes, a.L - L0);
+  // the tile's rows in the grid; the window, rows [wy0, wy0 + ny) with
+  // their halo clipped to the grid, from row oy of a lane's ring plane: a
+  // run of `run` points
+  const int ey = min(a.ty, Y - y0);
+  const int wy0 = max(y0 - 1, 0), ny = min(y0 + a.ty + 1, Y) - wy0;
+  const int oy = (wy0 - y0 + 1) * Z, run = ny * Z, crun = ey * Z;
+  const int ct = threadIdx.x, cn = blockDim.x;
+  const FastDiv by_run(run), by_crun(crun);
+  const auto ring = [&](int f) { return s_ring + (f + NS) % NS * sm.slot; };
+  const int nwin = nlb * run;
+  // plane f of v (L, X, Y, Z) on the window into dst, by cp.async
+  const auto stage_plane = [&](T* dst, const T* __restrict__ v, int f) {
+    const T* src = v + L0 * G + f * YZ + wy0 * Z;
+    for (int e = ct; e < nwin; e += cn) {
+      const int ll = by_run.div(e), k = e - ll * run;
+      cp_async_elem(dst + ll * sm.plane + oy + k, src + ll * G + k);
+    }
+  };
+  // plane f's coefficient tile (B * 27, ty * Z), the tile's rows in the
+  // grid
+  const auto stage_coef = [&](T* dst, int f) {
+    const T* src = a.coeff + (f * Y + y0) * Z;
+    for (int e = ct; e < B * 27 * crun; e += cn) {
+      const int r = by_crun.div(e), k = e - r * crun;
+      cp_async_elem(dst + r * sm.tpts + k, src + r * G + k);
+    }
+  };
+  // "sweep0": b of plane f in its ring slot, wd beside it (copies)
+  const auto stage_raw = [&](int f) {
+    stage_plane(ring(f), a.b, f);
+    stage_plane(s_aux + (f & 1) * sm.slot, a.wd, f);
+  };
+
+  // prologue: the planes i0 - 1 .. i0 + 1 in the ring ("sweep0": wd b
+  // formed here from device memory), the next raw plane's copies and
+  // plane i0's coefficients
+  const int last = min(i1, X - 1);  // the segment's planes and neighbours
+  if constexpr (Stage == kStageX) {
+    for (int f = max(i0 - 1, 0); f <= min(i0 + 1, last); ++f) {
+      stage_plane(ring(f), a.x, f);
+    }
+  } else {
+    for (int f = max(i0 - 1, 0); f <= min(i0 + 1, last); ++f) {
+      T* dst = ring(f);
+      for (int e = ct; e < nwin; e += cn) {
+        const int ll = by_run.div(e), k = e - ll * run;
+        const int g = (L0 + ll) * G + f * YZ + wy0 * Z + k;
+        dst[ll * sm.plane + oy + k] = mul_rn(a.wd[g], a.b[g]);
+      }
+    }
+    if (i0 + 2 <= last) stage_raw(i0 + 2);
+  }
+  stage_coef(s_coef, i0);
+
+  // the thread's point and lanes: the slab's lanes in `groups` groups of
+  // kg, group g from lane g * kg
+  const int groups = cn / sm.tpts;
+  const int g = ct / sm.tpts, p = ct - g * sm.tpts;
+  const int kg = (nlb + groups - 1) / groups;
+  const int lg = g * kg, nl = min(kg, nlb - lg);
+  const bool mine = p < crun && nl > 0;
+  T s[K][B];
+  load_sigma<T, B, K>(s, a.sig, L0 + lg, mine ? nl : 0);
+  const int ctr = lg * sm.plane + Z + p;  // row py + 1 of lane lg's plane
+  for (int i = i0; i < i1; ++i) {
+    cp_async_wait_block();
+    const int k = i - i0;
+    if constexpr (Stage == kStageX) {
+      if (i + 2 <= last) stage_plane(ring(i + 2), a.x, i + 2);
+    } else {
+      if (i + 3 <= last) stage_raw(i + 3);
+      if (i + 2 <= last) {  // form wd b of plane i + 2 in its slot
+        const int f = i + 2;
+        T* dst = ring(f);
+        const T* w = s_aux + (f & 1) * sm.slot;
+        for (int e = ct; e < nwin; e += cn) {
+          const int ll = by_run.div(e);
+          const int at = ll * sm.plane + oy + e - ll * run;
+          dst[at] = mul_rn(w[at], dst[at]);
+        }
+      }
+    }
+    if (i + 1 < i1) stage_coef(s_coef + ((k + 1) & 1) * sm.coef, i + 1);
+    if (!mine) continue;
+    const T* cb = s_coef + (k & 1) * sm.coef + p;
+    const T* r0 = ring(i) + ctr;
+    const T* rm = ring(i - 1) + ctr;
+    const T* rp = ring(i + 1) + ctr;
+    const int q = (i * Y + y0) * Z + p;
+    const unsigned nb = a.words[q];
+    const bool f = (nb & kCgFree) != 0u;
+    T acc[K];
+#pragma unroll
+    for (int l = 0; l < K; ++l) acc[l] = T(0);
+    if (f) {
+      const int tp = sm.tpts, pl = sm.plane;
+      factored_apply<T, B, K>(
+          s, nl, nb, [cb, tp](int bb, int o) { return cb[(bb * 27 + o) * tp]; },
+          [&](int l, int o) {
+            const T* r = o < 9 ? rm : (o < 18 ? r0 : rp);
+            return r[l * pl + (o / 3 % 3 - 1) * Z + o % 3 - 1];
+          },
+          acc);
+    }
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      if (l < nl) {
+        const int gq = (L0 + lg + l) * G + q;
+        const T xq = r0[l * sm.plane];
+        a.y[gq] = level_out(a.mode, xq, f ? acc[l] : xq, a.b, a.wd, gq);
       }
     }
   }
@@ -3033,7 +3241,7 @@ int launch_factored_b(const FactoredArgs<T>& a, int mode, int L, int X,
 // L lanes of B bodies (1..kMaxBodies) on grid (X, Y, Z) within 32-bit
 // indices; mode a LevelMode (x unread in kSweep0, b and wd in kMasked).
 template <typename T>
-int launch_level_apply_factored(const void* x, const void* b,
+int launch_level_apply_factored_tiles(const void* x, const void* b,
                                 const void* coeff, const void* sig,
                                 const void* wd, const void* words, void* y,
                                 int L, int B, int mode, int X, int Y, int Z,
@@ -3057,6 +3265,102 @@ int launch_level_apply_factored(const void* x, const void* b,
     case 6: return launch_factored_b<T, 6>(a, mode, L, X, Y, Z, st);
     case 7: return launch_factored_b<T, 7>(a, mode, L, X, Y, Z, st);
     default: return launch_factored_b<T, 8>(a, mode, L, X, Y, Z, st);
+  }
+}
+
+// A march plan's blocks: ty rows of (Y, Z), whole along z, segments of
+// `seg` planes, slabs of `lanes` lanes; a thread a point and group of
+// march_lanes lanes; false for a plan the kernel does not take (threads
+// past kMarchMaxThreads, shared memory past kMaxSmem, rows, a segment or
+// a slab larger than the level).  stencil_kernels.march_plan makes it by
+// the same formulas.
+struct MarchPlan {
+  int nty, nseg, nslab, threads, blocks;
+  long long smem;
+};
+
+template <typename T>
+bool march_plan(int L, int B, int X, int Y, int Z, int stage, int ty,
+                int seg, int lanes, MarchPlan* p) {
+  if (ty < 1 || seg < 1 || lanes < 1 || ty > Y || seg > X || lanes > L) {
+    return false;
+  }
+  const int K = march_lanes<T>(B);
+  const long long threads = (long long)ty * Z * ((lanes + K - 1) / K);
+  p->nty = (Y + ty - 1) / ty;
+  p->nseg = (X + seg - 1) / seg;
+  p->nslab = (L + lanes - 1) / lanes;
+  p->smem = MarchSmem(ty, Z, lanes, B, stage).bytes((int)sizeof(T));
+  const long long blocks = (long long)p->nty * p->nseg * p->nslab;
+  p->threads = (int)std::min(threads, (long long)INT_MAX);
+  p->blocks = (int)std::min(blocks, (long long)INT_MAX);
+  return threads <= kMarchMaxThreads<T> && p->smem <= kMaxSmem &&
+         blocks <= INT_MAX;
+}
+
+template <typename T, int B, int Stage>
+int launch_march_as(const MarchArgs<T>& a, const MarchPlan& p,
+                    cudaStream_t stream) {
+  const auto kernel = level_march_kernel<T, B, march_lanes<T>(B), Stage>;
+  static std::atomic<unsigned> opted{0};
+  const cudaError_t err = allow_smem(kernel, kMaxSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.blocks, p.threads, (int)p.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int B>
+int launch_march_b(const MarchArgs<T>& a, const MarchPlan& p, int stage,
+                   cudaStream_t st) {
+  if (stage == kStageWdB) return launch_march_as<T, B, kStageWdB>(a, p, st);
+  return launch_march_as<T, B, kStageX>(a, p, st);
+}
+
+// The march stage of a LevelMode: wd b formed ("sweep0") or x staged.
+int march_stage(int mode) { return mode == kSweep0 ? kStageWdB : kStageX; }
+
+// L lanes of B bodies (1..kMaxBodies) on grid (X, Y, Z) within 32-bit
+// indices; mode a LevelMode (x unread in kSweep0, b and wd in kMasked);
+// the plan (ty, seg, lanes) as march_plan takes it, or ty = 0 for kernel
+// 2's tiles (level_apply_factored_kernel).
+template <typename T>
+int launch_level_apply_factored(const void* x, const void* b,
+                                const void* coeff, const void* sig,
+                                const void* wd, const void* words, void* y,
+                                int L, int B, int mode, int X, int Y, int Z,
+                                int ty, int seg, int lanes, void* stream) {
+  const long long G = (long long)X * Y * Z;
+  MarchPlan p;
+  if (X < 1 || Y < 1 || Z < 1 || B < 1 || B > kMaxBodies || L < 0 ||
+      !fits_int(G, L, B) || mode < kSweep || mode > kMasked) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (L == 0) return 0;
+  if (ty == 0) {  // the plan keeps kernel 2's tiles
+    return launch_level_apply_factored_tiles<T>(x, b, coeff, sig, wd, words,
+                                                y, L, B, mode, X, Y, Z,
+                                                stream);
+  }
+  const int stage = march_stage(mode);
+  if (!march_plan<T>(L, B, X, Y, Z, stage, ty, seg, lanes, &p)) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const MarchArgs<T> a{(const T*)x,  (const T*)b,  (const T*)coeff,
+                       (const T*)sig, (const T*)wd, (const unsigned*)words,
+                       (T*)y,         L,            X,
+                       Y,             Z,            mode,
+                       ty,            seg,          lanes,
+                       p.nty,         p.nslab};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (B) {
+    case 1: return launch_march_b<T, 1>(a, p, stage, st);
+    case 2: return launch_march_b<T, 2>(a, p, stage, st);
+    case 3: return launch_march_b<T, 3>(a, p, stage, st);
+    case 4: return launch_march_b<T, 4>(a, p, stage, st);
+    case 5: return launch_march_b<T, 5>(a, p, stage, st);
+    case 6: return launch_march_b<T, 6>(a, p, stage, st);
+    case 7: return launch_march_b<T, 7>(a, p, stage, st);
+    default: return launch_march_b<T, 8>(a, p, stage, st);
   }
 }
 
@@ -3289,18 +3593,37 @@ int pst_level_apply_factored_f32(const void* x, const void* b,
                                  const void* coeff, const void* sig,
                                  const void* wd, const void* words, void* y,
                                  int L, int B, int mode, int X, int Y, int Z,
-                                 void* stream) {
+                                 int ty, int seg, int lanes, void* stream) {
   return launch_level_apply_factored<float>(x, b, coeff, sig, wd, words, y,
-                                            L, B, mode, X, Y, Z, stream);
+                                            L, B, mode, X, Y, Z, ty, seg,
+                                            lanes, stream);
 }
 
 int pst_level_apply_factored_f64(const void* x, const void* b,
                                  const void* coeff, const void* sig,
                                  const void* wd, const void* words, void* y,
                                  int L, int B, int mode, int X, int Y, int Z,
-                                 void* stream) {
+                                 int ty, int seg, int lanes, void* stream) {
   return launch_level_apply_factored<double>(x, b, coeff, sig, wd, words, y,
-                                             L, B, mode, X, Y, Z, stream);
+                                             L, B, mode, X, Y, Z, ty, seg,
+                                             lanes, stream);
+}
+
+// The march's lanes a thread (march_lanes) for B bodies in elements of
+// elem bytes, and the shared memory of a block of ty rows of a level Z
+// points deep with `lanes` lanes in mode `mode` (MarchSmem): what
+// stencil_kernels.march_plan computes.
+int pst_march_lanes(int B, int elem) {
+  return elem == 4 ? march_lanes<float>(B) : march_lanes<double>(B);
+}
+
+long long pst_march_smem(int ty, int Z, int lanes, int B, int mode,
+                         int elem) {
+  return MarchSmem(ty, Z, lanes, B, march_stage(mode)).bytes(elem);
+}
+
+int pst_march_max_threads(int elem) {
+  return elem == 4 ? kMarchMaxThreads<float> : kMarchMaxThreads<double>;
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

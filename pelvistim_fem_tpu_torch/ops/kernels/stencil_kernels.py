@@ -137,7 +137,9 @@ restrict and prolong_add as above (no "prolong_sweep" there):
                                        level_apply's modes with op(x) =
                                        where(free, batched_stencil_spmv(
                                        where(free, x, 0), coeff, sig), x);
-                                       x and b (L, X, Y, Z)
+                                       x and b (L, X, Y, Z); march_plan
+                                       picks kernel 2's tiles or the march
+                                       along axis 0 by a fixed rule
       CUDA: level_apply_factored_cuda  replaces kernel 2 and PyTorch's ops
                                        around it at the body-factored levels
                                        above the tail of _fused_cycle
@@ -206,12 +208,21 @@ FACTORED_MODES = {m: LEVEL_MODES[m] for m in
 # pst_max_smem and pst_coarse_cg_max_points report them).
 TAIL_MAX_LEVELS = 8
 SMEM_MAX = 232448
+# The body-factored kernels' most bodies (kMaxBodies; pst_max_bodies).
+MAX_BODIES = 8
 COARSE_CG_MAX_POINTS = 2048
 _CG_MAX_WARPS = 8
 # The cluster tail's most blocks a cluster (kClusterMaxRanks, the portable
 # cluster size; pst_cluster_max_ranks), which the plan takes where the
 # level has that many planes.
 CLUSTER_MAX_RANKS = 8
+# The body-factored level kernel's march (march_plan): its most threads a
+# block by dtype (kMarchMaxThreads; pst_march_max_threads), and the card
+# it fills: an H100's SMs and shared memory an SM (1 KB of it reserved a
+# block).
+MARCH_MAX_THREADS = {torch.float32: 320, torch.float64: 256}
+SMS = 132
+SMEM_PER_SM = 233472
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -891,6 +902,140 @@ def level_apply_factored_plain(x, b, lv, mode, omega=0.7,
                         lambda xm: spmv(xm, lv.coeff, lv.sig))
 
 
+def march_lanes(bodies, dtype) -> int:
+    """Lanes a thread of the march takes (march_lanes in csrc, kernel 2's
+    lanes_per_thread): its lanes' sigma values within 20 registers' worth,
+    20 // bodies in float32, 10 // bodies in float64, at most 4 or 2."""
+    f32 = dtype == torch.float32
+    k = (20 if f32 else 10) // bodies
+    return max(1, min(k, 4 if f32 else 2))
+
+
+def march_smem(ty, Z, lanes, bodies, dtype, mode) -> int:
+    """Bytes of shared memory of a march block of ty rows of a level Z
+    points deep (MarchSmem in csrc; pst_march_smem reports it): two
+    coefficient tiles (bodies x 27 x ty x Z); a ring of 4 planes of the
+    lanes on the rows and a halo row each side (ty + 2 rows of Z); for
+    "sweep0", whose wd b is formed in shared memory, 5 such planes and two
+    of wd."""
+    es = torch.finfo(dtype).bits // 8
+    slot = lanes * (ty + 2) * Z
+    ring = 7 * slot if mode == "sweep0" else 4 * slot
+    return (2 * bodies * 27 * ty * Z + ring) * es
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """The blocks of one level_apply_factored launch (march_plan): a block
+    takes ty rows of (Y, Z), whole along z, a slab of `lanes` lanes and a
+    segment of `seg` planes along axis 0; nty row tiles, nseg segments and
+    nslab slabs; `threads` a block (ty Z points by the lane groups of
+    march_lanes) and `smem` bytes of shared memory (march_smem).  tiles:
+    the launch keeps kernel 2's tiles (level_apply_factored_kernel)
+    instead of the march, by march_plan's rule; its other fields are then
+    0."""
+    ty: int
+    seg: int
+    lanes: int
+    nty: int
+    nseg: int
+    nslab: int
+    threads: int
+    smem: int
+    tiles: bool = False
+
+    @property
+    def blocks(self) -> int:
+        return self.nty * self.nseg * self.nslab
+
+
+def make_march_plan(lanes, bodies, grid, dtype, mode, ty, seg,
+                    slab) -> MarchPlan | None:
+    """The MarchPlan of tiles of ty rows, segments of `seg` planes and
+    slabs of `slab` lanes for `lanes` lanes of `bodies` bodies on `grid`
+    (X, Y, Z) in `dtype` and `mode`, by the kernel's formulas (march_plan
+    in csrc); None where the kernel refuses it (rows, a segment or a slab
+    larger than the level, more than MARCH_MAX_THREADS[dtype] threads or
+    SMEM_MAX bytes a block)."""
+    X, Y, Z = grid
+    if not (1 <= ty <= Y and 1 <= seg <= X and 1 <= slab <= lanes):
+        return None
+    threads = ty * Z * -(-slab // march_lanes(bodies, dtype))
+    smem = march_smem(ty, Z, slab, bodies, dtype, mode)
+    if threads > MARCH_MAX_THREADS[dtype] or smem > SMEM_MAX:
+        return None
+    return MarchPlan(ty, seg, slab, -(-Y // ty), -(-X // seg),
+                     -(-lanes // slab), threads, smem)
+
+
+def _keeps_tiles(lanes, points, dtype, mode) -> bool:
+    """The fixed rule by which a launch keeps kernel 2's tiles
+    (level_apply_factored_kernel) where the march was slower at the paths'
+    shapes (PERF.md, profile_kernels --factored): from 50,000
+    lane-points (lanes x points) up; in float32 also below 16 lanes,
+    and "sweep0" only from 1,500,000 lane-points up."""
+    n = lanes * points
+    if dtype != torch.float32:
+        return n >= 50_000
+    if mode == "sweep0":
+        return n >= 1_500_000
+    return n >= 50_000 or lanes < 16
+
+
+@functools.lru_cache(maxsize=None)
+def march_plan(lanes, bodies, grid, dtype, mode) -> MarchPlan:
+    """The plan of the body-factored level kernel for `lanes` lanes of
+    `bodies` bodies on grid (X, Y, Z) in `dtype` and `mode`: kernel 2's
+    tiles where _keeps_tiles says so or no march block fits (a level
+    deeper than ~60 points along z with 8 bodies in float64), else
+    march_blocks."""
+    tiles = MarchPlan(0, 0, 0, 0, 0, 0, 0, 0, tiles=True)
+    if _keeps_tiles(lanes, math.prod(int(d) for d in grid), dtype, mode):
+        return tiles
+    try:
+        return march_blocks(lanes, bodies, tuple(int(d) for d in grid),
+                            dtype, mode)
+    except ValueError:
+        return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def march_blocks(lanes, bodies, grid, dtype, mode) -> MarchPlan:
+    """The march's blocks for `lanes` lanes of `bodies` bodies on grid (X,
+    Y, Z) in `dtype` and `mode`: the fewest even lane slabs, then the most
+    rows, an even split of Y, with which two blocks fit an SM's shared
+    memory within MARCH_MAX_THREADS[dtype] threads (one block where none
+    does);
+    then the fewest even segments along axis 0 that make at least two
+    blocks an SM (2 SMS).  Raises ValueError where no block of one row and
+    one lane fits."""
+    X, Y, Z = (int(d) for d in grid)
+    K = march_lanes(bodies, dtype)
+    fits = None
+    for budget in (SMEM_PER_SM // 2 - 1024, SMEM_MAX):
+        for nslab in range(1, lanes + 1):
+            slab = -(-lanes // nslab)
+            top = min(Y, MARCH_MAX_THREADS[dtype] // (Z * -(-slab // K)))
+            for ty in range(top, 0, -1):
+                ty = -(-Y // -(-Y // ty))
+                plan = make_march_plan(lanes, bodies, (X, Y, Z), dtype, mode,
+                                       ty, X, slab)
+                if plan is not None and plan.smem <= budget:
+                    fits = plan
+                    break
+            if fits is not None:
+                break
+        if fits is not None:
+            break
+    if fits is None:
+        raise ValueError(f"march_plan: no block of {lanes} lanes x {bodies} "
+                         f"bodies on {grid} in {dtype} fits")
+    per = fits.nty * fits.nslab
+    nseg = max(1, min(X, -(-2 * SMS // per)))
+    return make_march_plan(lanes, bodies, (X, Y, Z), dtype, mode, fits.ty,
+                           -(-X // nseg), fits.lanes)
+
+
 def _two_product(a, b):
     """(p, e): p = a * b rounded, p + e = a * b exactly (float64; Dekker's
     split of each factor into 26-bit halves)."""
@@ -1016,7 +1161,7 @@ def build(extra_flags=()) -> ctypes.CDLL:
             fn.argtypes = [ptr] * 6 + [i, ptr]
             fn.restype = i
             fn = getattr(lib, f"pst_level_apply_factored_{dt}")
-            fn.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
+            fn.argtypes = [ptr] * 7 + [i] * 9 + [ptr]
             fn.restype = i
             fn = getattr(lib, f"pst_level_prolong_sweep_{dt}")
             fn.argtypes = [ptr] * 10 + [i, i, ptr]
@@ -1031,6 +1176,12 @@ def build(extra_flags=()) -> ctypes.CDLL:
         lib.pst_cluster_tail_smem.restype = ctypes.c_longlong
         lib.pst_tail_clocks.argtypes = [ptr, i]
         lib.pst_tail_clocks.restype = i
+        lib.pst_march_lanes.argtypes = [i, i]
+        lib.pst_march_lanes.restype = i
+        lib.pst_march_smem.argtypes = [i] * 6
+        lib.pst_march_smem.restype = ctypes.c_longlong
+        lib.pst_march_max_threads.argtypes = [i]
+        lib.pst_march_max_threads.restype = i
         for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points,
                    lib.pst_tail_max_levels, lib.pst_max_smem,
                    lib.pst_tail_clock_slots, lib.pst_cluster_max_ranks):
@@ -1348,8 +1499,14 @@ def _dims_level_apply_factored(x, b, lv, mode, omega=0.7):
                          f"{tuple(b.shape)}, wd {tuple(wd.shape)}, coeff "
                          f"{tuple(lv.coeff.shape)}, sig "
                          f"{tuple(lv.sig.shape)}, mask {lv.shape}")
+    if L and not 1 <= B <= MAX_BODIES:
+        raise ValueError(f"{name}: {B} bodies, the kernel takes "
+                         f"1..{MAX_BODIES}")
+    plan = march_plan(L, B, grid, x.dtype, mode) if L else \
+        MarchPlan(1, 1, 1, 0, 0, 0, 0, 0)
     return ((x, b, lv.coeff, lv.sig, wd, words),
-            (L, B, LEVEL_MODES[mode]) + grid,
+            (L, B, LEVEL_MODES[mode]) + grid +
+            (plan.ty, plan.seg, plan.lanes),  # ty 0: the tiles
             f"pst_level_apply_factored_{_SUFFIX[x.dtype]}")
 
 
@@ -1566,9 +1723,10 @@ def prolong_add_cuda(x, xc, tt):
 
 def level_apply_factored_cuda(x, b, lv, mode, omega=0.7):
     """CUDA kernel for level_apply_factored_plain's function (kernel 2's
-    fma order, PyTorch's roundings): x, b (L, X, Y, Z), contiguous, of
-    lv's dtype (float32 or float64) and on its device; x may be None in
-    mode "sweep0", b in mode "masked"; 1..8 bodies."""
+    fma order, PyTorch's roundings; kernel 2's tiles or the march, as
+    march_plan picks): x, b (L, X, Y, Z), contiguous, of lv's dtype
+    (float32 or float64) and on its device; x may be None in mode
+    "sweep0", b in mode "masked"; 1..8 bodies."""
     y = launch("level_apply_factored_cuda", x, b, lv, mode, omega)
     LAUNCHES["level_apply_factored_cuda"] += 1
     return y

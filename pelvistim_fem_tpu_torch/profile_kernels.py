@@ -6,6 +6,8 @@ the V-cycle tail kernel and of the level kernels, timed on a CUDA card.
     python -m pelvistim_fem_tpu_torch.profile_kernels --tail --clocks
     python -m pelvistim_fem_tpu_torch.profile_kernels --levels # levels
     python -m pelvistim_fem_tpu_torch.profile_kernels --factored
+    python -m pelvistim_fem_tpu_torch.profile_kernels --factored \
+        --against <checkout of another tree>
     python -m pelvistim_fem_tpu_torch.profile_kernels --transfers
 
 Builds the kernel library once per variant of the tile constants of
@@ -47,10 +49,15 @@ at the same grids beside them.
 
 The body-factored level kernel (`level_apply_factored_cuda`, its four
 modes) is timed cold and warm at the body-factored levels above the
-paths' tails (FACTORED: the sweep's three at 25 lanes, step04's two at
-15, 5 bodies), first held against the twin and torch.equal to the card's
-route (kernel 2 and PyTorch's ops); kernel 2 is timed cold and warm
-beside it.
+paths' tails (FACTORED: the sweep's three at 25 lanes, the Jacobi MG
+rows' three and step04's two at 15, 5 bodies; the array's three at 8
+and 64 lanes, 3 bodies): the launch `march_plan` makes, and each of its
+kernels forced (the march, `march_blocks`; kernel 2's tiles), each held
+torch.equal to the card's route (kernel 2 and PyTorch's ops), and
+kernel 2 beside the kernel.  With --against DIR, the same wrapper of
+the checkout at DIR (its own build) is timed on the same inputs in
+turns with this tree's (DIR, this, this, DIR; the medians of each
+tree's two).
 
 The transfers (`restrict_cuda`; `level_apply_cuda` in mode
 "prolong_sweep") are built at each of TRANSFER_VARIANTS (the
@@ -65,8 +72,11 @@ replaces) are timed beside it.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -236,55 +246,129 @@ def time_levels(gpu):
                 torch.cuda.empty_cache()
 
 
-# the body-factored level kernel's levels: (lanes, grid) with 5 bodies
-FACTORED = [(25, (89, 41, 19)), (25, (45, 21, 10)), (25, (23, 11, 6)),
-            (15, (55, 31, 19)), (15, (28, 16, 10))]
+# the body-factored level kernel's levels: (lanes, bodies, grid)
+FACTORED = [(25, 5, (89, 41, 19)), (25, 5, (45, 21, 10)),
+            (25, 5, (23, 11, 6)), (15, 5, (89, 41, 19)),
+            (15, 5, (45, 21, 10)), (15, 5, (23, 11, 6)),
+            (15, 5, (55, 31, 19)), (15, 5, (28, 16, 10)),
+            (8, 3, (71, 71, 24)), (8, 3, (36, 36, 13)), (8, 3, (19, 19, 7)),
+            (64, 3, (71, 71, 24)), (64, 3, (36, 36, 13)),
+            (64, 3, (19, 19, 7))]
 
 
-def time_factored(gpu):
+def load_tree(path):
+    """The stencil_kernels module of the checkout at `path` (its kernels
+    built into that checkout's _build/), beside this tree's."""
+    src = Path(path) / "pelvistim_fem_tpu_torch/ops/kernels/stencil_kernels.py"
+    spec = importlib.util.spec_from_file_location("against_stencil_kernels",
+                                                  src)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # its dataclasses look themselves up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def factored_with(plan):
+    """level_apply_factored_cuda's launch with `plan` (a MarchPlan; tiles
+    for kernel 2's tiles) in place of march_plan's, uncounted."""
+    from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    def run(*args):
+        tensors, dims, entry = sk._dims_level_apply_factored(*args)
+        dims = dims[:6] + ((0, 0, 0) if plan.tiles else
+                           (plan.ty, plan.seg, plan.lanes))
+        lib = sk.build()
+        out = torch.empty_like(tensors[0])
+        rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
+                                 out.data_ptr(), *dims,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{entry}: {lib.pst_error_string(rc).decode()}")
+        return out
+    return run
+
+
+def time_factored(gpu, against=None):
     """The body-factored level kernel on FACTORED, f32 and f64, every
-    mode, cold and warm, against the bound; kernel 2 cold and warm at the
-    same shapes."""
+    mode, cold and warm, against the bound: the launch march_plan makes
+    ("plan"), and each of its two kernels forced, the march
+    (march_blocks) and kernel 2's tiles, each held torch.equal to the
+    route; kernel 2 cold and warm at the same shapes.  against: another
+    tree's stencil_kernels (load_tree), its wrapper timed in turns with
+    this tree's plan on the same inputs (other, plan, plan, other)."""
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     for k, u in sorted(sk.ptxas_usage().items()):
-        if k.startswith("level_apply_factored") and k.split(",")[1] == "5":
+        if k.startswith(("level_march", "level_apply_factored")) and \
+                k.split(",")[1] in ("3", "5"):
             print(f"  {k:48s} {u['registers']:4d} regs "
                   f"{u['spill_bytes']:5d} B spilled")
-    print(f"body-factored level kernel device ms cold / warm; {gpu}")
-    kernel = sk.level_apply_factored_cuda
+    print(f"body-factored level kernel device ms cold / warm: the plan's "
+          f"launch" + (" (the other tree's as \"other\", in turns)"
+                       if against else "") + f", the march, the tiles; "
+          f"{gpu}")
     name = "level_apply_factored_cuda"
     rng = np.random.default_rng(3)
+    tiles = sk.MarchPlan(0, 0, 0, 0, 0, 0, 0, 0, tiles=True)
     for dn in ("float32", "float64"):
         dtype = getattr(torch, dn)
-        for L, grid in FACTORED:
+        for L, B, grid in FACTORED:
             for mode in sk.FACTORED_MODES:
-                shape = (mode, 5, (L,) + grid)
-                args = measure.kernel_inputs(name, shape, dtype, "cuda",
-                                             rng)
-                args = (None if mode == "sweep0" else args[0],
-                        None if mode == "masked" else args[1]) + args[2:]
-                ref = sk.level_apply_factored_plain(*args)
+                shape = (mode, B, (L,) + grid)
+                x, b, lv, _, omega = measure.kernel_inputs(
+                    name, shape, dtype, "cuda", rng)
+                args = (None if mode == "sweep0" else x,
+                        None if mode == "masked" else b, lv, mode, omega)
                 route = sk.level_apply_factored_plain(
                     *args, spmv=sk.batched_stencil_spmv_cuda)
-                cold = measure.input_copies(args)
-                warm = measure.input_copies(args, warm=True)
-                y = kernel(*args)
-                measure.check_close(f"{shape} {dn}", y, ref, dtype)
-                if not torch.equal(y, route):
-                    raise AssertionError(f"{shape} {dn}: not the route")
+                measure.check_close(f"{shape} {dn}",
+                                    sk.level_apply_factored_cuda(*args),
+                                    sk.level_apply_factored_plain(*args),
+                                    dtype)
+                plan = sk.march_plan(L, B, grid, dtype, mode)
+                runs = {"plan": sk.level_apply_factored_cuda,
+                        "march": factored_with(sk.march_blocks(
+                            L, B, grid, dtype, mode)),
+                        "tiles": factored_with(tiles)}
+                if against is not None:
+                    runs["other"] = against.level_apply_factored_cuda
+                for k, fn in runs.items():
+                    if not torch.equal(fn(*args), route):
+                        raise AssertionError(f"{shape} {dn} {k}: not the "
+                                             "route")
+                copies = {"cold": measure.input_copies(args),
+                          "warm": measure.input_copies(args, warm=True)}
+                ms = {}
+                for temp, cp in copies.items():
+                    times = {k: [] for k in runs}
+                    order = (["other", "plan", "plan", "other"]
+                             if against is not None else ["plan"])
+                    for k in order:
+                        times[k].append(measure.kernel_ms(runs[k], cp))
+                    for k in runs:
+                        if not times[k]:
+                            times[k].append(measure.kernel_ms(runs[k], cp))
+                    ms[temp] = {k: float(np.median(v))
+                                for k, v in times.items()}
+                cells = "; ".join(
+                    f"{k} " + " / ".join(f"{ms[t][k]:.4f}" for t in ms)
+                    for k in runs)
                 b_ms = measure.bound(name, shape, dn)[0]
-                print(f"  {measure.kernel_ms(kernel, cold):.4f} / "
-                      f"{measure.kernel_ms(kernel, warm):.4f}  {dn} {mode} "
-                      f"L={L} {grid} bound {b_ms:.6f}")
-                del cold
+                kind = "tiles" if plan.tiles else (
+                    f"march: {plan.ty} rows, {plan.lanes} lanes, segments of "
+                    f"{plan.seg}, {plan.blocks} blocks of {plan.threads} "
+                    f"threads, {plan.smem} B")
+                print(f"  {dn} {mode} L={L} B={B} {grid} bound {b_ms:.6f} "
+                      f"({100 * b_ms / ms['cold']['plan']:.0f}% cold); "
+                      f"{cells}; the plan's {kind}", flush=True)
+                del copies
             xs = measure.kernel_inputs("batched_stencil_spmv_cuda",
-                                       (L, 5, grid), dtype, "cuda", rng)
+                                       (L, B, grid), dtype, "cuda", rng)
             k2 = sk.batched_stencil_spmv_cuda
             print(f"  kernel 2 {measure.kernel_ms(k2, measure.input_copies(xs)):.4f}"
                   f" / {measure.kernel_ms(k2, measure.input_copies(xs, warm=True)):.4f}"
-                  f"  {dn} L={L} {grid} bound "
-                  f"{measure.bound('batched_stencil_spmv_cuda', (L, 5, grid), dn)[0]:.6f}")
+                  f"  {dn} L={L} B={B} {grid} bound "
+                  f"{measure.bound('batched_stencil_spmv_cuda', (L, B, grid), dn)[0]:.6f}")
             torch.cuda.empty_cache()
 
 
@@ -605,6 +689,9 @@ def main(argv=None):
                     help="only the level kernels' block sizes")
     ap.add_argument("--factored", action="store_true",
                     help="only the body-factored level kernel")
+    ap.add_argument("--against", metavar="DIR",
+                    help="with --factored: a checkout of another tree "
+                         "whose kernels are timed in turns with these")
     ap.add_argument("--transfers", action="store_true",
                     help="only the restriction and prolong_sweep")
     ap.add_argument("--clocks", action="store_true",
@@ -646,7 +733,11 @@ def main(argv=None):
     if args.levels or every:
         time_levels(gpu)
     if args.factored or every:
-        time_factored(gpu)
+        other = None
+        if args.against:
+            other = load_tree(args.against)
+            other.build()
+        time_factored(gpu, other)
     if args.transfers or every:
         time_transfers(gpu)
     return 0

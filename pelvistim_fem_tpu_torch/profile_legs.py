@@ -4,6 +4,7 @@
     python -m pelvistim_fem_tpu_torch.profile_legs --mg     # MG legs only
     python -m pelvistim_fem_tpu_torch.profile_legs --amg    # AMG legs only
     python -m pelvistim_fem_tpu_torch.profile_legs --calibration
+    python -m pelvistim_fem_tpu_torch.profile_legs --factored
 
 Profiles, warm, with torch.profiler: one 25-lane chunk of the step04
 contact sweep (the rim-banded (89, 41, 19) lattice, the chunk with the
@@ -47,7 +48,9 @@ MG-PCG solve), the 20 Levenberg-Marquardt iterations of run_calibration
 primal, three tangent and one trial solve) and the Gauss-Newton fit of
 --fibers --full (its synthesis solve included), each with its launches
 per MG-CG iteration over the solves' iterations (also in the MG legs,
-`--mg`).
+`--mg`).  `--factored` profiles only the legs whose V-cycles run the
+body-factored level kernel: the sweep chunk and the array's basis and
+ensemble, each with its launches per MG-CG iteration.
 """
 
 from __future__ import annotations
@@ -98,6 +101,8 @@ def main(argv=None):
                     help="only the AMG element-path legs")
     ap.add_argument("--calibration", action="store_true",
                     help="only the differentiable-solve legs")
+    ap.add_argument("--factored", action="store_true",
+                    help="only the legs of the body-factored level kernel")
     args = ap.parse_args(argv)
     mg = args.mg
     if not torch.cuda.is_available():
@@ -137,9 +142,13 @@ def main(argv=None):
         out["sweep"] = batched_mg_solve_fused_refined(scase, hier, tabs,
                                                       tol=1e-8)
 
-    _profile("sweep_chunk", sweep_chunk)
+    n = _profile("sweep_chunk", sweep_chunk)[2]
     it = out["sweep"].iterations.cpu().numpy()
     print(f"  iterations max {it.max()} mean {it.mean():.2f}")
+    _per_iteration(n, int(it.max()))
+    if args.factored:
+        _profile_array(dev, True)
+        return 0
 
     if not mg:
         case, _ = build_pressure_case(params, dtype=torch.float32,

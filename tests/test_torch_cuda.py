@@ -7,6 +7,8 @@ machine with a card (and without JAX, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -118,10 +120,12 @@ def test_kernels_spill_no_registers(dev):
     its four modes and its "prolong_sweep" kernel, restrict at its two
     tiles and prolong_add, in both dtypes; the
     body-factored level kernel at every dtype and body count, from x and
-    from zero) spills to local memory."""
+    from zero, and its march at every dtype, body count and stage, x
+    staged or wd b formed) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2, sorted(usage)
+        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2 + 2 * 8 * 2, \
+        sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
             "plane_fma_row_kernel<double,0,1>",
@@ -135,7 +139,10 @@ def test_kernels_spill_no_registers(dev):
             "level_prolong_sweep_kernel<float>",
             "level_prolong_sweep_kernel<double>",
             "level_apply_factored_kernel<float,5,4,64,0>",
-            "level_apply_factored_kernel<double,5,2,32,1>"} <= set(usage)
+            "level_apply_factored_kernel<double,5,2,32,1>",
+            "level_march_kernel<float,5,4,0>", "level_march_kernel<float,3,4,1>",
+            "level_march_kernel<double,5,2,1>",
+            "level_march_kernel<double,8,1,0>"} <= set(usage)
     spilled = {k: u for k, u in usage.items() if u["spill_bytes"]}
     assert not spilled
 
@@ -849,50 +856,103 @@ def test_level_wrappers_count_and_refuse(dev):
 
 # ── the body-factored level kernel ──────────────────────────────────────
 
-# The sweep's three levels above its tail (25 lanes) and step04's two (15
-# lanes), 5 bodies; and edges: lane counts that fill no lane group or
-# block, 1 and 8 bodies, grids that end mid-tile.
-FACTORED = [(25, (89, 41, 19)), (25, (45, 21, 10)), (25, (23, 11, 6)),
-            (15, (55, 31, 19)), (15, (28, 16, 10))]
+# The body-factored levels above the paths' tails: the sweep's three (25
+# lanes) and step04's two (15 lanes), 5 bodies; the array's fine level at
+# 8 and 64 lanes and its next at 64, 3 bodies.  Edges: lane counts that
+# fill no lane group or slab (L not a multiple of the lanes a thread), 1
+# and 8 bodies, Y x Z smaller than a tile, Z cut into tiles, X not a
+# multiple of a segment.
+FACTORED = [(25, 5, (89, 41, 19)), (25, 5, (45, 21, 10)),
+            (25, 5, (23, 11, 6)), (15, 5, (55, 31, 19)),
+            (15, 5, (28, 16, 10)), (8, 3, (71, 71, 24)),
+            (64, 3, (71, 71, 24)), (64, 3, (36, 36, 13))]
 FACTORED_EDGES = [(1, 1, (9, 7, 5)), (3, 8, (9, 7, 5)), (33, 1, (9, 7, 5)),
-                  (40, 8, (9, 7, 5)), (25, 5, (5, 4, 3))]
+                  (40, 8, (9, 7, 5)), (25, 5, (5, 4, 3)), (2, 8, (6, 2, 2)),
+                  (7, 2, (11, 40, 37)), (13, 4, (6, 3, 70)),
+                  (11, 5, (37, 9, 8))]
 
 
-def _factored_route(x, b, lv, mode, omega=0.7):
-    return sk.level_apply_factored_plain(x, b, lv, mode, omega,
+def _factored_route(*args):
+    return sk.level_apply_factored_plain(*args,
                                          spmv=sk.batched_stencil_spmv_cuda)
 
 
 def _check_factored(dev, dtype, L, B, grid, seed):
+    """Every mode of level_apply_factored_cuda within measure.check_close
+    of its twin and torch.equal to the card's route (kernel 2 and
+    PyTorch's ops)."""
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     dt = getattr(torch, dtype)
-    x, b, lv, _, omega = measure.kernel_inputs(
-        "level_apply_factored_cuda", ("sweep", B, (L,) + grid), dt, dev,
-        np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
     for mode in sk.FACTORED_MODES:
-        xa = None if mode == "sweep0" else x
-        ba = None if mode == "masked" else b
-        y = sk.level_apply_factored_cuda(xa, ba, lv, mode, omega)
+        args = measure.kernel_inputs("level_apply_factored_cuda",
+                                     (mode, B, (L,) + grid), dt, dev, rng)
+        if mode in ("sweep0", "masked"):
+            args = (None if mode == "sweep0" else args[0],
+                    None if mode == "masked" else args[1]) + args[2:]
+        y = sk.level_apply_factored_cuda(*args)
         measure.check_close(f"factored {mode} {L} {B} {grid}", y,
-                            sk.level_apply_factored_plain(xa, ba, lv, mode,
-                                                          omega), dt)
-        assert torch.equal(y, _factored_route(xa, ba, lv, mode, omega)), \
-            mode
+                            sk.level_apply_factored_plain(*args), dt)
+        assert torch.equal(y, _factored_route(*args)), mode
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L,grid", FACTORED)
-def test_factored_level_kernel_matches_twin_and_route(dev, dtype, L, grid):
+@pytest.mark.parametrize("L,B,grid", FACTORED)
+def test_factored_level_kernel_matches_twin_and_route(dev, dtype, L, B,
+                                                      grid):
     """level_apply_factored_cuda in each mode at the paths' body-factored
     levels, within measure.check_close of its twin and torch.equal to the
     card's route (kernel 2 and PyTorch's ops)."""
-    _check_factored(dev, dtype, L, 5, grid, 80)
+    _check_factored(dev, dtype, L, B, grid, 80)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("L,B,grid", FACTORED_EDGES)
 def test_factored_level_kernel_edges(dev, dtype, L, B, grid):
     _check_factored(dev, dtype, L, B, grid, 81)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L,B,grid", [(25, 5, (89, 41, 19)),
+                                      (8, 3, (71, 71, 24)),
+                                      (25, 5, (23, 11, 6))])
+def test_factored_both_kernels_equal_the_route(dev, dtype, L, B, grid):
+    """Each of the plan's two kernels forced, the march (march_blocks)
+    and kernel 2's tiles, in every mode torch.equal to the card's route,
+    whichever march_plan picks at the shape."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    from pelvistim_fem_tpu_torch.profile_kernels import factored_with
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(84)
+    tiles = sk.MarchPlan(0, 0, 0, 0, 0, 0, 0, 0, tiles=True)
+    for mode in sk.FACTORED_MODES:
+        args = measure.kernel_inputs("level_apply_factored_cuda",
+                                     (mode, B, (L,) + grid), dt, dev, rng)
+        if mode in ("sweep0", "masked"):
+            args = (None if mode == "sweep0" else args[0],
+                    None if mode == "masked" else args[1]) + args[2:]
+        want = _factored_route(*args)
+        for plan in (sk.march_blocks(L, B, grid, dt, mode), tiles):
+            assert torch.equal(factored_with(plan)(*args), want), \
+                (mode, plan)
+
+
+def test_march_plan_matches_library(dev):
+    """stencil_kernels' march formulas (march_lanes, march_smem,
+    MARCH_MAX_THREADS) equal the library's (MarchSmem, march_lanes,
+    kMarchMaxThreads) for every body count, dtype and mode at a few tiles
+    (rows, depth along z, lanes)."""
+    lib = sk.build()
+    for B, (dt, es) in itertools.product(range(1, 9), (
+            (torch.float32, 4), (torch.float64, 8))):
+        assert lib.pst_march_max_threads(es) == sk.MARCH_MAX_THREADS[dt]
+        assert lib.pst_march_lanes(B, es) == sk.march_lanes(B, dt)
+        for (ty, Z, lanes), mode in itertools.product(
+                ((1, 1, 1), (3, 19, 25), (2, 24, 64), (7, 5, 3)),
+                sk.FACTORED_MODES):
+            assert lib.pst_march_smem(ty, Z, lanes, B,
+                                      sk.LEVEL_MODES[mode], es) == \
+                sk.march_smem(ty, Z, lanes, B, dt, mode)
 
 
 def test_factored_v_cycle_equals_the_route(dev):
