@@ -85,7 +85,8 @@ through its paths at the benchmark's full sizes, and imports no JAX:
                 tail (the array's: its fine level) timed cold and warm
                 (the same inputs every launch, as
                 the path finds them in L2) beside the twin and the route
-                as one CUDA graph; one V-cycle through them torch.equal to
+                as one CUDA graph, the transfers also beside one
+                torch.einsum; one V-cycle through them torch.equal to
                 the route, 5 launches a level (6 a body-factored one)
   4. sweep      step04 contact sweep: rim-banded (89, 41, 19) lattice,
                 100 log-spaced contact conductivities, certified to a
@@ -631,15 +632,25 @@ PROBE_ROW_P = [1, 2, 5, 27]
 PROBE_ROW_GRIDS = [(3, 5, 7), (4, 6, 5)]
 # the level kernels' tiles cut by the grid's end: restrict_cuda (mask
 # lanes, fine grid) on odd grids (rows of K = 5 entries) and even ones,
-# whose coarse grids end mid-tile, and level_apply_cuda "prolong_sweep"
-# (mode, mask lanes, grid), Z past one tile of 32
+# whose coarse grids end mid-tile; prolong_add_cuda ((grid,)) on grids
+# odd and even along each axis (units of 2 x 2 x 1 points cut by the
+# grid's end, slots clamped at the coarse grid's end), long along z, with
+# 1, 3, 25 and 64 lanes; level_apply_cuda "prolong_sweep" (mode, mask
+# lanes, grid), Z past one tile of 32, and the megatet's fine grid
 TRANSFER_EDGES = [("restrict_cuda", (1, (9, 13, 37))),
                   ("restrict_cuda", (1, (10, 8, 34))),
                   ("restrict_cuda", (3, (3, 9, 13, 37))),
                   ("restrict_cuda", (1, (3, 10, 8, 34))),
+                  ("prolong_add_cuda", ((9, 13, 37),)),
+                  ("prolong_add_cuda", ((3, 10, 8, 34),)),
+                  ("prolong_add_cuda", ((1, 9, 13, 70),)),
+                  ("prolong_add_cuda", ((25, 11, 7, 5),)),
+                  ("prolong_add_cuda", ((25, 12, 7, 70),)),
+                  ("prolong_add_cuda", ((64, 7, 9, 66),)),
                   ("level_apply_cuda", ("prolong_sweep", 1, (9, 13, 37))),
                   ("level_apply_cuda", ("prolong_sweep", 1, (3, 10, 8, 34))),
-                  ("level_apply_cuda", ("prolong_sweep", 3, (3, 9, 13, 37)))]
+                  ("level_apply_cuda", ("prolong_sweep", 3, (3, 9, 13, 37))),
+                  ("level_apply_cuda", ("prolong_sweep", 1, MEGATET_GRID))]
 
 SOURCE = "pelvistim_fem_tpu_torch/ops/kernels/csrc/stencil.cu"
 PALLAS = "pelvistim_fem_tpu/ops/pallas_stencil.py"
@@ -697,19 +708,24 @@ LIBRARY_NOTE = {
                          "27-point stencil with a Jacobi sweep; "
                          "plain_graph_ms is the route it replaces (kernel "
                          "1 and PyTorch's ops) as one CUDA graph replay"),
-    "restrict_cuda": ("no one PyTorch call restricts on a graded lattice "
-                      "(its weights vary per knot); plain_graph_ms is the "
+    "restrict_cuda": ("library_ms: one torch.einsum of r with the dense "
+                      "per-axis restriction matrices (R r on the graded "
+                      "lattice, float32 matmul precision 'highest'), "
+                      "without the coarse mask; plain_graph_ms is the "
                       "route it replaces (three axes of index_select, "
                       "multiplies and adds, the mask) as one CUDA graph"),
-    "prolong_add_cuda": ("no one PyTorch call prolongs on a graded lattice "
-                         "(F.interpolate takes uniform knots); "
+    "prolong_add_cuda": ("library_ms: one torch.einsum of xc with the dense "
+                         "per-axis prolongation matrices (P xc on the "
+                         "graded lattice, float32 matmul precision "
+                         "'highest'), without the add of x; "
                          "plain_graph_ms is the route it replaces as one "
                          "CUDA graph"),
-    PROLONG_SWEEP: ("no one PyTorch call prolongs on a graded lattice and "
-                    "runs a variable-coefficient 27-point stencil with a "
-                    "Jacobi sweep; plain_graph_ms is the route it "
-                    "replaces (prolong_add's ops, kernel 1 and PyTorch's "
-                    "ops) as one CUDA graph replay"),
+    PROLONG_SWEEP: ("no one PyTorch call runs a variable-coefficient "
+                    "27-point stencil with a Jacobi sweep (one einsum "
+                    "prolongs: prolong_add_cuda's library_ms); "
+                    "plain_graph_ms is the route it replaces "
+                    "(prolong_add's ops, kernel 1 and PyTorch's ops) as "
+                    "one CUDA graph replay"),
     "level_apply_factored_cuda": (
         "no one PyTorch call runs a body-factored variable-coefficient "
         "27-point stencil with a Jacobi sweep; plain_graph_ms is the route "
@@ -876,6 +892,7 @@ def phase_parity(dev):
                                      rng)
         run(name, dn, shape, False, args=args)
         route = sk.restrict_plain(*args) if name == "restrict_cuda" else \
+            sk.prolong_add_plain(*args) if name == "prolong_add_cuda" else \
             sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
         if not torch.equal(getattr(sk, name)(*args), route):
             raise AssertionError(f"{name} {shape} {dn}: not the route")
@@ -1419,6 +1436,37 @@ def phase_cluster(dev, results, hiers, starts, rng):
                 "to the route")
 
 
+def transfer_library(name, tt):
+    """One PyTorch call of a transfer's function on tt's graded lattice,
+    the library yardstick of restrict_cuda (R r, without the coarse mask)
+    and prolong_add_cuda (P xc, without the add of x): torch.einsum with
+    the dense per-axis matrices (made here, once), its operands in the
+    order in which einsum's left-to-right contraction is the separable
+    passes (z, then y, then x)."""
+    import torch
+
+    def dense(n, cols, index, weight):
+        m = torch.zeros((n, cols), dtype=weight.dtype, device=weight.device)
+        return m.index_put_(index, weight, accumulate=True)
+
+    fine, coarse = tt.shape
+    if name == "prolong_add_cuda":
+        P = []
+        for (s0, s1, wl, wr), nf, nc in zip(tt.pro, fine, coarse):
+            f = torch.arange(nf, device=wl.device)
+            P.append(dense(nf, nc, (torch.cat([f, f]), torch.cat([s0, s1])),
+                           torch.cat([wl, wr])))
+        return lambda x, xc, tt: torch.einsum(
+            "...abc,zc,yb,xa->...xyz", xc, P[2], P[1], P[0])
+    R = []
+    for (idx, wt), nf, nc in zip(tt.res, fine, coarse):
+        c = torch.arange(nc, device=wt.device)[:, None].expand_as(idx)
+        R.append(dense(nc, nf, (c.reshape(-1), idx.reshape(-1)),
+                       wt.reshape(-1)))
+    return lambda r, tt, free_c: torch.einsum(
+        "...xyz,cz,by,ax->...abc", r, R[2], R[1], R[0])
+
+
 def phase_levels(dev, results, hiers, covered):
     """The level kernels at every level above the tail of the step04 app's,
     the megatet's and step02's hierarchies (hiers: tail_hierarchies), f32
@@ -1533,7 +1581,11 @@ def phase_levels(dev, results, hiers, covered):
                             **({"reps": 5, "warmup": 2} if kind == "bodies"
                                else {}))
                         graph = measure.kernel_ms(routes[kname], copies)
-                        row = (err, ms, pms, shape, call, None, graph)
+                        lib = None
+                        if (kname, mode) in TRANSFERS:
+                            lib = measure.kernel_ms(
+                                transfer_library(kname, tt), copies)
+                        row = (err, ms, pms, shape, call, lib, graph)
                         rkey = PROLONG_SWEEP if mode == "prolong_sweep" \
                             else FACTORED_MARCH if kname == FACTORED and \
                             factored_body(dn, shape) == "march" else kname
@@ -1543,7 +1595,9 @@ def phase_levels(dev, results, hiers, covered):
                         line += (f"; kernel {ms:.4f} ms cold, {warm:.4f} ms "
                                  f"warm (one call with its wrapper "
                                  f"{call:.4f} ms) plain {pms:.4f} ms, the "
-                                 f"route as one CUDA graph {graph:.4f} ms")
+                                 f"route as one CUDA graph {graph:.4f} ms"
+                                 + (f", library (one einsum) {lib:.4f} ms"
+                                    if lib is not None else ""))
                         del copies
                     log(line)
             torch.cuda.empty_cache()
@@ -3279,7 +3333,7 @@ def main():
             else None,
             max_abs_err=err, ms=ms, plain_ms=pms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-            library_note=LIBRARY_NOTE[name] if lib is None else None,
+            library_note=LIBRARY_NOTE[name],
             dtype=dn, shape=str(shape), call_ms=call, other_dtype=None,
             plain_graph_ms=graph, warm_ms=WARM.get((name, dn, shape)),
             replaced_graph_ms=REPLACED.get((name, dn, shape)))

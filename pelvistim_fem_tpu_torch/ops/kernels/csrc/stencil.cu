@@ -1100,7 +1100,9 @@ __device__ void prolong_axis(const T* in, T* out, int o0, int o1, int o2,
 
 // P xc at a fine point as prolong_axis forms it: along x, then y, then
 // z, each value in_s wl + in_(s+1) wr; at(cx, cy, cz) reads xc, (sx, lx,
-// rx) etc. the point's slots and weights along each axis.
+// rx) etc. the point's slots and weights along each axis (the cluster
+// tail's slabs; prolong_add_kernel and level_prolong_sweep_kernel share
+// the passes' values among points: prolong_unit, the halo's pairs).
 template <typename T, typename At>
 __device__ __forceinline__ T prolong_value(At at, int sx, int sy, int sz,
                                            T lx, T rx, T ly, T ry, T lz,
@@ -1737,9 +1739,9 @@ cluster_tail_kernel(const T* __restrict__ b, const T* __restrict__ CA,
 //                        prolongation formed in a tile of shared memory
 //   restrict_kernel      R r masked by the coarse level's free, the three
 //                        axis passes on a tile of shared memory
-//   prolong_add_kernel   x + P xc, all three axis passes, a thread a fine
-//                        point (the body-factored levels, and nu = 0)
-// level_apply_kernel and prolong_add_kernel take one thread a point,
+//   prolong_add_kernel   x + P xc, a thread a unit of 2 x 2 x 1 fine points
+//                        (the body-factored levels, and nu = 0)
+// level_apply_kernel takes one thread a point; the level kernels take
 // lanes on blockIdx.y, 32-bit indices (the launchers
 // refuse S * 27 * G past INT_MAX).  Each point's neighbour word is made once
 // a hierarchy: bit o set where the neighbour along offset o lies in the grid
@@ -1987,42 +1989,126 @@ restrict_kernel(const T* __restrict__ r, const int* __restrict__ itab,
   }
 }
 
-// y = x + P xc at fine point q of lane blockIdx.y (layout as
-// restrict_kernel's), a thread a point.
+// The separable prolongation on a unit of 2 x 2 x 1 fine points, in
+// registers: P xc at (2 a + dx, 2 b + dy, k), dx, dy in {0, 1} (the fine
+// knots 2 a and 2 a + 1 share their slot along x, 2 b and 2 b + 1 along
+// y), formed one axis at a time in prolong_axes' order (x, then y, then
+// z), each value in_s wl + in_(s+1) wr: pass 0 2 x 4 values from the
+// unit's 2 x 2 x 2 coarse footprint, pass 1 2 x 2 x 2, pass 2 2 x 2.  The
+// slot of fine knot f is min(f / 2, nc - 2) (the every-other-knot
+// coarsening of multigrid.Transfer, which _kernel_restrict_idx checks
+// wherever TransferTables are made), so the footprint's address needs no
+// table read; the weights are the tables' (wl[f], then wr[f] nf entries
+// on).  A point past the grid's end (the second of a pair on an odd grid)
+// is formed from the last knot's weights, for the caller to drop.  Each
+// intermediate value is the one prolong_axes forms and prolong_value
+// forms a point at a time, so the result is the route's bit for bit; the
+// unit forms 4 points with 8 coarse reads and 20 values where
+// prolong_value takes 8 reads and 7 values a point.
 template <typename T>
-__global__ void __launch_bounds__(PST_LEVEL_THREADS)
+__device__ __forceinline__ void prolong_unit(const T* __restrict__ xc,
+                                             const T* __restrict__ wtab,
+                                             const TailTransfer& tr,
+                                             const TailLevel& F,
+                                             const TailLevel& Cl, int a,
+                                             int b, int k, T out[2][2]) {
+  const int sx = min(a, Cl.X - 2), sy = min(b, Cl.Y - 2),
+            sz = min(k / 2, Cl.Z - 2);
+  const T* wx = wtab + tr.woff[0];
+  const T* wy = wtab + tr.woff[1];
+  const T* wz = wtab + tr.woff[2];
+  T lx[2], rx[2], ly[2], ry[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const int i = min(2 * a + d, F.X - 1), j = min(2 * b + d, F.Y - 1);
+    lx[d] = wx[i];
+    rx[d] = wx[F.X + i];
+    ly[d] = wy[j];
+    ry[d] = wy[F.Y + j];
+  }
+  const T lz = wz[k], rz = wz[F.Z + k];
+  const T* c = xc + (sx * Cl.Y + sy) * Cl.Z + sz;
+  T v[2][2][2];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    v[e >> 2][e >> 1 & 1][e & 1] =
+        c[((e >> 2) * Cl.Y + (e >> 1 & 1)) * Cl.Z + (e & 1)];
+  }
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    T p0[2][2];  // pass 0: along x, at the coarse (cy, cz)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p0[e >> 1][e & 1] = add_rn(mul_rn(v[0][e >> 1][e & 1], lx[d]),
+                                 mul_rn(v[1][e >> 1][e & 1], rx[d]));
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      T p1[2];  // pass 1: along y, at the coarse cz
+#pragma unroll
+      for (int z = 0; z < 2; ++z) {
+        p1[z] = add_rn(mul_rn(p0[0][z], ly[f]), mul_rn(p0[1][z], ry[f]));
+      }
+      out[d][f] = add_rn(mul_rn(p1[0], lz), mul_rn(p1[1], rz));  // pass 2
+    }
+  }
+}
+
+// y = x + P xc of lane blockIdx.y (layout as restrict_kernel's), a thread
+// a unit of 2 x 2 x 1 fine points (prolong_unit), consecutive threads on
+// consecutive z, so that each of the unit's four x reads and y writes is
+// coalesced along z; the unit's 8 coarse reads and 12 weights come
+// through L1 (neighbouring threads share them), all issued at once.  It
+// replaces the form with a thread a point (8 coarse reads, 6 table reads
+// and 21 roundings a point, each point's coarse addresses waiting on its
+// slots' reads) and was measured against a form with a tile's coarse
+// footprint and three axis passes in shared memory, which was slower than
+// the point-wise form at every path shape (its block's staging, passes
+// and barriers run in series; PERF.md).  Bound by device memory at the
+// lane-stacked levels (x read, y written, xc from L2), by the launch at
+// the small ones.
+#ifndef PST_PA_THREADS
+#define PST_PA_THREADS 256
+#endif
+
+template <typename T>
+__global__ void __launch_bounds__(PST_PA_THREADS)
 prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
-                   const int* __restrict__ itab, const T* __restrict__ wtab,
-                   T* __restrict__ y, const __grid_constant__ TailMeta m) {
+                   const T* __restrict__ wtab, T* __restrict__ y,
+                   const __grid_constant__ TailMeta m) {
   const TailLevel F = m.lv[0], Cl = m.lv[1];
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= F.G) return;
+  const int by = (F.Y + 1) / 2;
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= (F.X + 1) / 2 * by * F.Z) return;
   x += blockIdx.y * F.G;
   y += blockIdx.y * F.G;
   xc += blockIdx.y * Cl.G;
-  const TailTransfer& tr = m.tr[0];
-  int i, j, k;
-  ijk(q, F.Y, F.Z, &i, &j, &k);
-  const T* w0 = wtab + tr.woff[0];
-  const T* w1 = wtab + tr.woff[1];
-  const T* w2 = wtab + tr.woff[2];
-  const T p = prolong_value(
-      [&](int cx, int cy, int cz) {
-        return xc[(cx * Cl.Y + cy) * Cl.Z + cz];
-      },
-      itab[tr.ioff[0] + i], itab[tr.ioff[1] + j], itab[tr.ioff[2] + k],
-      w0[i], w0[F.X + i], w1[j], w1[F.Y + j], w2[k], w2[F.Z + k]);
-  y[q] = add_rn(x[q], p);
+  const int ab = u / F.Z, k = u - ab * F.Z;
+  const int a = ab / by, b = ab - a * by;
+  const int YZ = F.Y * F.Z, q = (2 * a * F.Y + 2 * b) * F.Z + k;
+  const bool hx = 2 * a + 1 < F.X, hy = 2 * b + 1 < F.Y;
+  T xv[2][2];
+  xv[0][0] = x[q];
+  if (hy) xv[0][1] = x[q + F.Z];
+  if (hx) xv[1][0] = x[q + YZ];
+  if (hx && hy) xv[1][1] = x[q + YZ + F.Z];
+  T p[2][2];
+  prolong_unit(xc, wtab, m.tr[0], F, Cl, a, b, k, p);
+  y[q] = add_rn(xv[0][0], p[0][0]);
+  if (hy) y[q + F.Z] = add_rn(xv[0][1], p[0][1]);
+  if (hx) y[q + YZ] = add_rn(xv[1][0], p[1][0]);
+  if (hx && hy) y[q + YZ + F.Z] = add_rn(xv[1][1], p[1][1]);
 }
 
 // level_apply's mode "prolong_sweep" (kProlongSweep): the prolongation
 // and its add folded into the first post-smoothing sweep,
 //   y = x' + wd (b - op(x')),  x' = x + P xc,
-// op as level_apply_kernel's, x' formed as prolong_add_kernel forms it
-// (prolong_value), so y is prolong_add then "sweep" bit for bit; P xc is
-// never written to device memory and read back, and the level's V-cycle
-// takes one launch fewer.  A block takes a tile of PST_PS_TX x ty x tz
-// points of one lane, one point a thread (tz <= PST_PS_TZ cuts Z evenly,
+// op as level_apply_kernel's, x' formed by the separable passes in
+// prolong_axes' order (the values prolong_add_kernel's units form), so y
+// is prolong_add then "sweep" bit for bit; P xc is never written to
+// device memory and read back, and the level's V-cycle takes one launch
+// fewer.  A block takes a tile of PST_PS_TX x ty x tz points of one lane,
+// one point a thread (prolong_sweep_tile: tz <= PST_PS_TZ cuts Z evenly,
 // ty fills the block), in one round trip to device memory:
 //   * Each thread first loads its point's 27 coefficients, word, b and wd
 //     into registers; meanwhile the block copies by cp.async, coalesced
@@ -2031,15 +2117,20 @@ prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
 //     reads (the slot of fine knot f is min(f / 2, nc - 2), the
 //     every-other-knot coarsening of multigrid.Transfer, which
 //     _kernel_restrict_idx checks) and the halo's slots and weights.
-//   * Then x' on the tile and halo, in shared memory (the 8-term
-//     interpolation recomputed on the halo), and each point's apply,
+//   * Then x' on the tile and halo, in shared memory, a pair of fine
+//     knots along z a thread (the two share their slot: passes 0 and 1
+//     once for both, pass 2 and the add a point), and each point's apply,
 //     kernel 1's fma chain in its order on its registers' coefficients
 //     and its neighbours' x' (0 for a neighbour that is not free, as the
 //     neighbour words say), the sweep in PyTorch's roundings.
 // Bound as "sweep" is: by device memory at the megatet's fine level, by
-// the launch and the round trip at the small levels.  (The form without
+// the launch and the round trip at the small levels.  The halo's x' is
+// bound by its latency, not its operations: x' a point a thread
+// (prolong_value) took up to 13% more, and the forms with fewer
+// operations but a longer chain a thread (three passes with two more
+// barriers; runs along z) took 2-20% more (PERF.md).  (The form without
 // shared memory, x' of each neighbour formed on the fly, a thread a
-// point, took 1.2-2.2x the time: PERF.md.)
+// point, took 1.2-2.2x the time.)
 #ifndef PST_PS_TX
 #define PST_PS_TX 2
 #endif
@@ -2052,6 +2143,16 @@ prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
 static_assert(PST_PS_THREADS % 32 == 0 &&
                   PST_PS_TX * PST_PS_TZ <= PST_PS_THREADS,
               "a prolong_sweep block is whole warps, a point a thread");
+
+// The prolong_sweep tile of a grid's (Y, Z): Z cut evenly into tiles of
+// at most PST_PS_TZ points, ty as many rows as the block's threads hold
+// (stencil_kernels.prolong_sweep_tile).
+inline void prolong_sweep_tile(int Y, int Z, int* ty, int* tz) {
+  const int ntz = (Z + PST_PS_TZ - 1) / PST_PS_TZ;
+  *tz = (Z + ntz - 1) / ntz;
+  const int rows = PST_PS_THREADS / (PST_PS_TX * *tz);
+  *ty = rows < 1 ? 1 : (rows < Y ? rows : Y);
+}
 
 // Shared memory of a prolong_sweep block with tile (ty, tz): the halo's
 // x' (tile + 2 an axis), the coarse footprint (at most h / 2 + 3 an axis
@@ -2140,17 +2241,16 @@ level_prolong_sweep_kernel(const T* __restrict__ x, const T* __restrict__ xc,
   // x on the halo (at xs offset h0 - t0 + 1), xc's footprint, z fastest
   const int hp = hn[1] * hn[2], cp = cn[1] * cn[2];
   const FastDiv by_hp(hp), by_hz(hn[2]), by_cp(cp), by_cz(cn[2]);
+  // x' a pair of fine knots along z a thread: the halo's pairs m from
+  // pz0, npz a column
+  const int pz0 = h0[2] >> 1, npz = ((h0[2] + hn[2] - 1) >> 1) - pz0 + 1;
+  const int ncol = hn[0] * hn[1];
+  const FastDiv by_col(ncol), by_hy(hn[1]);
   const int ho0 = ((h0[0] - t0[0] + 1) * H1 + h0[1] - t0[1] + 1) * H2 +
                   h0[2] - t0[2] + 1;
-  const auto halo = [&](int e, int* i, int* j, int* k) {
-    *i = by_hp.div(e);
-    const int jk = e - *i * hp;
-    *j = by_hz.div(jk);
-    *k = jk - *j * hn[2];
-  };
   for (int e = tid; e < hn[0] * hp; e += nt) {
-    int i, j, k;
-    halo(e, &i, &j, &k);
+    const int i = by_hp.div(e), jk = e - i * hp;
+    const int j = by_hz.div(jk), k = jk - j * hn[2];
     cp_async_elem(xs + ho0 + (i * H1 + j) * H2 + k,
                   x + ((h0[0] + i) * F.Y + h0[1] + j) * F.Z + h0[2] + k);
   }
@@ -2161,19 +2261,34 @@ level_prolong_sweep_kernel(const T* __restrict__ x, const T* __restrict__ xc,
                   xc + ((c0[0] + i) * Cl.Y + c0[1] + j) * Cl.Z + c0[2] + k);
   }
   cp_async_wait_block();
-  // x' = x + P xc on the halo, in place
-  for (int e = tid; e < hn[0] * hp; e += nt) {
-    int i, j, k;
-    halo(e, &i, &j, &k);
-    const int ix = ho[0] + i, iy = ho[1] + j, iz = ho[2] + k;
-    const T p = prolong_value(
-        [&](int cx, int cy, int cz) {
-          return xcs[(cx * cn[1] + cy) * cn[2] + cz];
-        },
-        sl[ix] - c0[0], sl[iy] - c0[1], sl[iz] - c0[2], wl[ix], wr[ix],
-        wl[iy], wr[iy], wl[iz], wr[iz]);
-    T* at = xs + ho0 + (i * H1 + j) * H2 + k;
-    *at = add_rn(*at, p);
+  // x' = x + P xc on the halo, in place, a pair of fine knots along z a
+  // thread (2 m and 2 m + 1, which share their slot; cut by the halo's
+  // ends), consecutive threads on consecutive columns (i, j): pass 0
+  // along x at the pair's 2 x 2 coarse (cy, cz), pass 1 along y at its
+  // two cz, then pass 2 along z and the add at each of its points.
+  for (int t = tid; t < ncol * npz; t += nt) {
+    const int mz = by_col.div(t), col = t - mz * ncol;
+    const int i = by_hy.div(col), j = col - i * hn[1];
+    const int ix = ho[0] + i, iy = ho[1] + j;
+    const int f0 = max(2 * (pz0 + mz), h0[2]);
+    const bool two = f0 < min(2 * (pz0 + mz) + 1, h0[2] + hn[2] - 1);
+    const int k0 = f0 - h0[2], iz = ho[2] + k0;
+    T* at = xs + ho0 + (i * H1 + j) * H2 + k0;
+    const T a0 = at[0], a1 = two ? at[1] : T(0);
+    const T lz0 = wl[iz], rz0 = wr[iz];
+    const T lz1 = two ? wl[iz + 1] : T(0), rz1 = two ? wr[iz + 1] : T(0);
+    const T lx = wl[ix], rx = wr[ix], ly = wl[iy], ry = wr[iy];
+    const T* c = xcs + ((sl[ix] - c0[0]) * cn[1] + sl[iy] - c0[1]) * cn[2] +
+                 sl[iz] - c0[2];
+    const T u0 = add_rn(mul_rn(c[0], lx), mul_rn(c[cp], rx));
+    const T u1 = add_rn(mul_rn(c[cn[2]], lx), mul_rn(c[cp + cn[2]], rx));
+    const T u2 = add_rn(mul_rn(c[1], lx), mul_rn(c[cp + 1], rx));
+    const T u3 =
+        add_rn(mul_rn(c[cn[2] + 1], lx), mul_rn(c[cp + cn[2] + 1], rx));
+    const T v0 = add_rn(mul_rn(u0, ly), mul_rn(u1, ry));
+    const T v1 = add_rn(mul_rn(u2, ly), mul_rn(u3, ry));
+    at[0] = add_rn(a0, add_rn(mul_rn(v0, lz0), mul_rn(v1, rz0)));
+    if (two) at[1] = add_rn(a1, add_rn(mul_rn(v0, lz1), mul_rn(v1, rz1)));
   }
   __syncthreads();
   if (!mine) return;
@@ -3144,24 +3259,28 @@ int launch_restrict(const void* r, const void* itab, const void* wtab,
                                          free_lanes, true, &blocks, st);
 }
 
+// prolong_add_kernel on S lanes: a thread a unit of 2 x 2 x 1 fine
+// points, PST_PA_THREADS a block.
 template <typename T>
-int launch_prolong_add(const void* x, const void* xc, const void* itab,
-                       const void* wtab, void* y, const int* meta, int S,
-                       void* stream) {
+int launch_prolong_add(const void* x, const void* xc, const void* wtab,
+                       void* y, const int* meta, int S, void* stream) {
   TailMeta m;
   if (!transfer_meta(meta, S, &m)) return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
-  prolong_add_kernel<T><<<level_grid(m.lv[0].G, S), PST_LEVEL_THREADS, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)xc, (const int*)itab, (const T*)wtab, (T*)y, m);
+  const TailLevel F = m.lv[0];
+  const long long units = (long long)((F.X + 1) / 2) * ((F.Y + 1) / 2) * F.Z;
+  prolong_add_kernel<T><<<dim3((unsigned)((units + PST_PA_THREADS - 1) /
+                                          PST_PA_THREADS),
+                               S),
+                          PST_PA_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
   return (int)cudaGetLastError();
 }
 
 // S lanes with their own stencils in level_apply's mode "prolong_sweep":
 // meta the transfer's layout (as launch_prolong_add's), the neighbour
-// words as launch_level_apply's.  The tile: PST_PS_TX x ty x tz points,
-// Z cut evenly into tiles of at most PST_PS_TZ, ty as many rows as the
-// block's threads hold.
+// words as launch_level_apply's.  The tile: PST_PS_TX x ty x tz points
+// (prolong_sweep_tile).
 template <typename T>
 int launch_level_prolong_sweep(const void* x, const void* xc, const void* b,
                                const void* C, const void* wd,
@@ -3174,11 +3293,10 @@ int launch_level_prolong_sweep(const void* x, const void* xc, const void* b,
   }
   if (S == 0) return 0;
   const TailLevel F = m.lv[0];
-  const int ntz = (F.Z + PST_PS_TZ - 1) / PST_PS_TZ;
-  const int tz = (F.Z + ntz - 1) / ntz;
-  const int ty = std::max(1, std::min(F.Y, PST_PS_THREADS / (PST_PS_TX * tz)));
+  int ty, tz;
+  prolong_sweep_tile(F.Y, F.Z, &ty, &tz);
   const long long tiles = (long long)((F.X + PST_PS_TX - 1) / PST_PS_TX) *
-                          ((F.Y + ty - 1) / ty) * ntz;
+                          ((F.Y + ty - 1) / ty) * ((F.Z + tz - 1) / tz);
   const int smem = PsSmem(ty, tz).bytes((int)sizeof(T));
   if (tiles > INT_MAX || smem > kMaxSmem) {
     return (int)cudaErrorInvalidConfiguration;
@@ -3558,16 +3676,14 @@ int pst_restrict_f64(const void* r, const void* itab, const void* wtab,
                                  free_lanes, stream);
 }
 
-int pst_prolong_add_f32(const void* x, const void* xc, const void* itab,
-                        const void* wtab, void* y, const int* meta, int S,
-                        void* stream) {
-  return launch_prolong_add<float>(x, xc, itab, wtab, y, meta, S, stream);
+int pst_prolong_add_f32(const void* x, const void* xc, const void* wtab,
+                        void* y, const int* meta, int S, void* stream) {
+  return launch_prolong_add<float>(x, xc, wtab, y, meta, S, stream);
 }
 
-int pst_prolong_add_f64(const void* x, const void* xc, const void* itab,
-                        const void* wtab, void* y, const int* meta, int S,
-                        void* stream) {
-  return launch_prolong_add<double>(x, xc, itab, wtab, y, meta, S, stream);
+int pst_prolong_add_f64(const void* x, const void* xc, const void* wtab,
+                        void* y, const int* meta, int S, void* stream) {
+  return launch_prolong_add<double>(x, xc, wtab, y, meta, S, stream);
 }
 
 int pst_level_prolong_sweep_f32(const void* x, const void* xc, const void* b,
@@ -3624,6 +3740,19 @@ long long pst_march_smem(int ty, int Z, int lanes, int B, int mode,
 
 int pst_march_max_threads(int elem) {
   return elem == 4 ? kMarchMaxThreads<float> : kMarchMaxThreads<double>;
+}
+
+// The prolong_sweep tile of a grid's (Y, Z) and its block's shared memory
+// for elements of elem bytes: out = {PST_PS_TX, ty, tz, bytes,
+// PST_PS_THREADS}.
+void pst_prolong_sweep_tile(int Y, int Z, int elem, int* out) {
+  int ty, tz;
+  prolong_sweep_tile(Y, Z, &ty, &tz);
+  out[0] = PST_PS_TX;
+  out[1] = ty;
+  out[2] = tz;
+  out[3] = PsSmem(ty, tz).bytes(elem);
+  out[4] = PST_PS_THREADS;
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

@@ -59,14 +59,19 @@ the checkout at DIR (its own build) is timed on the same inputs in
 turns with this tree's (DIR, this, this, DIR; the medians of each
 tree's two).
 
-The transfers (`restrict_cuda`; `level_apply_cuda` in mode
-"prolong_sweep") are built at each of TRANSFER_VARIANTS (the
+The transfers (`restrict_cuda`, `prolong_add_cuda`; `level_apply_cuda`
+in mode "prolong_sweep") are built at each of TRANSFER_VARIANTS (the
 restriction's tile of coarse points and threads, -DPST_RS_*; the
-prolong_sweep tile and threads, -DPST_PS_*) and timed cold and warm at
-the paths' shapes
-(RESTRICTS, PROLONG_SWEEPS), each build first held torch.equal to the
-route; prolong_add then "sweep" (the two launches "prolong_sweep"
-replaces) are timed beside it.
+prolong_sweep tile and threads, -DPST_PS_*; prolong_add's threads,
+-DPST_PA_THREADS) and timed cold and warm at the
+paths' shapes (RESTRICTS, PROLONG_ADDS, PROLONG_SWEEPS), each build
+first held torch.equal to the route; prolong_add then "sweep" (the two
+launches "prolong_sweep" replaces) are timed beside it.  With --against
+DIR, the checkout at DIR's wrapper of each is timed in turns with this
+tree's default build (DIR, this, this, DIR):
+
+    python -m pelvistim_fem_tpu_torch.profile_kernels --transfers \
+        --against <checkout of another tree>
 """
 
 from __future__ import annotations
@@ -375,14 +380,17 @@ def time_factored(gpu, against=None):
 # the transfers' builds: the restriction's small and large tiles
 # (coarse points x, y), the grid's blocks from which it takes the large
 # one, and its threads; "prolong_sweep"'s tile (fine points x, z at most)
-# and threads.  Defaults (csrc/stencil.cu): rs small (2, 4), large (4,
-# 8), from 264 blocks, 256 threads; ps (2, 32, 128)
-def transfer_flags(rs=None, ps=None):
+# and threads; prolong_add's threads.  Defaults (csrc/stencil.cu): rs
+# small (2, 4), large (4, 8), from 264 blocks, 256 threads; ps (2, 32,
+# 128); pa 256.  Each build varies the three at once: a column is read per
+# kernel.
+def transfer_flags(rs=None, ps=None, pa=None):
     flags = []
     for pre, names, v in (("RS", ("SMALL_TX", "SMALL_TY", "LARGE_TX",
                                   "LARGE_TY", "LARGE_BLOCKS", "THREADS"),
                            rs),
-                          ("PS", ("TX", "TZ", "THREADS"), ps)):
+                          ("PS", ("TX", "TZ", "THREADS"), ps),
+                          ("PA", ("THREADS",), pa)):
         if v is not None:
             flags += [f"-DPST_{pre}_{n}={x}" for n, x in zip(names, v)]
     return tuple(flags)
@@ -390,68 +398,100 @@ def transfer_flags(rs=None, ps=None):
 
 TRANSFER_VARIANTS = {
     "default": transfer_flags(),
-    "small": transfer_flags((2, 4, 4, 8, 1 << 30, 256), (1, 32, 128)),
-    "large": transfer_flags((2, 4, 4, 8, 0, 256), (2, 32, 64)),
+    "small": transfer_flags((2, 4, 4, 8, 1 << 30, 256), (1, 32, 128),
+                            (128,)),
+    "large": transfer_flags((2, 4, 4, 8, 0, 256), (2, 32, 64), (512,)),
     "t3": transfer_flags((2, 4, 4, 4, 264, 256), (4, 32, 256)),
     "t4": transfer_flags((2, 4, 4, 8, 264, 128), (2, 16, 128)),
     "t5": transfer_flags((1, 4, 4, 8, 264, 256), (2, 32, 256)),
 }
 # (mask lanes, fine grid) of the paths' restrictions: the step04 app's
 # two levels, the megatet's three, step02's 8 lanes, the sweep's 25
-# lanes and the array's 64 at their fine levels (one coarse mask); and
-# the levels of level_apply "prolong_sweep" (those with their own
-# stencils)
+# lanes and the array's 64 at their fine levels (one coarse mask); the
+# levels of level_apply "prolong_sweep" (those with their own stencils);
+# the body-factored levels of prolong_add (the sweep's three at 25 lanes,
+# the array's at 64 and 8, step04's linear two at 15)
 RESTRICTS = [(1, (55, 31, 19)), (1, (28, 16, 10)), (1, (112, 68, 41)),
              (1, (57, 35, 21)), (1, (29, 18, 11)), (8, (8, 67, 29, 8)),
              (1, (25, 89, 41, 19)), (1, (64, 71, 71, 24))]
 PROLONG_SWEEPS = [(1, g) for g in LEVELS[:5]] + [(8, LEVELS[5])]
+PROLONG_ADDS = [(25, 89, 41, 19), (25, 45, 21, 10), (25, 23, 11, 6),
+                (64, 71, 71, 24), (64, 36, 36, 13), (8, 71, 71, 24),
+                (15, 55, 31, 19), (15, 28, 16, 10)]
 
 
-def time_transfers(gpu):
-    """restrict_cuda and level_apply_cuda "prolong_sweep" at each of
-    TRANSFER_VARIANTS on RESTRICTS and PROLONG_SWEEPS, f32 and f64, cold
-    / warm, each build held torch.equal to the route; beside
-    "prolong_sweep", prolong_add then "sweep" of the default build."""
+def time_transfers(gpu, against=None):
+    """restrict_cuda, prolong_add_cuda and level_apply_cuda
+    "prolong_sweep" at each of TRANSFER_VARIANTS on RESTRICTS,
+    PROLONG_ADDS and PROLONG_SWEEPS, f32 and f64, cold / warm, each build
+    held torch.equal to the route; beside "prolong_sweep", prolong_add
+    then "sweep" of the default build.  against: another tree's
+    stencil_kernels (load_tree), its wrapper of the same function timed
+    in turns with this tree's default build on the same inputs (other,
+    this, this, other; the medians of each tree's two), as "other"."""
     from pelvistim_fem_tpu_torch.ops.kernels import measure
     from pelvistim_fem_tpu_torch.ops.kernels import stencil_kernels as sk
     for v, fl in TRANSFER_VARIANTS.items():
         for k, u in sorted(sk.ptxas_usage(fl).items()):
-            if k.startswith(("restrict", "level_prolong_sweep")):
+            if k.startswith(("restrict", "level_prolong_sweep",
+                             "prolong_add")):
                 print(f"  {v:8s} {k:36s} {u['registers']:4d} regs "
                       f"{u['spill_bytes']:5d} B spilled")
     print(f"transfers' device ms cold / warm by build "
-          f"{list(TRANSFER_VARIANTS)}; {gpu}")
+          f"{list(TRANSFER_VARIANTS)}"
+          + (" (the other tree's as \"other\", in turns with \"default\")"
+             if against is not None else "") + f"; {gpu}")
     rng = np.random.default_rng(4)
     for dn in ("float32", "float64"):
         dtype = getattr(torch, dn)
         jobs = [("restrict_cuda", s) for s in RESTRICTS] + \
+            [("prolong_add_cuda", (g,)) for g in PROLONG_ADDS] + \
             [("level_apply_cuda", ("prolong_sweep", FL, g))
              for FL, g in PROLONG_SWEEPS]
         for name, shape in jobs:
             args = measure.kernel_inputs(name, shape, dtype, "cuda", rng)
             route = sk.restrict_plain(*args) if name == "restrict_cuda" \
+                else sk.prolong_add_plain(*args) \
+                if name == "prolong_add_cuda" \
                 else sk.level_apply_plain(*args, spmv=sk.stencil_spmv_cuda)
-            cold = measure.input_copies(args)
-            warm = measure.input_copies(args, warm=True)
-            cells = []
+            copies = {"cold": measure.input_copies(args),
+                      "warm": measure.input_copies(args, warm=True)}
+            runs = {}
             for v, fl in TRANSFER_VARIANTS.items():
                 def kernel(*a, _fl=fl):
                     return sk.launch(name, *a, extra_flags=_fl)
-                if not torch.equal(kernel(*args), route):
+                runs[v] = kernel
+            if against is not None:
+                runs["other"] = getattr(against, name)
+            for v, fn in runs.items():
+                if not torch.equal(fn(*args), route):
                     raise AssertionError(f"{v} {name} {shape} {dn}: not "
                                          "the route")
-                cells.append(f"{measure.kernel_ms(kernel, cold):.4f} / "
-                             f"{measure.kernel_ms(kernel, warm):.4f}")
+            ms = {}
+            for temp, cp in copies.items():
+                times = {v: [] for v in runs}
+                if against is not None:
+                    for v in ("other", "default", "default", "other"):
+                        times[v].append(measure.kernel_ms(runs[v], cp))
+                for v in runs:
+                    if not times[v]:
+                        times[v].append(measure.kernel_ms(runs[v], cp))
+                ms[temp] = {v: float(np.median(t))
+                            for v, t in times.items()}
+            cells = [f"{v} {ms['cold'][v]:.4f} / {ms['warm'][v]:.4f}"
+                     for v in runs]
             if name == "level_apply_cuda":      # the two launches replaced
+                cold = copies["cold"]
                 pa = [(c[0], c[5], c[6]) for c in cold]
                 sw = [(c[0], c[1], c[2], "sweep", c[4]) for c in cold]
                 pa_ms = measure.kernel_ms(sk.prolong_add_cuda, pa)
                 sw_ms = measure.kernel_ms(sk.level_apply_cuda, sw)
-                cells.append(f"prolong_add {pa_ms:.4f} + sweep {sw_ms:.4f}")
+                cells.append(f"prolong_add {pa_ms:.4f} + sweep {sw_ms:.4f} "
+                             f"= {pa_ms + sw_ms:.4f}")
             b_ms = measure.bound(name, shape, dn)[0]
-            print(f"  {'   '.join(cells)}  {name} {dn} {shape} bound "
-                  f"{b_ms:.6f}")
-            del cold
+            print(f"  {name} {dn} {shape} bound {b_ms:.6f}: "
+                  + "; ".join(cells), flush=True)
+            del copies
             torch.cuda.empty_cache()
 
 
@@ -690,8 +730,9 @@ def main(argv=None):
     ap.add_argument("--factored", action="store_true",
                     help="only the body-factored level kernel")
     ap.add_argument("--against", metavar="DIR",
-                    help="with --factored: a checkout of another tree "
-                         "whose kernels are timed in turns with these")
+                    help="with --factored or --transfers: a checkout of "
+                         "another tree whose kernels are timed in turns "
+                         "with these")
     ap.add_argument("--transfers", action="store_true",
                     help="only the restriction and prolong_sweep")
     ap.add_argument("--clocks", action="store_true",
@@ -732,14 +773,14 @@ def main(argv=None):
         time_cluster(gpu)
     if args.levels or every:
         time_levels(gpu)
+    other = None
+    if args.against:
+        other = load_tree(args.against)
+        other.build()
     if args.factored or every:
-        other = None
-        if args.against:
-            other = load_tree(args.against)
-            other.build()
         time_factored(gpu, other)
     if args.transfers or every:
-        time_transfers(gpu)
+        time_transfers(gpu, other)
     return 0
 
 

@@ -7,6 +7,7 @@ machine with a card (and without JAX, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import itertools
 
 import numpy as np
@@ -773,6 +774,40 @@ def test_level_kernels_match_twin_and_route(dev, dtype, kind):
                            sk.prolong_add_plain(x, xc, tt))
 
 
+# the prolongation's edges (chip_smoke's TRANSFER_EDGES): prolong_add on
+# grids odd and even along each axis (units cut by the grid's end, slots
+# clamped at the coarse grid's end), long along z, with 1, 3, 25 and 64
+# lanes; "prolong_sweep" at the megatet's fine grid
+PROLONG_EDGES = [("prolong_add_cuda", ((9, 13, 37),)),
+                 ("prolong_add_cuda", ((3, 10, 8, 34),)),
+                 ("prolong_add_cuda", ((1, 9, 13, 70),)),
+                 ("prolong_add_cuda", ((25, 11, 7, 5),)),
+                 ("prolong_add_cuda", ((25, 12, 7, 70),)),
+                 ("prolong_add_cuda", ((64, 7, 9, 66),)),
+                 ("level_apply_cuda", ("prolong_sweep", 1, (112, 68, 41)))]
+
+
+@pytest.mark.parametrize("name,shape", PROLONG_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_prolong_kernels_at_tile_edges(dev, dtype, name, shape):
+    """prolong_add_cuda torch.equal to prolong_add_plain, and
+    "prolong_sweep" to prolong_add_plain then the "sweep" route, at the
+    edges."""
+    from pelvistim_fem_tpu_torch.ops.kernels import measure
+    rng = np.random.default_rng(61)
+    args = measure.kernel_inputs(name, shape, getattr(torch, dtype), dev,
+                                 rng)
+    if name == "prolong_add_cuda":
+        assert torch.equal(sk.prolong_add_cuda(*args),
+                           sk.prolong_add_plain(*args))
+    else:
+        x, b, lv, _, omega, xc, tt = args
+        want = sk.level_apply_plain(sk.prolong_add_plain(x, xc, tt), b, lv,
+                                    "sweep", omega,
+                                    spmv=sk.stencil_spmv_cuda)
+        assert torch.equal(sk.level_apply_cuda(*args), want)
+
+
 def test_v_cycles_through_the_level_kernels_equal_the_route(dev):
     """One V-cycle with the levels above the tail through the level
     kernels torch.equal to the route (route=True), f32 and f64, for one
@@ -953,6 +988,21 @@ def test_march_plan_matches_library(dev):
             assert lib.pst_march_smem(ty, Z, lanes, B,
                                       sk.LEVEL_MODES[mode], es) == \
                 sk.march_smem(ty, Z, lanes, B, dt, mode)
+
+
+def test_prolong_sweep_tile_matches_library(dev):
+    """stencil_kernels.prolong_sweep_tile (the "prolong_sweep" block's
+    tile, shared memory and threads, which the CPU emulation of its halo
+    passes follows) equals the launcher's (pst_prolong_sweep_tile) at the
+    paths' own-stencil grids and at edges along z."""
+    lib = sk.build()
+    out = (ctypes.c_int * 5)()
+    for (Y, Z), es in itertools.product(
+            ((68, 41), (35, 21), (31, 19), (67, 29), (29, 8), (13, 37),
+             (8, 34), (9, 70), (3, 2), (40, 1), (5, 65), (7, 96), (2, 97)),
+            (4, 8)):
+        lib.pst_prolong_sweep_tile(Y, Z, es, out)
+        assert tuple(out) == sk.prolong_sweep_tile(Y, Z, es), (Y, Z, es)
 
 
 def test_factored_v_cycle_equals_the_route(dev):

@@ -197,28 +197,49 @@ def _restrict_nested(r, tt):
     return a2
 
 
-def _prolong_nested(xc, tt):
-    """prolong_add_kernel's order: at each fine point the axis-2 pass over
-    two axis-1 values, each over two axis-0 values."""
-    (sx, _, lx, rx, _), (sy, _, ly, ry, _), (sz, _, lz, rz, _) = _tables(tt)
-    sx, lx, rx = sx[:, None, None], lx[:, None, None], rx[:, None, None]
-    sy, ly, ry = sy[None, :, None], ly[None, :, None], ry[None, :, None]
-    sz, lz, rz = sz[None, None, :], lz[None, None, :], rz[None, None, :]
-
-    def p0(cy, cz):
-        return xc[..., sx, cy, cz] * lx + xc[..., sx + 1, cy, cz] * rx
-
-    def p1(cz):
-        return p0(sy, cz) * ly + p0(sy + 1, cz) * ry
-
-    return p1(sz) * lz + p1(sz + 1) * rz
+def _prolong_units(xc, tt):
+    """P xc as prolong_add_kernel's units form it (prolong_unit): units of
+    2 x 2 x 1 fine points (the x pairs 2 a, 2 a + 1 and y pairs 2 b, 2 b +
+    1), each from its 2 x 2 x 2 coarse footprint at the slots min(f // 2,
+    nc - 2) (held equal to the packed tables' slots) with the packed
+    tables' weights, pass 0 along x, pass 1 along y, pass 2 along z; a
+    point past the grid's end formed from the last knot's weights and
+    dropped."""
+    (X, Y, Z), nc = tt.shape
+    tabs = _tables(tt)
+    for (s0, _, _, _, _), n, c in zip(tabs, (X, Y, Z), nc):
+        assert torch.equal(s0, torch.clamp(torch.arange(n) // 2, max=c - 2))
+    (_, _, lxt, rxt, _), (_, _, lyt, ryt, _), (_, _, lzt, rzt, _) = tabs
+    i0, b, k = torch.arange(0, X, 2), torch.arange((Y + 1) // 2), \
+        torch.arange(Z)
+    sx = torch.clamp(i0 // 2, max=nc[0] - 2)[:, None, None]
+    sy = torch.clamp(b, max=nc[1] - 2)[None, :, None]
+    sz = torch.clamp(k // 2, max=nc[2] - 2)[None, None, :]
+    out = torch.full(tuple(xc.shape[:-3]) + (X, Y, Z), float("nan"),
+                     dtype=xc.dtype)
+    for d in range(2):
+        i = torch.clamp(i0 + d, max=X - 1)
+        lx, rx = lxt[i][:, None, None], rxt[i][:, None, None]
+        p0 = {(cy, cz): xc[..., sx, sy + cy, sz + cz] * lx
+              + xc[..., sx + 1, sy + cy, sz + cz] * rx
+              for cy in (0, 1) for cz in (0, 1)}
+        for f in range(2):
+            j = torch.clamp(2 * b + f, max=Y - 1)
+            ly, ry = lyt[j][None, :, None], ryt[j][None, :, None]
+            p1 = [p0[(0, cz)] * ly + p0[(1, cz)] * ry for cz in (0, 1)]
+            val = p1[0] * lzt[k] + p1[1] * rzt[k]
+            ki, kj = i0 + d < X, 2 * b + f < Y
+            out[..., (i0 + d)[ki][:, None], (2 * b + f)[kj][None, :], :] = \
+                val[..., ki, :, :][..., kj, :]
+    return out
 
 
 @pytest.mark.parametrize("dtype", [F32, F64])
 def test_fused_transfer_orders_equal_the_axis_passes(coarse04, dtype):
-    """The kernels' one-pass orders, on the packed tables as the kernels
-    read them, torch.equal to restrict_axes / prolong_axes at every level,
-    with two lanes."""
+    """The kernels' orders, on the packed tables as the kernels read
+    them, torch.equal to restrict_axes / prolong_axes at every level,
+    with two lanes: the restriction's one pass a coarse point, the
+    prolongation's separable passes on prolong_add_kernel's units."""
     hier, _ = coarse04
     rng = np.random.default_rng(51)
     for tr in hier.transfers:
@@ -228,8 +249,102 @@ def test_fused_transfer_orders_equal_the_axis_passes(coarse04, dtype):
         assert torch.equal(_restrict_nested(r, tt), sk.restrict_axes(r,
                                                                   tt.res))
         xc = _rand(rng, (2,) + coarse, dtype)
-        assert torch.equal(_prolong_nested(xc, tt),
-                           sk.prolong_axes(xc, tt.pro))
+        want = sk.prolong_axes(xc, tt.pro)
+        assert torch.equal(_prolong_units(xc, tt), want)
+
+
+# fine grids odd and even along each axis (coarse grids ending with a
+# clamped slot), the smallest a transfer takes, and one long along z
+PROLONG_GRIDS = [(9, 13, 37), (10, 8, 34), (7, 6, 70), (2, 3, 2),
+                 (11, 2, 5)]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("grid", PROLONG_GRIDS)
+def test_prolong_units_equal_the_axis_passes(grid, dtype, lanes):
+    """prolong_add_kernel's units of 2 x 2 x 1 fine points torch.equal to
+    prolong_axes on graded knots, with 1, 2 and 3 lanes."""
+    from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
+    rng = np.random.default_rng(53)
+    tr = Transfer([np.cumsum(rng.uniform(0.5, 1.5, n)) for n in grid])
+    tt = tr.kernel_tables("cpu", dtype)
+    lead = () if lanes == 1 else (lanes,)
+    xc = _rand(rng, lead + tr.nc, dtype)
+    assert torch.equal(_prolong_units(xc, tt), sk.prolong_axes(xc, tt.pro))
+
+
+def _prolong_sweep_halos(x, xc, tt):
+    """x' = x + P xc as level_prolong_sweep_kernel forms it on each tile's
+    halo (yielded with the halo's slices): the tiles of
+    stencil_kernels.prolong_sweep_tile (cut by the grid's end), each
+    halo's coarse footprint from min(h0 // 2, nc - 2), the halo's pairs
+    of fine knots along z (2 m and 2 m + 1, cut by the halo's ends), which
+    share their slot: pass 0 along x at the pair's 2 x 2 coarse (cy, cz),
+    pass 1 along y at its two cz, pass 2 along z and the add a point."""
+    (X, Y, Z), nc = tt.shape
+    (slx, _, wlx, wrx, _), (sly, _, wly, wry, _), (slz, _, wlz, wrz, _) = \
+        _tables(tt)
+    TX, ty, tz, _, _ = sk.prolong_sweep_tile(Y, Z, x.element_size())
+    nf = (X, Y, Z)
+    for t0 in np.ndindex(-(-X // TX), -(-Y // ty), -(-Z // tz)):
+        t0 = (t0[0] * TX, t0[1] * ty, t0[2] * tz)
+        tn = [min(t, n - a) for t, n, a in zip((TX, ty, tz), nf, t0)]
+        h0 = [max(a - 1, 0) for a in t0]
+        hn = [min(a + t, n - 1) - h + 1
+              for a, t, n, h in zip(t0, tn, nf, h0)]
+        c0 = [min(h // 2, c - 2) for h, c in zip(h0, nc)]
+        cn = [min((h + m - 1) // 2, c - 2) + 2 - o
+              for h, m, c, o in zip(h0, hn, nc, c0)]
+        halo = tuple(slice(h, h + m) for h, m in zip(h0, hn))
+        xs = x[(Ellipsis,) + halo].clone()
+        xcs = xc[(Ellipsis,) + tuple(slice(o, o + m)
+                                     for o, m in zip(c0, cn))]
+        sx = (slx[halo[0]] - c0[0])[:, None]
+        sy = (sly[halo[1]] - c0[1])[None, :]
+        lx, rx = wlx[halo[0]][:, None], wrx[halo[0]][:, None]
+        ly, ry = wly[halo[1]][None, :], wry[halo[1]][None, :]
+        c = [[xcs[..., sx + dx, sy + dy, :] for dy in (0, 1)]
+             for dx in (0, 1)]
+
+        def p1(cz):
+            u0 = c[0][0][..., cz] * lx + c[1][0][..., cz] * rx
+            u1 = c[0][1][..., cz] * lx + c[1][1][..., cz] * rx
+            return u0 * ly + u1 * ry
+
+        end = h0[2] + hn[2] - 1
+        for m in range(h0[2] // 2, end // 2 + 1):
+            f0, f1 = max(2 * m, h0[2]), min(2 * m + 1, end)
+            sz = int(slz[f0]) - c0[2]
+            assert int(slz[f1]) - c0[2] == sz
+            v0, v1 = p1(sz), p1(sz + 1)
+            for f in range(f0, f1 + 1):
+                k = f - h0[2]
+                xs[..., k] = xs[..., k] + (v0 * wlz[f] + v1 * wrz[f])
+        yield halo, xs
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("grid", PROLONG_GRIDS)
+def test_prolong_sweep_halos_equal_the_axis_passes(grid, dtype, lanes):
+    """level_prolong_sweep_kernel's x' on every tile's halo (pairs of fine
+    knots along z cut by the halo's ends, tiles cut by the grid's end,
+    coarse footprints ending mid-tile) torch.equal to x + prolong_axes on
+    graded knots, with 1, 2 and 3 lanes."""
+    from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
+    rng = np.random.default_rng(55)
+    tr = Transfer([np.cumsum(rng.uniform(0.5, 1.5, n)) for n in grid])
+    tt = tr.kernel_tables("cpu", dtype)
+    lead = () if lanes == 1 else (lanes,)
+    x = _rand(rng, lead + tuple(grid), dtype)
+    xc = _rand(rng, lead + tr.nc, dtype)
+    want = x + sk.prolong_axes(xc, tt.pro)
+    seen = torch.zeros(grid, dtype=torch.bool)
+    for halo, xs in _prolong_sweep_halos(x, xc, tt):
+        assert torch.equal(xs, want[(Ellipsis,) + halo])
+        seen[halo] = True
+    assert bool(seen.all())
 
 
 @pytest.mark.parametrize("nu", [0, 1, 2, 3])
