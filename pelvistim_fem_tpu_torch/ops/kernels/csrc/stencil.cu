@@ -2066,13 +2066,16 @@ __device__ __forceinline__ void prolong_unit(const T* __restrict__ xc,
 // the point-wise form at every path shape (its block's staging, passes
 // and barriers run in series; PERF.md).  Bound by device memory at the
 // lane-stacked levels (x read, y written, xc from L2), by the launch at
-// the small ones.
-#ifndef PST_PA_THREADS
-#define PST_PA_THREADS 256
+// the small ones.  THREADS a block: kPaLargeThreads where the grid then
+// has PST_PA_LARGE_BLOCKS blocks, else kPaSmallThreads, so that a small
+// level's units still spread over the SMs (launch_prolong_add).
+#ifndef PST_PA_LARGE_BLOCKS
+#define PST_PA_LARGE_BLOCKS 264
 #endif
+constexpr int kPaLargeThreads = 256, kPaSmallThreads = 64;
 
-template <typename T>
-__global__ void __launch_bounds__(PST_PA_THREADS)
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
                    const T* __restrict__ wtab, T* __restrict__ y,
                    const __grid_constant__ TailMeta m) {
@@ -2145,8 +2148,7 @@ static_assert(PST_PS_THREADS % 32 == 0 &&
               "a prolong_sweep block is whole warps, a point a thread");
 
 // The prolong_sweep tile of a grid's (Y, Z): Z cut evenly into tiles of
-// at most PST_PS_TZ points, ty as many rows as the block's threads hold
-// (stencil_kernels.prolong_sweep_tile).
+// at most PST_PS_TZ points, ty as many rows as the block's threads hold.
 inline void prolong_sweep_tile(int Y, int Z, int* ty, int* tz) {
   const int ntz = (Z + PST_PS_TZ - 1) / PST_PS_TZ;
   *tz = (Z + ntz - 1) / ntz;
@@ -3260,7 +3262,8 @@ int launch_restrict(const void* r, const void* itab, const void* wtab,
 }
 
 // prolong_add_kernel on S lanes: a thread a unit of 2 x 2 x 1 fine
-// points, PST_PA_THREADS a block.
+// points, kPaLargeThreads a block where that grid has PST_PA_LARGE_BLOCKS
+// blocks, else kPaSmallThreads.
 template <typename T>
 int launch_prolong_add(const void* x, const void* xc, const void* wtab,
                        void* y, const int* meta, int S, void* stream) {
@@ -3269,11 +3272,19 @@ int launch_prolong_add(const void* x, const void* xc, const void* wtab,
   if (S == 0) return 0;
   const TailLevel F = m.lv[0];
   const long long units = (long long)((F.X + 1) / 2) * ((F.Y + 1) / 2) * F.Z;
-  prolong_add_kernel<T><<<dim3((unsigned)((units + PST_PA_THREADS - 1) /
-                                          PST_PA_THREADS),
-                               S),
-                          PST_PA_THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
+  const auto blocks = [&](int threads) {
+    return dim3((unsigned)((units + threads - 1) / threads), S);
+  };
+  const cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)blocks(kPaLargeThreads).x * S >= PST_PA_LARGE_BLOCKS) {
+    prolong_add_kernel<T, kPaLargeThreads>
+        <<<blocks(kPaLargeThreads), kPaLargeThreads, 0, st>>>(
+            (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
+  } else {
+    prolong_add_kernel<T, kPaSmallThreads>
+        <<<blocks(kPaSmallThreads), kPaSmallThreads, 0, st>>>(
+            (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -3740,19 +3751,6 @@ long long pst_march_smem(int ty, int Z, int lanes, int B, int mode,
 
 int pst_march_max_threads(int elem) {
   return elem == 4 ? kMarchMaxThreads<float> : kMarchMaxThreads<double>;
-}
-
-// The prolong_sweep tile of a grid's (Y, Z) and its block's shared memory
-// for elements of elem bytes: out = {PST_PS_TX, ty, tz, bytes,
-// PST_PS_THREADS}.
-void pst_prolong_sweep_tile(int Y, int Z, int elem, int* out) {
-  int ty, tz;
-  prolong_sweep_tile(Y, Z, &ty, &tz);
-  out[0] = PST_PS_TX;
-  out[1] = ty;
-  out[2] = tz;
-  out[3] = PsSmem(ty, tz).bytes(elem);
-  out[4] = PST_PS_THREADS;
 }
 
 // Shared memory of a vcycle_tail block for the levels of meta ([n, then X,

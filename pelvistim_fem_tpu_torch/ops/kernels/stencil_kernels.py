@@ -223,10 +223,6 @@ CLUSTER_MAX_RANKS = 8
 MARCH_MAX_THREADS = {torch.float32: 320, torch.float64: 256}
 SMS = 132
 SMEM_PER_SM = 233472
-# level_apply's "prolong_sweep" block (PST_PS_TX, PST_PS_TZ,
-# PST_PS_THREADS: a tile's most points along x and z, its threads;
-# prolong_sweep_tile, pst_prolong_sweep_tile)
-PROLONG_SWEEP_TX, PROLONG_SWEEP_TZ, PROLONG_SWEEP_THREADS = 2, 32, 128
 
 # build(): loaded libraries by nvcc flags, and one build lock per flags
 _libs: dict = {}
@@ -603,22 +599,6 @@ class TransferTables:
         res = [(idx, wt) for idx, (_, wt) in zip(self.kernel_idx, self.res)]
         return _pack_transfers([self.pro], [res], self.shape, w.device,
                                w.dtype)
-
-
-def prolong_sweep_tile(Y, Z, itemsize):
-    """(tx, ty, tz, bytes, threads): the tile of fine points that a
-    "prolong_sweep" block takes on a grid of (Y, Z) (level_prolong_sweep_
-    kernel's launcher: Z cut evenly into tiles of at most
-    PROLONG_SWEEP_TZ, ty as many rows as the block's threads hold), its
-    shared memory for elements of itemsize bytes (the halo's x', the
-    coarse footprint, the halo's slots and weights) and its threads."""
-    TX, threads = PROLONG_SWEEP_TX, PROLONG_SWEEP_THREADS
-    tz = -(-Z // -(-Z // PROLONG_SWEEP_TZ))
-    ty = max(1, min(Y, threads // (TX * tz)))
-    h = (TX + 2, ty + 2, tz + 2)
-    c = [n // 2 + 3 for n in h]
-    values = math.prod(h) + math.prod(c) + 2 * sum(h)
-    return TX, ty, tz, values * itemsize + 4 * sum(h), threads
 
 
 def _level_mode(name, mode, modes=LEVEL_MODES):
@@ -1202,8 +1182,6 @@ def build(extra_flags=()) -> ctypes.CDLL:
         lib.pst_march_smem.restype = ctypes.c_longlong
         lib.pst_march_max_threads.argtypes = [i]
         lib.pst_march_max_threads.restype = i
-        lib.pst_prolong_sweep_tile.argtypes = [i] * 3 + [ptr]
-        lib.pst_prolong_sweep_tile.restype = None
         for fn in (lib.pst_max_bodies, lib.pst_coarse_cg_max_points,
                    lib.pst_tail_max_levels, lib.pst_max_smem,
                    lib.pst_tail_clock_slots, lib.pst_cluster_max_ranks):

@@ -7,7 +7,6 @@ machine with a card (and without JAX, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
-import ctypes
 import itertools
 
 import numpy as np
@@ -119,13 +118,13 @@ def test_kernels_spill_no_registers(dev):
     lanes' combine at
     every dtype and body count, and the level kernels: level_apply in
     its four modes and its "prolong_sweep" kernel, restrict at its two
-    tiles and prolong_add, in both dtypes; the
+    tiles and prolong_add at its two block sizes, in both dtypes; the
     body-factored level kernel at every dtype and body count, from x and
     from zero, and its march at every dtype, body count and stage, x
     staged or wd b formed) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2 + 2 * 8 * 2, \
+        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 * 2 + 2 + 2 * 8 * 2 + 2 * 8 * 2, \
         sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
@@ -136,7 +135,8 @@ def test_kernels_spill_no_registers(dev):
             "cluster_tail_kernel<double>", "combine_lanes_kernel<float,5>",
             "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
             "level_apply_kernel<double,3>", "restrict_kernel<float,2,4>",
-            "restrict_kernel<double,4,8>", "prolong_add_kernel<double>",
+            "restrict_kernel<double,4,8>",
+            "prolong_add_kernel<float,256>", "prolong_add_kernel<double,64>",
             "level_prolong_sweep_kernel<float>",
             "level_prolong_sweep_kernel<double>",
             "level_apply_factored_kernel<float,5,4,64,0>",
@@ -988,21 +988,6 @@ def test_march_plan_matches_library(dev):
             assert lib.pst_march_smem(ty, Z, lanes, B,
                                       sk.LEVEL_MODES[mode], es) == \
                 sk.march_smem(ty, Z, lanes, B, dt, mode)
-
-
-def test_prolong_sweep_tile_matches_library(dev):
-    """stencil_kernels.prolong_sweep_tile (the "prolong_sweep" block's
-    tile, shared memory and threads, which the CPU emulation of its halo
-    passes follows) equals the launcher's (pst_prolong_sweep_tile) at the
-    paths' own-stencil grids and at edges along z."""
-    lib = sk.build()
-    out = (ctypes.c_int * 5)()
-    for (Y, Z), es in itertools.product(
-            ((68, 41), (35, 21), (31, 19), (67, 29), (29, 8), (13, 37),
-             (8, 34), (9, 70), (3, 2), (40, 1), (5, 65), (7, 96), (2, 97)),
-            (4, 8)):
-        lib.pst_prolong_sweep_tile(Y, Z, es, out)
-        assert tuple(out) == sk.prolong_sweep_tile(Y, Z, es), (Y, Z, es)
 
 
 def test_factored_v_cycle_equals_the_route(dev):

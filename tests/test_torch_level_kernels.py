@@ -274,18 +274,18 @@ def test_prolong_units_equal_the_axis_passes(grid, dtype, lanes):
     assert torch.equal(_prolong_units(xc, tt), sk.prolong_axes(xc, tt.pro))
 
 
-def _prolong_sweep_halos(x, xc, tt):
+def _prolong_sweep_halos(x, xc, tt, tile):
     """x' = x + P xc as level_prolong_sweep_kernel forms it on each tile's
-    halo (yielded with the halo's slices): the tiles of
-    stencil_kernels.prolong_sweep_tile (cut by the grid's end), each
-    halo's coarse footprint from min(h0 // 2, nc - 2), the halo's pairs
-    of fine knots along z (2 m and 2 m + 1, cut by the halo's ends), which
-    share their slot: pass 0 along x at the pair's 2 x 2 coarse (cy, cz),
-    pass 1 along y at its two cz, pass 2 along z and the add a point."""
+    halo (yielded with the halo's slices): tiles of tile = (TX, ty, tz)
+    fine points (cut by the grid's end), each halo's coarse footprint from
+    min(h0 // 2, nc - 2), the halo's pairs of fine knots along z (2 m and
+    2 m + 1, cut by the halo's ends), which share their slot: pass 0
+    along x at the pair's 2 x 2 coarse (cy, cz), pass 1 along y at its two
+    cz, pass 2 along z and the add a point."""
     (X, Y, Z), nc = tt.shape
     (slx, _, wlx, wrx, _), (sly, _, wly, wry, _), (slz, _, wlz, wrz, _) = \
         _tables(tt)
-    TX, ty, tz, _, _ = sk.prolong_sweep_tile(Y, Z, x.element_size())
+    TX, ty, tz = tile
     nf = (X, Y, Z)
     for t0 in np.ndindex(-(-X // TX), -(-Y // ty), -(-Z // tz)):
         t0 = (t0[0] * TX, t0[1] * ty, t0[2] * tz)
@@ -324,6 +324,14 @@ def _prolong_sweep_halos(x, xc, tt):
         yield halo, xs
 
 
+# "prolong_sweep" tiles (TX, ty, tz): the kernel's 2 points along x, with
+# the launcher's (ty, tz) at PROLONG_GRIDS (Z cut evenly into runs of at
+# most 32, ty the rows a 128-thread block holds, cut by the grid's end)
+# and one more, even in y and z
+PROLONG_SWEEP_TILES = [(2, 3, 19), (2, 3, 17), (2, 2, 24), (2, 12, 5),
+                       (2, 32, 2), (2, 4, 8)]
+
+
 @pytest.mark.parametrize("lanes", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [F32, F64])
 @pytest.mark.parametrize("grid", PROLONG_GRIDS)
@@ -331,7 +339,7 @@ def test_prolong_sweep_halos_equal_the_axis_passes(grid, dtype, lanes):
     """level_prolong_sweep_kernel's x' on every tile's halo (pairs of fine
     knots along z cut by the halo's ends, tiles cut by the grid's end,
     coarse footprints ending mid-tile) torch.equal to x + prolong_axes on
-    graded knots, with 1, 2 and 3 lanes."""
+    graded knots, with 1, 2 and 3 lanes, at each of PROLONG_SWEEP_TILES."""
     from pelvistim_fem_tpu_torch.ops.multigrid import Transfer
     rng = np.random.default_rng(55)
     tr = Transfer([np.cumsum(rng.uniform(0.5, 1.5, n)) for n in grid])
@@ -340,11 +348,12 @@ def test_prolong_sweep_halos_equal_the_axis_passes(grid, dtype, lanes):
     x = _rand(rng, lead + tuple(grid), dtype)
     xc = _rand(rng, lead + tr.nc, dtype)
     want = x + sk.prolong_axes(xc, tt.pro)
-    seen = torch.zeros(grid, dtype=torch.bool)
-    for halo, xs in _prolong_sweep_halos(x, xc, tt):
-        assert torch.equal(xs, want[(Ellipsis,) + halo])
-        seen[halo] = True
-    assert bool(seen.all())
+    for tile in PROLONG_SWEEP_TILES:
+        seen = torch.zeros(grid, dtype=torch.bool)
+        for halo, xs in _prolong_sweep_halos(x, xc, tt, tile):
+            assert torch.equal(xs, want[(Ellipsis,) + halo]), tile
+            seen[halo] = True
+        assert bool(seen.all()), tile
 
 
 @pytest.mark.parametrize("nu", [0, 1, 2, 3])
