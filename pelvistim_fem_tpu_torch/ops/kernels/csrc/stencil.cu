@@ -2066,16 +2066,13 @@ __device__ __forceinline__ void prolong_unit(const T* __restrict__ xc,
 // the point-wise form at every path shape (its block's staging, passes
 // and barriers run in series; PERF.md).  Bound by device memory at the
 // lane-stacked levels (x read, y written, xc from L2), by the launch at
-// the small ones.  THREADS a block: kPaLargeThreads where the grid then
-// has PST_PA_LARGE_BLOCKS blocks, else kPaSmallThreads, so that a small
-// level's units still spread over the SMs (launch_prolong_add).
-#ifndef PST_PA_LARGE_BLOCKS
-#define PST_PA_LARGE_BLOCKS 264
-#endif
-constexpr int kPaLargeThreads = 256, kPaSmallThreads = 64;
+// the small ones.  64 threads a block at every grid: at the paths' eight
+// shapes 256 threads, or 256 from two blocks an SM up, took as long or
+// longer (PERF.md).
+constexpr int kPaThreads = 64;
 
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <typename T>
+__global__ void __launch_bounds__(kPaThreads)
 prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ xc,
                    const T* __restrict__ wtab, T* __restrict__ y,
                    const __grid_constant__ TailMeta m) {
@@ -3262,8 +3259,7 @@ int launch_restrict(const void* r, const void* itab, const void* wtab,
 }
 
 // prolong_add_kernel on S lanes: a thread a unit of 2 x 2 x 1 fine
-// points, kPaLargeThreads a block where that grid has PST_PA_LARGE_BLOCKS
-// blocks, else kPaSmallThreads.
+// points, kPaThreads a block.
 template <typename T>
 int launch_prolong_add(const void* x, const void* xc, const void* wtab,
                        void* y, const int* meta, int S, void* stream) {
@@ -3272,19 +3268,10 @@ int launch_prolong_add(const void* x, const void* xc, const void* wtab,
   if (S == 0) return 0;
   const TailLevel F = m.lv[0];
   const long long units = (long long)((F.X + 1) / 2) * ((F.Y + 1) / 2) * F.Z;
-  const auto blocks = [&](int threads) {
-    return dim3((unsigned)((units + threads - 1) / threads), S);
-  };
-  const cudaStream_t st = (cudaStream_t)stream;
-  if ((long long)blocks(kPaLargeThreads).x * S >= PST_PA_LARGE_BLOCKS) {
-    prolong_add_kernel<T, kPaLargeThreads>
-        <<<blocks(kPaLargeThreads), kPaLargeThreads, 0, st>>>(
-            (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
-  } else {
-    prolong_add_kernel<T, kPaSmallThreads>
-        <<<blocks(kPaSmallThreads), kPaSmallThreads, 0, st>>>(
-            (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
-  }
+  prolong_add_kernel<T>
+      <<<dim3((unsigned)((units + kPaThreads - 1) / kPaThreads), S),
+         kPaThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)x, (const T*)xc, (const T*)wtab, (T*)y, m);
   return (int)cudaGetLastError();
 }
 

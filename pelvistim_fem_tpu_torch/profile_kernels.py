@@ -62,10 +62,8 @@ tree's two).
 The transfers (`restrict_cuda`, `prolong_add_cuda`; `level_apply_cuda`
 in mode "prolong_sweep") are built at each of TRANSFER_VARIANTS (the
 restriction's tile of coarse points and threads, -DPST_RS_*; the
-prolong_sweep tile and threads, -DPST_PS_*; the grid's blocks from
-which prolong_add takes 256 threads a block over 64, -DPST_PA_LARGE_BLOCKS:
-"small" and "large" force each) and timed cold and warm at the
-paths' shapes (RESTRICTS, PROLONG_ADDS, PROLONG_SWEEPS), each build
+prolong_sweep tile and threads, -DPST_PS_*) and timed cold and warm
+at the paths' shapes (RESTRICTS, PROLONG_ADDS, PROLONG_SWEEPS), each build
 first held torch.equal to the route; prolong_add then "sweep" (the two
 launches "prolong_sweep" replaces) are timed beside it.  With --against
 DIR, the checkout at DIR's wrapper of each is timed in turns with this
@@ -381,18 +379,15 @@ def time_factored(gpu, against=None):
 # the transfers' builds: the restriction's small and large tiles
 # (coarse points x, y), the grid's blocks from which it takes the large
 # one, and its threads; "prolong_sweep"'s tile (fine points x, z at most)
-# and threads; the grid's blocks (at 256 threads) from which prolong_add
-# takes 256 threads over 64.  Defaults (csrc/stencil.cu): rs small (2, 4),
-# large (4, 8), from 264 blocks, 256 threads; ps (2, 32, 128); pa from 264
-# blocks.  Each build varies the three at once: a column is read per
-# kernel.
-def transfer_flags(rs=None, ps=None, pa=None):
+# and threads.  Defaults (csrc/stencil.cu): rs small (2, 4), large (4,
+# 8), from 264 blocks, 256 threads; ps (2, 32, 128).  Each build varies
+# both at once: a column is read per kernel.
+def transfer_flags(rs=None, ps=None):
     flags = []
     for pre, names, v in (("RS", ("SMALL_TX", "SMALL_TY", "LARGE_TX",
                                   "LARGE_TY", "LARGE_BLOCKS", "THREADS"),
                            rs),
-                          ("PS", ("TX", "TZ", "THREADS"), ps),
-                          ("PA", ("LARGE_BLOCKS",), pa)):
+                          ("PS", ("TX", "TZ", "THREADS"), ps)):
         if v is not None:
             flags += [f"-DPST_{pre}_{n}={x}" for n, x in zip(names, v)]
     return tuple(flags)
@@ -400,9 +395,8 @@ def transfer_flags(rs=None, ps=None, pa=None):
 
 TRANSFER_VARIANTS = {
     "default": transfer_flags(),
-    "small": transfer_flags((2, 4, 4, 8, 1 << 30, 256), (1, 32, 128),
-                            (1 << 30,)),
-    "large": transfer_flags((2, 4, 4, 8, 0, 256), (2, 32, 64), (0,)),
+    "small": transfer_flags((2, 4, 4, 8, 1 << 30, 256), (1, 32, 128)),
+    "large": transfer_flags((2, 4, 4, 8, 0, 256), (2, 32, 64)),
     "t3": transfer_flags((2, 4, 4, 4, 264, 256), (4, 32, 256)),
     "t4": transfer_flags((2, 4, 4, 8, 264, 128), (2, 16, 128)),
     "t5": transfer_flags((1, 4, 4, 8, 264, 256), (2, 32, 256)),

@@ -118,13 +118,13 @@ def test_kernels_spill_no_registers(dev):
     lanes' combine at
     every dtype and body count, and the level kernels: level_apply in
     its four modes and its "prolong_sweep" kernel, restrict at its two
-    tiles and prolong_add at its two block sizes, in both dtypes; the
+    tiles and prolong_add, in both dtypes; the
     body-factored level kernel at every dtype and body count, from x and
     from zero, and its march at every dtype, body count and stage, x
     staged or wd b formed) spills to local memory."""
     usage = sk.ptxas_usage()
     assert len(usage) == 2 + 2 * 2 * 8 + 1 + 2 + 2 * 3 * 2 + 2 * 4 * 2 + 2 \
-        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 * 2 + 2 + 2 * 8 * 2 + 2 * 8 * 2, \
+        + 2 + 2 * 8 + 2 * 4 + 2 * 2 + 2 + 2 + 2 * 8 * 2 + 2 * 8 * 2, \
         sorted(usage)
     assert {"stencil_spmv_bf16c_kernel", "plane_fma_kernel<float>",
             "plane_fma_kernel<double>", "plane_fma_row_kernel<float,27,4>",
@@ -135,8 +135,7 @@ def test_kernels_spill_no_registers(dev):
             "cluster_tail_kernel<double>", "combine_lanes_kernel<float,5>",
             "combine_lanes_kernel<double,8>", "level_apply_kernel<float,0>",
             "level_apply_kernel<double,3>", "restrict_kernel<float,2,4>",
-            "restrict_kernel<double,4,8>",
-            "prolong_add_kernel<float,256>", "prolong_add_kernel<double,64>",
+            "restrict_kernel<double,4,8>", "prolong_add_kernel<double>",
             "level_prolong_sweep_kernel<float>",
             "level_prolong_sweep_kernel<double>",
             "level_apply_factored_kernel<float,5,4,64,0>",
